@@ -1,0 +1,145 @@
+"""DenseNet121 with 3D convolutions — the CT encoder.
+
+Port of ``multimodal_survival_prediction_tpu/models/densenet3d.py``: the
+architecture of MONAI's ``DenseNet121(spatial_dims=3, in_channels=1,
+out_channels=128)``, with MONAI's state_dict key names
+(``features.denseblock1.denselayer1.layers.norm1.weight``, ...,
+``class_layers.out.weight``) so exported weights load strictly:
+
+  conv0 7^3/s2 (64ch, no bias) -> BN -> ReLU -> maxpool 3^3/s2 pad 1 (-inf)
+  dense blocks (6, 12, 24, 16), growth 32, bottleneck 4*growth 1x1x1
+  transitions: BN -> ReLU -> 1x1x1 conv (channels/2) -> avgpool 2^3/s2
+  final BN -> ReLU -> global avg pool -> Linear(1024 -> out_features)
+
+Init matches MONAI: kaiming-normal conv weights, BN gamma=1/beta=0, head
+Linear bias=0 (weight keeps torch Linear default).
+
+Input is channels-last (B, D, H, W, 1), the JAX layout; it is permuted to
+NCDHW inside.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import BatchNorm, conv3d, default_generator, to_ncdhw, torch_linear
+
+_FUSED_TODO = (
+    "fused_bn1 in train mode runs the fused BN->ReLU->1x1-conv kernels "
+    "(ops/fused_dense.py in the JAX package), which are not ported yet: "
+    "ROADMAP.md Queue 2, items 2-6 (training slice)")
+
+
+class _DenseLayer(nn.Module):
+    def __init__(self, in_ch, growth_rate, bn_size, dropout, gen):
+        super().__init__()
+        mid = bn_size * growth_rate
+        # MONAI nests the layer's modules under `.layers.`
+        self.layers = nn.ModuleDict({
+            "norm1": BatchNorm(in_ch),
+            "conv1": conv3d(in_ch, mid, 1, bias=False, kaiming=True,
+                            generator=gen),
+            "norm2": BatchNorm(mid),
+            "conv2": conv3d(mid, growth_rate, 3, bias=False, kaiming=True,
+                            generator=gen),
+        })
+        self.dropout = dropout
+
+    def forward(self, x):
+        m = self.layers
+        y = m["conv1"](F.relu(m["norm1"](x)))
+        y = m["conv2"](F.relu(m["norm2"](y)))
+        if self.dropout > 0:
+            y = F.dropout(y, self.dropout, self.training)
+        return torch.cat([x, y], dim=1)
+
+
+class _Transition(nn.Module):
+    def __init__(self, in_ch, out_ch, gen):
+        super().__init__()
+        self.norm = BatchNorm(in_ch)
+        self.conv = conv3d(in_ch, out_ch, 1, bias=False, kaiming=True,
+                           generator=gen)
+
+    def forward(self, x):
+        return F.avg_pool3d(self.conv(F.relu(self.norm(x))), 2, 2)
+
+
+class DenseNet121_3D(nn.Module):
+    """Input (B, D, H, W, 1) -> features (B, out_features).
+
+    ``trunk`` ('concat' | 'dus') is kept for checkpoint and CLI parity; both
+    compute the same concatenated trunk here (the JAX 'dus' variant only
+    changes XLA's buffer plan, densenet3d.py:233-235 there).
+    ``fused_bn1`` (bool, or an int rows threshold B*D*H*W) selects the fused
+    BN->ReLU->1x1-conv stage in TRAIN mode; that kernel belongs to the
+    training slice and raises ``NotImplementedError`` until then. In eval
+    mode it is ignored, as in JAX.
+    """
+
+    def __init__(self, out_features: int = 128, init_features: int = 64,
+                 growth_rate: int = 32,
+                 block_config: Sequence[int] = (6, 12, 24, 16),
+                 bn_size: int = 4, dropout: float = 0.0,
+                 trunk: str = "concat", fused_bn1: bool | int = False,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if trunk not in ("concat", "dus"):
+            raise ValueError(f"unknown trunk {trunk!r}")
+        gen = default_generator(generator)
+        self.block_config = tuple(block_config)
+        self.trunk = trunk
+        self.fused_bn1 = fused_bn1
+        feats = {
+            "conv0": conv3d(1, init_features, 7, stride=2, bias=False,
+                            kaiming=True, generator=gen),
+            "norm0": BatchNorm(init_features),
+        }
+        channels = init_features
+        for bi, num_layers in enumerate(self.block_config):
+            block = nn.ModuleDict()
+            for li in range(num_layers):
+                block[f"denselayer{li + 1}"] = _DenseLayer(
+                    channels + li * growth_rate, growth_rate, bn_size,
+                    dropout, gen)
+            feats[f"denseblock{bi + 1}"] = block
+            channels += num_layers * growth_rate
+            if bi != len(self.block_config) - 1:
+                feats[f"transition{bi + 1}"] = _Transition(
+                    channels, channels // 2, gen)
+                channels //= 2
+        feats["norm5"] = BatchNorm(channels)
+        self.features = nn.ModuleDict(feats)
+        self.class_layers = nn.ModuleDict({"out": torch_linear(
+            channels, out_features, generator=gen, zero_bias=True)})
+
+    def _fuse_rows(self, rows: int) -> bool:
+        if isinstance(self.fused_bn1, bool):
+            return self.fused_bn1
+        return rows <= int(self.fused_bn1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # Each spatial dim is halved by conv0, the pool, and every transition;
+        # dims that bottom out at zero would give silent NaNs (empty mean).
+        min_dim = 2 ** (2 + len(self.block_config) - 1)
+        if any(s < min_dim for s in x.shape[1:4]):
+            raise ValueError(
+                f"DenseNet121_3D needs spatial dims >= {min_dim}, got "
+                f"{tuple(x.shape[1:4])} (use backbone='simple_cnn' for tiny "
+                "inputs)")
+        f = self.features
+        x = F.relu(f["norm0"](f["conv0"](to_ncdhw(x))))
+        x = F.max_pool3d(x, 3, 2, padding=1)  # torch pads max-pool with -inf
+        for bi in range(len(self.block_config)):
+            if self.training and self._fuse_rows(x.shape[0] * x[0, 0].numel()):
+                raise NotImplementedError(_FUSED_TODO)
+            for layer in f[f"denseblock{bi + 1}"].values():
+                x = layer(x)
+            if bi != len(self.block_config) - 1:
+                x = f[f"transition{bi + 1}"](x)
+        x = F.relu(f["norm5"](x))
+        return self.class_layers["out"](x.mean(dim=(2, 3, 4)))
