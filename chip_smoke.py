@@ -8,14 +8,17 @@ result then):
   1. device: needs CUDA; prints the card's name and power limit
      (nvidia-smi) and turns TF32 off for matmul and cuDNN — the JAX
      reference contracts at precision="highest".
-  2. build: compiles ops/csrc/resample_wpass.cu from this checkout (nvcc,
-     sm_90a) and prints the build time and ptxas report.
+  2. build: compiles ops/csrc/resample_wpass.cu and ops/csrc/fused_dense.cu
+     from this checkout (one nvcc each, started together; sm_90a) and prints
+     the build times and ptxas reports.
   3. kernel vs plain: the W-pass kernel against its plain torch version on
      CT-sized volumes (int16 128x512x512, ragged int16 97x500x500, float32,
      uint8, an HU-window case): max |d| <= 2e-6 on the normalized output,
-     exact min/max; CUDA-event times of the kernel, the plain version and
-     one library call (torch.matmul of the f32 rows with rx^T, which covers
-     the contraction only), beside the H100's memory bound.
+     exact min/max; device times (torch.profiler kernel durations) of the
+     kernel, the plain version and one library call (torch.matmul of the
+     f32 rows with rx^T, which covers the contraction only), beside the
+     H100's memory bound, and the kernel's per-call time by CUDA events
+     (host dispatch included where it is the longer).
   4. cohort + checkpoint: a synthetic cohort (12 patients, 5,005 genes,
      int16 CTs of real in-plane size as .nii) and a seeded full-width
      partial_modality model (DenseNet121-3D, 64x64x32) with non-trivial
@@ -27,7 +30,26 @@ result then):
   6. server: RiskScorer + make_server on 127.0.0.1 — /healthz, /score,
      /score_batch, a malformed request (400); /score agrees with
      predict_risk within 1e-4.
-  7. summary: one JSON line of per-kernel numbers, then the final line
+  7. fused kernels vs plain: the four fused BN->ReLU->1x1-conv kernels
+     (moments, apply, bwd_reduce, bwd_dx) against their plain versions on
+     the same inputs at the training path's shapes (16,384x64->128 ...
+     32x992->128, and a ragged one), then the autograd op against torch
+     autograd through bn_relu_conv1x1_reference; outputs to rtol 1e-5 and
+     gradients to rtol 1e-4, each with atol 1e-5 x the tensor's largest
+     |value|. Device times at 16,384x224->128 beside the H100 bound, the
+     plain version and a library call, as in phase 3.
+  8. training (the main path of the training slice): a Trainer on
+     PartialModalityNet(fused_bn1=True) at full width takes two epochs over
+     the phase-4 cohort (batch 8) and a pooled evaluation; each fused
+     kernel's launch count, reset just before, must be 61 x the steps just
+     after (none in evaluation). Then the same seeds with fused_bn1=False
+     (BatchNorm + cuDNN 1x1 conv), and the fused path once more: the first
+     step's loss within 1e-5 relative, later steps within 2e-2 (Adam's
+     drift, see LOSS_DRIFT_RTOL), hazards within a tenth of their range,
+     C-index within the comparable pairs whose order that hazard difference
+     could swap. ms per train step by CUDA events, and a torch.profiler
+     breakdown of one step, for both.
+  9. summary: one JSON line of per-kernel numbers, then the final line
      {"ok": true, "device": {...}}.
 
 Everything it writes goes under build/ in this checkout (kernel build,
@@ -53,6 +75,18 @@ H100_F32_OPS_PER_S = 67e12  # fp32 outside the tensor cores
 RESAMPLE_TOL = 2e-6
 RISK_TOL = 1e-4
 OUT_W = 32
+SOURCES = ("resample_wpass.cu", "fused_dense.cu")
+FUSED_FWD_RTOL = 1e-5   # fused kernels: outputs and batch statistics
+FUSED_GRAD_RTOL = 1e-4  # ... gradients
+FUSED_ATOL = 1e-5       # times max(1, the tensor's largest |value|)
+# fused vs unfused training from the same weights, batches and dropout
+# masks: the first step's loss to FIRST_LOSS_RTOL; later steps only to
+# LOSS_DRIFT_RTOL, because Adam steps every parameter by about lr whatever
+# its gradient's size, so last-bit differences (and ReLU-kink flips) grow:
+# the same path run twice drifts too, which the phase shows beside it
+FIRST_LOSS_RTOL = 1e-5
+LOSS_DRIFT_RTOL = 2e-2
+HAZARD_SPREAD_TOL = 0.1  # max |d hazard| over the hazards' range (max - min)
 
 
 def check(cond, msg):
@@ -64,9 +98,31 @@ def log(msg):
     print(f"chip_smoke: {msg}", flush=True)
 
 
+def device_ms(fn, warmup=3, iters=20):
+    """Mean device milliseconds per call of ``fn``: the summed durations of
+    the GPU kernels (and copies) it launched over ``iters`` calls, from
+    torch.profiler, so host dispatch between launches does not count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    check(us > 0, "torch.profiler recorded no device time")
+    return us / iters / 1e3
+
+
 def cuda_ms(fn, warmup=3, iters=20):
     """Mean milliseconds per call of ``fn`` on the current stream, by CUDA
-    events around ``iters`` calls after ``warmup``."""
+    events around ``iters`` back-to-back calls after ``warmup``: the device
+    time, or the host's dispatch time where that is longer."""
     import torch
 
     for _ in range(warmup):
@@ -105,15 +161,22 @@ def phase_device():
 
 
 def phase_build():
+    """Build every kernel source, one nvcc each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from multimodal_survival_prediction_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _, info = _build.build("resample_wpass.cu")
-    log(f"built resample_wpass.cu in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {info['build_sec']:.2f} s, fresh={info['built']})")
-    for line in info["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        infos = list(pool.map(lambda src: _build.build(src)[1], SOURCES))
+    log(f"built {len(SOURCES)} kernel sources in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for src, info in zip(SOURCES, infos):
+        log(f"  {src}: nvcc {info['build_sec']:.2f} s, "
+            f"fresh={info['built']}")
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line or "entry" in line:
+                log(f"    ptxas: {line.strip()}")
 
 
 # --------------------------------------------------------------------------
@@ -183,16 +246,18 @@ def phase_kernel_vs_plain(device="cuda", cases=None, timed_case=0):
             f"{mx.item()})")
         if ci == timed_case and device != "cpu":
             rx_t = rs._matrix(w, OUT_W, vol.device).T.contiguous()
-            kernel_ms = cuda_ms(lambda: rs.wpass(rows, OUT_W, hu))
-            plain_ms = cuda_ms(lambda: rs.wpass_plain(rows, OUT_W, hu))
-            library_ms = cuda_ms(lambda: torch.matmul(rows.float(), rx_t))
+            kernel_ms = device_ms(lambda: rs.wpass(rows, OUT_W, hu))
+            call_ms = cuda_ms(lambda: rs.wpass(rows, OUT_W, hu))
+            plain_ms = device_ms(lambda: rs.wpass_plain(rows, OUT_W, hu))
+            library_ms = device_ms(lambda: torch.matmul(rows.float(), rx_t))
             bound_ms, bound_by = wpass_bound_ms(shape, vol.element_size(), hu)
             timing = dict(shape=list(shape), dtype=str(dtype)[6:],
-                          kernel_ms=kernel_ms, plain_ms=plain_ms,
-                          library_ms=library_ms, bound_ms=bound_ms,
-                          bound_by=bound_by)
-            log(f"W-pass times {tuple(shape)} {str(dtype)[6:]}: kernel "
-                f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                          kernel_ms=kernel_ms, call_ms=call_ms,
+                          plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+            log(f"W-pass device times {tuple(shape)} {str(dtype)[6:]}: "
+                f"kernel {kernel_ms:.4f} ms (per call by CUDA events "
+                f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
                 f"(matmul) {library_ms:.4f} ms, H100 bound {bound_ms:.4f} ms "
                 f"({bound_by}); kernel at {bound_ms / kernel_ms:.1%} of bound")
         del vol, rows, out, ref, got, want
@@ -402,6 +467,384 @@ def phase_server(table, paths, ckpt, pred, device="cuda"):
     check(not thread.is_alive(), "server thread did not stop")
 
 
+# --------------------------------------------------------------------------
+# 7: fused BN -> ReLU -> 1x1-conv kernels vs plain
+# --------------------------------------------------------------------------
+
+# (N, C, F) of the training path's fused stages at batch 8, 64x64x32 (trunk
+# 16x16x8 after conv0 + pool), and one ragged case
+FUSED_CASES = [
+    (16384, 64, 128),    # block 0, first dense layer
+    (16384, 224, 128),   # block 0, last dense layer (timed)
+    (16384, 256, 128),   # transition 0
+    (2048, 480, 128),    # block 1, last dense layer
+    (2048, 512, 256),    # transition 1
+    (256, 992, 128),     # block 2, last dense layer
+    (256, 1024, 512),    # transition 2
+    (32, 992, 128),      # block 3, last dense layer
+    (5003, 200, 72),     # ragged N, C and F
+]
+FUSED_TIMED = (16384, 224, 128)
+FUSED_NAMES = ("moments", "apply", "bwd_reduce", "bwd_dx")
+FUSED_REPLACES = {
+    "moments": "multimodal_survival_prediction_tpu/ops/fused_dense.py:97",
+    "apply": "multimodal_survival_prediction_tpu/ops/fused_dense.py:124",
+    "bwd_reduce": "multimodal_survival_prediction_tpu/ops/fused_dense.py:180",
+    "bwd_dx": "multimodal_survival_prediction_tpu/ops/fused_dense.py:228",
+}
+FUSED_LIBRARY = {
+    "moments": "torch.var_mean(x, 0, correction=0)",
+    "apply": "torch.matmul(x, W) (the contraction alone)",
+    "bwd_reduce": "torch.matmul(x.T, g) + torch.matmul(g, W.T) (the two "
+                  "contractions alone)",
+    "bwd_dx": "torch.matmul(g, W.T) (the contraction alone)",
+}
+
+
+def fused_bound_ms(name, n, c, f):
+    """Least time on an H100 SXM for one call, from the JAX kernels'
+    CostEstimate formulas (ops/fused_dense.py:105-108, 137-142, 200-205,
+    242-247 of the JAX package; f32, 4 bytes an element): the larger of
+    bytes over the memory rate and operations over the fp32 rate."""
+    ops, n_bytes = {
+        "moments": (3 * n * c, 4 * n * c + 8 * c),
+        "apply": (2 * n * c * f + 3 * n * c,
+                  4 * (n * c + c * f + n * f) + 8 * c),
+        "bwd_reduce": (4 * n * c * f + 8 * n * c,
+                       4 * (n * c + n * f) + 5 * c * f * 4 + 24 * c),
+        "bwd_dx": (2 * n * c * f + 10 * n * c,
+                   4 * (2 * n * c + n * f + c * f) + 24 * c),
+    }[name]
+    t_bytes = n_bytes / H100_BYTES_PER_S
+    t_ops = ops / H100_F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _fused_inputs(n, c, f, device, gen):
+    """x, gamma, beta, W (as the conv kernel's (C, F) view, strides (1, C)),
+    and an output cotangent. x is moved 1e-3 (normalized units) away from
+    each channel's ReLU kink, so that two computations whose batch
+    statistics differ in the last bits take the same ReLU branch."""
+    import torch
+
+    x = torch.randn((n, c), generator=gen, device=device) * 2.0 + 0.5
+    gamma = torch.randn(c, generator=gen, device=device) * 0.3 + 1.0
+    beta = torch.randn(c, generator=gen, device=device) * 0.1
+    w = (torch.randn((f, c), generator=gen, device=device)
+         * (2.0 / c) ** 0.5).t()
+    g = torch.randn((n, f), generator=gen, device=device)
+    xd = x.double()
+    mean = xd.mean(0)
+    rstd = torch.rsqrt((xd * xd).mean(0) - mean * mean + 1e-5)
+    z = (xd - mean) * rstd * gamma + beta
+    step = 2e-3 / (rstd * gamma.abs().clamp_min(0.1))
+    sign = torch.where(z >= 0, 1.0, -1.0) * torch.sign(gamma)
+    x = torch.where(z.abs() < 1e-3, xd + sign * step, xd).float()
+    return x, gamma, beta, w, g
+
+
+def _held(name, got, want, rtol):
+    """max |got - want|, raising if any element exceeds
+    rtol·|want| + FUSED_ATOL·max(1, max|want|)."""
+    got, want = got.detach().double(), want.detach().double()
+    diff = (got - want).abs()
+    atol = FUSED_ATOL * max(1.0, float(want.abs().max()))
+    bad = diff > atol + rtol * want.abs()
+    err = float(diff.max())
+    check(math.isfinite(err) and not bool(bad.any()),
+          f"{name}: {int(bad.sum())} elements beyond rtol {rtol} / atol "
+          f"{atol:.3e}; max |d| {err:.3e}")
+    return err
+
+
+def phase_fused_vs_plain(device="cuda", cases=None, timed=FUSED_TIMED):
+    """Returns (max |d| per kernel over all cases, timing dict per kernel)."""
+    import torch
+
+    from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
+
+    cases = FUSED_CASES if cases is None else cases
+    gen = torch.Generator(device=device).manual_seed(1)
+    worst = dict.fromkeys(FUSED_NAMES, 0.0)
+    timing = {}
+    for n, c, f in cases:
+        x, gamma, beta, w, g = _fused_inputs(n, c, f, device, gen)
+        tag = f"{n}x{c}->{f}"
+        # each kernel against its plain version on the same inputs
+        s, sq = fd.moments(x)
+        ps, psq = fd.moments_plain(x)
+        err = {"moments": max(_held(f"moments sum {tag}", s, ps,
+                                    FUSED_FWD_RTOL),
+                              _held(f"moments sumsq {tag}", sq, psq,
+                                    FUSED_FWD_RTOL))}
+        mean, var, rstd, mul, add = fd._stats(x, gamma, beta, 1e-5)
+        err["apply"] = _held(f"apply {tag}", fd.apply(x, mul, add, w),
+                             fd.apply_plain(x, mul, add, w), FUSED_FWD_RTOL)
+        got = fd.bwd_reduce(x, g, w, mul, add, mean, rstd)
+        want = fd.bwd_reduce_plain(x, g, w, mul, add, mean, rstd)
+        err["bwd_reduce"] = max(
+            _held(f"bwd_reduce {part} {tag}", a, b, FUSED_GRAD_RTOL)
+            for part, a, b in zip(("dW", "dgamma", "dbeta"), got, want))
+        c1, c2 = want[2] / n, want[1] / n
+        err["bwd_dx"] = _held(
+            f"bwd_dx {tag}", fd.bwd_dx(x, g, w, mul, add, mean, rstd, c1, c2),
+            fd.bwd_dx_plain(x, g, w, mul, add, mean, rstd, c1, c2),
+            FUSED_GRAD_RTOL)
+        # the autograd op against torch autograd through the oracle
+        results = []
+        for fn in (fd.fused_bn_relu_conv1x1, fd.bn_relu_conv1x1_reference):
+            args = [t.clone().requires_grad_(True) for t in (x, gamma, beta)]
+            args.append(w.detach().clone().requires_grad_(True))
+            out, mean_, var_ = fn(*args)
+            grads = torch.autograd.grad(out, args, g)
+            results.append((out, mean_, var_, *grads))
+        op_err = 0.0
+        for part, a, b in zip(("out", "mean", "var", "dx", "dgamma", "dbeta",
+                               "dW"), *results):
+            rtol = FUSED_FWD_RTOL if part in ("out", "mean", "var") \
+                else FUSED_GRAD_RTOL
+            op_err = max(op_err, _held(f"op {part} {tag}", a, b, rtol))
+        for k in FUSED_NAMES:
+            worst[k] = max(worst[k], err[k])
+        log(f"fused kernels vs plain {tag}: max|d| "
+            + ", ".join(f"{k} {err[k]:.3e}" for k in FUSED_NAMES)
+            + f"; op vs autograd(reference) max|d| {op_err:.3e}")
+        if (n, c, f) == tuple(timed) and device != "cpu":
+            timing = _time_fused(fd, x, w, g, mul, add, mean, rstd, c1, c2)
+        del x, g, results
+    return worst, timing
+
+
+def _time_fused(fd, x, w, g, mul, add, mean, rstd, c1, c2):
+    import torch
+
+    n, c = x.shape
+    f = w.shape[1]
+    w_c = w.contiguous()
+    calls = {
+        "moments": (lambda: fd.moments(x), lambda: fd.moments_plain(x),
+                    lambda: torch.var_mean(x, 0, correction=0)),
+        "apply": (lambda: fd.apply(x, mul, add, w),
+                  lambda: fd.apply_plain(x, mul, add, w),
+                  lambda: torch.matmul(x, w_c)),
+        "bwd_reduce": (
+            lambda: fd.bwd_reduce(x, g, w, mul, add, mean, rstd),
+            lambda: fd.bwd_reduce_plain(x, g, w, mul, add, mean, rstd),
+            lambda: (torch.matmul(x.T, g), torch.matmul(g, w_c.T))),
+        "bwd_dx": (
+            lambda: fd.bwd_dx(x, g, w, mul, add, mean, rstd, c1, c2),
+            lambda: fd.bwd_dx_plain(x, g, w, mul, add, mean, rstd, c1, c2),
+            lambda: torch.matmul(g, w_c.T)),
+    }
+    timing = {}
+    for name, (kernel, plain, library) in calls.items():
+        kernel_ms = device_ms(kernel)
+        call_ms = cuda_ms(kernel)
+        plain_ms = device_ms(plain)
+        library_ms = device_ms(library)
+        bound_ms, bound_by = fused_bound_ms(name, n, c, f)
+        timing[name] = dict(kernel_ms=kernel_ms, call_ms=call_ms,
+                            plain_ms=plain_ms, library_ms=library_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            shape=[n, c, f])
+        log(f"{name} device times {n}x{c}->{f}: kernel {kernel_ms:.4f} ms "
+            f"(per call by CUDA events {call_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, library {library_ms:.4f} ms "
+            f"({FUSED_LIBRARY[name]}), H100 bound {bound_ms:.4f} ms "
+            f"({bound_by}); kernel at {bound_ms / kernel_ms:.1%} of bound")
+    return timing
+
+
+# --------------------------------------------------------------------------
+# 8: training (the main path of the training slice)
+# --------------------------------------------------------------------------
+
+def _comparable_pairs(time_, event, valid, hazard, margin):
+    """``(comparable, fragile)``: the Harrell-comparable pairs
+    (ops/cindex.py's definition), and those whose hazards lie within
+    ``margin`` of each other — the only pairs whose credit can change when
+    every hazard moves by at most ``margin / 2``."""
+    t_i, t_j = time_[:, None], time_[None, :]
+    e_i, e_j = event[:, None] > 0, event[None, :] > 0
+    comp = ((t_i < t_j) & e_i) | ((t_i == t_j) & e_i & ~e_j)
+    comp &= (valid[:, None] > 0) & (valid[None, :] > 0)
+    near = abs(hazard[:, None] - hazard[None, :]) <= margin
+    return int(comp.sum()), int((comp & near).sum())
+
+
+def _profile_step(tr, state, data, rows, label, top=8):
+    """One more train step (lr 0) under torch.profiler: device time by
+    kernel. The profiler's own overhead inflates the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    idx, bvalid = tr._device_indices(*tr._pad_indices(rows, tr.cfg.batch_size,
+                                                      None))
+    batch = tr._gather_batch(data, idx[0], bvalid[0])
+    tr.train_step(state, batch, 0.0)  # warm, outside the window
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr.train_step(state, batch, 0.0)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels)
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    log(f"profile {label}: one train step, wall {wall_ms:.1f} ms (under the "
+        f"profiler), device busy {total / 1e3:.1f} ms, "
+        f"{sum(e.count for e in kernels)} device launches; top by device "
+        "time:")
+    for e in kernels[:top]:
+        log(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
+            f"{e.key[:90]}")
+
+
+def phase_train(table, paths, rna_dim, device="cuda", image_shape=(64, 64, 32),
+                block_config=None, epochs=2, expect_launches=True):
+    """Train full-width partial_modality with fused_bn1=True, then the same
+    seeds unfused. Returns the fused kernels' launch counts and the train
+    summary."""
+    import numpy as np
+    import torch
+
+    from multimodal_survival_prediction_tpu_torch.config import (
+        PARTIAL_MODALITY as CFG,
+    )
+    from multimodal_survival_prediction_tpu_torch.data.datasets import (
+        build_cohort_arrays,
+        load_rnaseq_matrix,
+    )
+    from multimodal_survival_prediction_tpu_torch.models import (
+        PartialModalityNet,
+    )
+    from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
+    from multimodal_survival_prediction_tpu_torch.train.adapters import (
+        make_model_and_adapters,
+    )
+    from multimodal_survival_prediction_tpu_torch.train.engine import (
+        TrainConfig,
+        Trainer,
+    )
+
+    arrays = build_cohort_arrays(
+        table, load_rnaseq_matrix(paths["rnaseq_csv"]), with_image=True,
+        image_shape=image_shape, use_pallas=True, device=device)
+    data = arrays.to_device(device)
+    rows = np.arange(arrays.n)
+    _, b2i, haa = make_model_and_adapters(CFG, rna_dim=rna_dim)
+    cfg = TrainConfig(batch_size=CFG.batch_size,
+                      learning_rate=CFG.learning_rate,
+                      weight_decay=CFG.weight_decay, optimizer=CFG.optimizer,
+                      grad_clip=CFG.grad_clip, ties=CFG.ties, seed=CFG.seed)
+    kw = {} if block_config is None else {"block_config": block_config}
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    runs = {}
+    for label, fused in (("fused", True), ("unfused", False),
+                         ("fused again", True)):
+        tr = Trainer(lambda gen, fused=fused: PartialModalityNet(
+            rna_dim=rna_dim, fused_bn1=fused, generator=gen, **kw),
+            b2i, haa, cfg, device=device)
+        state = tr.init_state(fold=1)
+        stages = sum(state.model.ct_encoder.block_config) + \
+            len(state.model.ct_encoder.block_config) - 1
+        weights0 = {k: v.clone() for k, v in state.model.state_dict().items()}
+        shuffle = np.random.default_rng(CFG.seed + 1)
+        losses, epoch_ms = [], []
+        sync()
+        fd.reset_launches()  # the main path's counts start here
+        for _ in range(epochs):
+            if device != "cpu":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            state, _ = tr.train_epoch(state, data, rows, shuffle,
+                                      CFG.learning_rate)
+            if device != "cpu":
+                end.record()
+                end.synchronize()
+                epoch_ms.append(start.elapsed_time(end))
+            losses += tr.step_losses.tolist()
+        launches = {k: fd.KERNELS[i].launches
+                    for i, k in enumerate(FUSED_NAMES)}  # ... and read here
+        cindex, eval_loss, hazards = tr.evaluate(state, data, rows)
+        sync()
+        eval_launches = {k: fd.KERNELS[i].launches
+                         for i, k in enumerate(FUSED_NAMES)}
+        steps = state.step
+        runs[label] = dict(weights0=weights0, losses=losses, cindex=cindex,
+                           eval_loss=eval_loss, hazards=hazards,
+                           launches=launches, steps=steps, stages=stages,
+                           epoch_ms=epoch_ms)
+        per_step = [round(ms / (steps // epochs), 3) for ms in epoch_ms]
+        log(f"train {label} (fused_bn1={fused}): {steps} steps over "
+            f"{epochs} epochs of {arrays.n} rows (batch {cfg.batch_size}); "
+            f"ms/step by epoch {per_step or 'not measured (CPU)'}; losses "
+            f"{[round(x, 7) for x in losses]}; eval C-index {cindex:.6f}, "
+            f"loss {eval_loss:.6f}; fused kernel launches {launches}")
+        check(all(math.isfinite(x) for x in losses) and math.isfinite(
+            eval_loss) and np.all(np.isfinite(hazards))
+            and hazards.shape == (arrays.n,),
+            f"training gave non-finite or misshaped results ({label})")
+        want = stages * steps if (fused and expect_launches) else 0
+        check(all(v == want for v in launches.values()),
+              f"fused kernel launches {launches} on the training path, "
+              f"expected {want} each ({stages} fused stages x {steps} steps)")
+        check(eval_launches == launches,
+              f"evaluation launched fused kernels: {eval_launches}")
+        if device != "cpu":
+            _profile_step(tr, state, data, rows, label)
+
+    def rel(x, y):
+        return [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(x, y)]
+
+    a, b, again = runs["fused"], runs["unfused"], runs["fused again"]
+    for other in (b, again):
+        for k, v in a["weights0"].items():
+            check(torch.equal(v, other["weights0"][k]),
+                  f"the training runs started from other weights ({k})")
+    drift = rel(a["losses"], b["losses"])
+    repeat = rel(a["losses"], again["losses"])
+    check(drift[0] <= FIRST_LOSS_RTOL,
+          f"first-step loss fused {a['losses'][0]} vs unfused "
+          f"{b['losses'][0]}: rel {drift[0]:.3e} > {FIRST_LOSS_RTOL}")
+    check(max(drift) <= LOSS_DRIFT_RTOL,
+          f"per-step losses fused {a['losses']} vs unfused {b['losses']}: "
+          f"max rel {max(drift):.3e} > {LOSS_DRIFT_RTOL}")
+    dh = float(np.abs(a["hazards"] - b["hazards"]).max())
+    spread = float(b["hazards"].max() - b["hazards"].min())
+    check(dh <= HAZARD_SPREAD_TOL * spread,
+          f"hazards fused vs unfused max |d| {dh:.3e} > "
+          f"{HAZARD_SPREAD_TOL} x their range {spread:.3e}")
+    pairs, fragile = _comparable_pairs(
+        arrays.arrays["time"], arrays.arrays["event"],
+        arrays.arrays["svalid"], b["hazards"], 2 * dh)
+    c_tol = fragile / max(pairs, 1) + 1e-6
+    dc = abs(a["cindex"] - b["cindex"])
+    check(dc <= c_tol, f"C-index fused {a['cindex']} vs unfused "
+          f"{b['cindex']}: |d| {dc:.3e} > {c_tol:.3e}")
+    log("fused vs unfused per-step loss rel "
+        f"{['%.2e' % x for x in drift]} (step 1 tol {FIRST_LOSS_RTOL}, later "
+        f"{LOSS_DRIFT_RTOL}); fused vs fused again "
+        f"{['%.2e' % x for x in repeat]}; hazards max |d| {dh:.3e} (tol "
+        f"{HAZARD_SPREAD_TOL} x range {spread:.3e}); C-index |d| {dc:.3e} "
+        f"(tol {c_tol:.3e}: {fragile} of {pairs} comparable pairs within "
+        "2 x max |d hazard|)")
+    steady = {k: (r["epoch_ms"][-1] / (r["steps"] // epochs)
+                  if r["epoch_ms"] else None) for k, r in runs.items()}
+    return a["launches"], dict(
+        steps=a["steps"], stages=a["stages"], loss_drift=drift,
+        loss_repeat=repeat, hazard_diff=dh, cindex_diff=dc,
+        ms_per_step_fused=steady["fused"],
+        ms_per_step_unfused=steady["unfused"])
+
+
 def main() -> int:
     import torch
 
@@ -421,6 +864,8 @@ def main() -> int:
             work, ((96, 512, 512), (128, 512, 512), (97, 500, 500)), 5005)
         pred, launches = phase_predict(table, paths, ckpt, n_img)
         phase_server(table, paths, ckpt, pred)
+        fused_err, fused_timing = phase_fused_vs_plain()
+        fused_launches, _ = phase_train(table, paths, 5005)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -438,12 +883,33 @@ def main() -> int:
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
         "kernel_ms": timing["kernel_ms"],
+        "call_ms": timing["call_ms"],
         "bound_us": timing["bound_ms"] * 1e3,
         "timed_shape": timing["shape"],
         "timed_dtype": timing["dtype"],
     }
+    kernels = [kernel]
+    for name in FUSED_NAMES:
+        t = fused_timing[name]
+        kernels.append({
+            "name": f"fused_dense_{name}",
+            "route": "cuda",
+            "source": "multimodal_survival_prediction_tpu_torch/ops/csrc/"
+                      "fused_dense.cu",
+            "replaces": FUSED_REPLACES[name],
+            "launches": fused_launches[name],
+            "max_abs_err": fused_err[name],
+            "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library_call": FUSED_LIBRARY[name],
+            "call_ms": t["call_ms"],
+            "timed_shape": t["shape"],
+        })
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -56,6 +56,15 @@ class CohortArrays:
     def rows(self, patient_ids) -> np.ndarray:
         return np.asarray([self.index[p] for p in patient_ids], np.int32)
 
+    def to_device(self, device="cuda") -> dict:
+        """The arrays as tensors on ``device`` (the trainer's data dict)."""
+        import torch
+
+        from ..utils.device import resolve_device
+
+        dev = resolve_device(device)
+        return {k: torch.from_numpy(v).to(dev) for k, v in self.arrays.items()}
+
 
 @dataclass
 class RNAMatrix:

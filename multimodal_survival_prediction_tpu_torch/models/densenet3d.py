@@ -16,6 +16,12 @@ Linear bias=0 (weight keeps torch Linear default).
 
 Input is channels-last (B, D, H, W, 1), the JAX layout; it is permuted to
 NCDHW inside.
+
+``fused_bn1`` runs each dense layer's ``norm1 -> relu -> conv1`` and each
+transition's ``norm -> relu -> conv`` in train mode through the fused op of
+``ops/fused_dense.py`` (hand-written CUDA kernels on the card). Those
+blocks keep the trunk in ``torch.channels_last_3d`` memory, so the op's
+(rows, C) operand is a free view of it.
 """
 
 from __future__ import annotations
@@ -26,12 +32,41 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import BatchNorm, conv3d, default_generator, to_ncdhw, torch_linear
+from ..ops.fused_dense import fused_bn_relu_conv1x1
+from .layers import (
+    BatchNorm,
+    Dropout,
+    conv3d,
+    default_generator,
+    to_ncdhw,
+    torch_linear,
+)
 
-_FUSED_TODO = (
-    "fused_bn1 in train mode runs the fused BN->ReLU->1x1-conv kernels "
-    "(ops/fused_dense.py in the JAX package), which are not ported yet: "
-    "ROADMAP.md Queue 2, items 2-6 (training slice)")
+
+def _fused_stage(norm: BatchNorm, conv: nn.Conv3d,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Train-mode ``conv(relu(norm(x)))`` for a 1x1x1 bias-free ``conv``
+    through ``fused_bn_relu_conv1x1`` — the counterpart of the JAX
+    ``_fused_stage`` (dense-layer stage 1 AND transition). Updates
+    ``norm``'s running stats as ``BatchNorm.forward`` does (momentum 0.9,
+    biased variance, ``num_batches_tracked``).
+
+    ``x`` (B, C, D, H, W) must be in ``channels_last_3d`` memory: its
+    (B·D·H·W, C) view then shares storage, as does the output's way back."""
+    b, c, d, h, w = x.shape
+    if not x.is_contiguous(memory_format=torch.channels_last_3d):
+        raise RuntimeError(
+            "fused stage: the trunk is not channels_last_3d (strides "
+            f"{x.stride()}); viewing it as (rows, C) would copy it")
+    x2 = x.permute(0, 2, 3, 4, 1).reshape(-1, c)
+    if x2.data_ptr() != x.data_ptr() or not x2.is_contiguous():
+        raise RuntimeError("fused stage: the (rows, C) view copied the trunk")
+    f = conv.out_channels
+    w2 = conv.weight.view(f, c).t()  # (C, F) view of the conv kernel
+    out2, mean, var = fused_bn_relu_conv1x1(x2, norm.weight, norm.bias, w2,
+                                            norm.eps)
+    norm.update_running_stats(mean, var)
+    return out2.view(b, d, h, w, f).permute(0, 4, 1, 2, 3)
 
 
 class _DenseLayer(nn.Module):
@@ -47,15 +82,16 @@ class _DenseLayer(nn.Module):
             "conv2": conv3d(mid, growth_rate, 3, bias=False, kaiming=True,
                             generator=gen),
         })
-        self.dropout = dropout
+        self.dropout = Dropout(dropout)
 
-    def forward(self, x):
+    def forward(self, x, fused: bool = False):
         m = self.layers
-        y = m["conv1"](F.relu(m["norm1"](x)))
+        if fused:
+            y = _fused_stage(m["norm1"], m["conv1"], x)
+        else:
+            y = m["conv1"](F.relu(m["norm1"](x)))
         y = m["conv2"](F.relu(m["norm2"](y)))
-        if self.dropout > 0:
-            y = F.dropout(y, self.dropout, self.training)
-        return torch.cat([x, y], dim=1)
+        return torch.cat([x, self.dropout(y)], dim=1)
 
 
 class _Transition(nn.Module):
@@ -65,8 +101,12 @@ class _Transition(nn.Module):
         self.conv = conv3d(in_ch, out_ch, 1, bias=False, kaiming=True,
                            generator=gen)
 
-    def forward(self, x):
-        return F.avg_pool3d(self.conv(F.relu(self.norm(x))), 2, 2)
+    def forward(self, x, fused: bool = False):
+        if fused:
+            y = _fused_stage(self.norm, self.conv, x)
+        else:
+            y = self.conv(F.relu(self.norm(x)))
+        return F.avg_pool3d(y, 2, 2)
 
 
 class DenseNet121_3D(nn.Module):
@@ -75,10 +115,9 @@ class DenseNet121_3D(nn.Module):
     ``trunk`` ('concat' | 'dus') is kept for checkpoint and CLI parity; both
     compute the same concatenated trunk here (the JAX 'dus' variant only
     changes XLA's buffer plan, densenet3d.py:233-235 there).
-    ``fused_bn1`` (bool, or an int rows threshold B*D*H*W) selects the fused
-    BN->ReLU->1x1-conv stage in TRAIN mode; that kernel belongs to the
-    training slice and raises ``NotImplementedError`` until then. In eval
-    mode it is ignored, as in JAX.
+    ``fused_bn1`` (bool, or an int rows threshold B*D*H*W decided once per
+    block and reused by its transition) selects the fused BN->ReLU->1x1-conv
+    stage in TRAIN mode. In eval mode it is ignored, as in JAX.
     """
 
     def __init__(self, out_features: int = 128, init_features: int = 64,
@@ -135,11 +174,13 @@ class DenseNet121_3D(nn.Module):
         x = F.relu(f["norm0"](f["conv0"](to_ncdhw(x))))
         x = F.max_pool3d(x, 3, 2, padding=1)  # torch pads max-pool with -inf
         for bi in range(len(self.block_config)):
-            if self.training and self._fuse_rows(x.shape[0] * x[0, 0].numel()):
-                raise NotImplementedError(_FUSED_TODO)
+            fuse = self.training and self._fuse_rows(
+                x.shape[0] * x[0, 0].numel())
+            if fuse:  # one re-layout per block at most (avg-pool drops it)
+                x = x.contiguous(memory_format=torch.channels_last_3d)
             for layer in f[f"denseblock{bi + 1}"].values():
-                x = layer(x)
+                x = layer(x, fuse)
             if bi != len(self.block_config) - 1:
-                x = f[f"transition{bi + 1}"](x)
+                x = f[f"transition{bi + 1}"](x, fuse)
         x = F.relu(f["norm5"](x))
         return self.class_layers["out"](x.mean(dim=(2, 3, 4)))

@@ -23,7 +23,8 @@ from .layers import MLPBlock, default_generator, torch_linear
 class PartialModalityNet(nn.Module):
     """``forward(ct (B,D,H,W,1), rna (B,rna_dim), clinical (B,1), mask (B,3))
     -> (hazard (B,), gate_weights (B,3))``. ``dropout`` is the rate of the
-    RNA encoder's and the fusion block's dropout (0.3 in the reference)."""
+    RNA encoder's and the fusion block's dropout (0.3 in the reference),
+    whose masks come from ``layers.set_dropout_generator``."""
 
     def __init__(self, rna_dim: int = 5005, backbone: str = "densenet121",
                  block_config: tuple | None = None, trunk: str = "concat",

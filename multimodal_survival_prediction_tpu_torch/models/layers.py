@@ -13,6 +13,10 @@ Initialization matches PyTorch's defaults, drawn from an explicit
 ``torch.nn.BatchNorm``: the batch variance is the fast ``E[x²]−E[x]²``
 clipped at 0, and the running variance is updated with that BIASED
 variance (torch would use the unbiased one, which moves eval outputs).
+
+``Dropout`` draws its masks from a generator the caller owns (the trainer
+owns one per fold), so two seeded runs draw the same masks whatever the
+global RNG holds.
 """
 
 from __future__ import annotations
@@ -98,16 +102,59 @@ class BatchNorm(nn.Module):
             axes = [0, *range(2, x.dim())]
             mean = x.mean(axes)
             var = ((x * x).mean(axes) - mean * mean).clamp_min(0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
-                self.num_batches_tracked += 1
+            self.update_running_stats(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+
+    @torch.no_grad()
+    def update_running_stats(self, mean: torch.Tensor, var: torch.Tensor):
+        """``ra = m·ra + (1−m)·batch`` for the batch mean and BIASED
+        variance, and one more ``num_batches_tracked`` — the train-mode
+        update, shared with the fused stage of ``densenet3d.py``."""
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        self.num_batches_tracked += 1
+
+
+class Dropout(nn.Module):
+    """Dropout whose mask comes from an explicit ``torch.Generator``, never
+    the global RNG: in train mode each element is kept with probability
+    ``1 − p`` and scaled by ``1/(1 − p)`` (flax ``nn.Dropout``, torch
+    ``nn.Dropout``); eval mode, and ``p == 0``, are the identity.
+
+    The generator is an attribute, not state: ``state_dict`` keys are those
+    of ``nn.Dropout`` (none). It must live on the input's device; a model's
+    dropouts get theirs from :func:`set_dropout_generator`. Train mode with
+    ``p > 0`` and no generator raises."""
+
+    def __init__(self, p: float, generator: torch.Generator | None = None):
+        super().__init__()
+        self.p = p
+        self.generator = generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0:
+            return x
+        if self.generator is None:
+            raise RuntimeError(
+                "Dropout in train mode needs a generator: call "
+                "set_dropout_generator(model, generator)")
+        u = torch.rand(x.shape, generator=self.generator, device=x.device,
+                       dtype=x.dtype)
+        return torch.where(u >= self.p, x / (1 - self.p), 0.0)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
+def set_dropout_generator(model: nn.Module, generator: torch.Generator):
+    """Make every :class:`Dropout` of ``model`` draw from ``generator``."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
 
 
 def MLPBlock(in_features: int, features: int, *, dropout: float = 0.3,
@@ -120,7 +167,7 @@ def MLPBlock(in_features: int, features: int, *, dropout: float = 0.3,
     if use_bn:
         mods.append(BatchNorm(features))
     mods.append(nn.ReLU())
-    mods.append(nn.Dropout(dropout))
+    mods.append(Dropout(dropout))
     return mods
 
 

@@ -8,6 +8,8 @@ edited source rebuilds and an unchanged one loads the cached file.
 
 Nothing here runs at import time: a kernel is built on its wrapper's first
 launch (or by :func:`build`, which ``chip_smoke.py`` calls to time it).
+Each source has its own lock, so threads building different sources run
+their ``nvcc`` processes side by side.
 """
 
 from __future__ import annotations
@@ -27,8 +29,14 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _source_locks
+_source_locks: dict = {}  # source name -> threading.Lock
 _loaded: dict = {}  # source name -> (ctypes.CDLL, build info dict)
+
+
+def _source_lock(source: str) -> threading.Lock:
+    with _lock:
+        return _source_locks.setdefault(source, threading.Lock())
 
 
 def _nvcc() -> str:
@@ -48,7 +56,7 @@ def build(source: str):
     Returns ``(lib, info)``: the ``ctypes.CDLL`` and a dict with the library
     path, whether it was built now, the build seconds and nvcc's
     ``-Xptxas -v`` report (registers, shared memory, spills)."""
-    with _lock:
+    with _source_lock(source):
         if source in _loaded:
             return _loaded[source]
         src = CSRC / source

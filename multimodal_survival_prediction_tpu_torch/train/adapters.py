@@ -8,6 +8,7 @@ import torch
 
 from ..config import ModelRunConfig
 from ..models import PartialModalityNet
+from ..models.layers import set_dropout_generator
 from ..ops.cox import gate_entropy_loss
 
 # ROADMAP.md Queue 1 items that bring each remaining family
@@ -24,14 +25,19 @@ _FAMILY_TODO = {
 
 def make_model_and_adapters(cfg: ModelRunConfig, rna_dim: int | None = None,
                             backbone: str = "densenet121",
-                            generator: torch.Generator | None = None):
+                            generator: torch.Generator | None = None,
+                            dropout_generator: torch.Generator | None = None):
     """Returns ``(model, batch_to_inputs, hazard_and_aux)``; the model is
-    built on the CPU (move it with ``.to(device)``)."""
+    built on the CPU (move it with ``.to(device)``), its weights drawn from
+    ``generator`` and its dropout masks from ``dropout_generator`` (which
+    must live on the device the model trains on)."""
     name = cfg.name
     if name == "partial_modality":
         model = PartialModalityNet(
             rna_dim=rna_dim if rna_dim is not None else cfg.rna_dim,
             backbone=backbone, generator=generator)
+        if dropout_generator is not None:
+            set_dropout_generator(model, dropout_generator)
         w = cfg.gate_entropy_weight
 
         def hazard_and_aux(out, batch):

@@ -60,6 +60,7 @@ def test_whole_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
-    assert "multimodal_survival_prediction_tpu_torch.serving" in out["modules"]
-    assert "multimodal_survival_prediction_tpu_torch.ops.resample" in \
-        out["modules"]
+    for mod in ("serving", "ops.resample", "ops.fused_dense", "ops.cindex",
+                "train.engine"):
+        assert f"multimodal_survival_prediction_tpu_torch.{mod}" in \
+            out["modules"]

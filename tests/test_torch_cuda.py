@@ -8,13 +8,18 @@ JAX package, so it also runs where only the port is installed:
 
 (``--noconftest`` skips tests/conftest.py, which sets up JAX.)
 Tolerances: min/max exact; the W-pass rows to 2e-7 of the largest |voxel|
-(f32 rounding of a two-term sum); the normalized volume to 2e-6.
+(f32 rounding of a two-term sum); the normalized volume to 2e-6. The fused
+BN->ReLU->1x1-conv kernels: fp32 products summed in another order than
+cuBLAS, so outputs to rtol 1e-5 and gradients to rtol 1e-4, each with an
+atol of 1e-5 times the largest |value| of the tensor (the CPU tests'
+tolerances, scaled to the size of the sums).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
 from multimodal_survival_prediction_tpu_torch.ops import resample as tr
 
 
@@ -23,6 +28,7 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -96,3 +102,109 @@ def test_kernel_in_the_pipeline_on_card(cuda_device, tmp_path):
     assert tr.wpass.launches == before + 3
     for i in fused:
         np.testing.assert_allclose(fused[i], plain[i], atol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# fused BN -> ReLU -> 1x1x1 conv kernels (ops/csrc/fused_dense.cu)
+# ---------------------------------------------------------------------------
+
+def _close(got, want, rtol):
+    got, want = got.detach().double(), want.detach().double()
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=rtol, atol=1e-5 * scale)
+
+
+def _fused_inputs(n, c, f, device, seed=0):
+    """x, gamma, beta, W, output cotangent from a seed; x is moved 1e-3
+    (in normalized units) away from each channel's ReLU kink, so that the
+    kernel and the plain version, whose batch statistics differ in the
+    last bits, take the same ReLU branch everywhere."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0.5, 2.0, (n, c))).double()
+    gamma = torch.from_numpy(rng.normal(1.0, 0.3, c)).double()
+    beta = torch.from_numpy(rng.normal(0.0, 0.1, c)).double()
+    mean = x.mean(0)
+    rstd = torch.rsqrt((x * x).mean(0) - mean * mean + 1e-5)
+    z = (x - mean) * rstd * gamma + beta
+    step = 2e-3 / (rstd * gamma.abs().clamp_min(0.1))
+    sign = torch.where(z >= 0, 1.0, -1.0) * torch.sign(gamma)
+    x = torch.where(z.abs() < 1e-3, x + sign * step, x)
+    w = rng.normal(0.0, 1.0 / np.sqrt(c), (c, f))
+    g = rng.normal(size=(n, f))
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=device)
+                 for a in (x, gamma, beta, w, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,f", [
+    (1, 5, 3), (97, 40, 24), (256, 96, 128), (300, 200, 72),
+    (2048, 160, 128)])
+def test_fused_kernels_match_plain_on_card(cuda_device, n, c, f):
+    """Each kernel against its plain version on the same inputs, with
+    ragged N, C and F; one launch each."""
+    x, gamma, beta, w, g = _fused_inputs(n, c, f, cuda_device)
+    before = [k.launches for k in fd.KERNELS]
+    s, sq = fd.moments(x)
+    ps, psq = fd.moments_plain(x)
+    _close(s, ps, 1e-5)
+    _close(sq, psq, 1e-5)
+    mean, var, rstd, mul, add = fd._stats(x, gamma, beta, 1e-5)
+    w_t = w.t().contiguous().t()  # the conv-kernel layout: strides (1, C)
+    for wv in (w, w_t):
+        _close(fd.apply(x, mul, add, wv), fd.apply_plain(x, mul, add, w), 1e-5)
+        got = fd.bwd_reduce(x, g, wv, mul, add, mean, rstd)
+        want = fd.bwd_reduce_plain(x, g, w, mul, add, mean, rstd)
+        for a, b in zip(got, want):
+            _close(a, b, 1e-4)
+        c1, c2 = want[2] / n, want[1] / n
+        _close(fd.bwd_dx(x, g, wv, mul, add, mean, rstd, c1, c2),
+               fd.bwd_dx_plain(x, g, w, mul, add, mean, rstd, c1, c2), 1e-4)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(fd.KERNELS, before)] == \
+        [1 + 1, 2, 2, 2]  # moments: once directly, once inside _stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,f", [(97, 40, 24), (2048, 224, 128)])
+def test_fused_op_grads_match_reference_on_card(cuda_device, n, c, f):
+    """The autograd.Function against torch autograd through
+    bn_relu_conv1x1_reference: out, mean, var and dx, dgamma, dbeta, dW."""
+    x, gamma, beta, w, g = _fused_inputs(n, c, f, cuda_device, seed=1)
+    results = []
+    for fn in (fd.fused_bn_relu_conv1x1, fd.bn_relu_conv1x1_reference):
+        args = [t.clone().requires_grad_(True) for t in (x, gamma, beta, w)]
+        out, mean, var = fn(*args)
+        grads = torch.autograd.grad(out, args, g)
+        results.append((out.detach(), mean, var, *grads))
+    for i, (a, b) in enumerate(zip(*results)):
+        _close(a, b, 1e-5 if i < 3 else 1e-4)
+
+
+@pytest.mark.cuda
+def test_fused_densenet_train_step_on_card(cuda_device):
+    """A train step of a small DenseNet with fused_bn1=True launches each
+    kernel once per fused stage and matches the unfused model (cuDNN 1x1
+    conv) in output, running stats and gradients."""
+    from multimodal_survival_prediction_tpu_torch.models import DenseNet121_3D
+
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(4, 32, 32, 16, 1)).astype(np.float32)).to(cuda_device)
+    runs = []
+    for fused in (True, False):
+        m = DenseNet121_3D(block_config=(2, 3), fused_bn1=fused,
+                           generator=torch.Generator().manual_seed(0))
+        m = m.to(cuda_device).train()
+        fd.reset_launches()
+        out = m(x)
+        grads = torch.autograd.grad((out ** 2).sum(), list(m.parameters()))
+        torch.cuda.synchronize()
+        runs.append((out.detach(), [b.clone() for b in m.buffers()], grads,
+                     [k.launches for k in fd.KERNELS]))
+    stages = 2 + 3 + 1  # dense layers + one transition
+    assert runs[0][3] == [stages] * 4
+    assert runs[1][3] == [0] * 4
+    _close(runs[0][0], runs[1][0], 1e-4)
+    for a, b in zip(runs[0][1], runs[1][1]):
+        _close(a, b, 1e-4)
+    for a, b in zip(runs[0][2], runs[1][2]):
+        _close(a, b, 1e-3)

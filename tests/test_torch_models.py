@@ -205,22 +205,74 @@ def test_batchnorm_follows_flax(train):
                                    atol=1e-5)
 
 
-def test_densenet_guards():
+def test_densenet_guards(monkeypatch):
+    from multimodal_survival_prediction_tpu_torch.models import densenet3d
+
     port = DenseNet121_3D(block_config=(2, 2))
     with pytest.raises(ValueError, match="spatial dims >= 8"):
         port(torch.zeros(1, 4, 16, 16, 1))
     with pytest.raises(ValueError, match="unknown trunk"):
         DenseNet121_3D(block_config=(2, 2), trunk="other")
+    calls = []
+    real = densenet3d.fused_bn_relu_conv1x1
+    monkeypatch.setattr(densenet3d, "fused_bn_relu_conv1x1",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    x = torch.from_numpy(_ct(np.random.default_rng(7), 2, (16, 16, 8)))
+    plain = DenseNet121_3D(block_config=(2, 2))
+    want_eval = plain.eval()(x)
+    want_train = plain.train()(x)
     fused = DenseNet121_3D(block_config=(2, 2), fused_bn1=True)
-    x = torch.zeros(2, 16, 16, 8, 1)
-    fused.eval()(x)  # eval ignores fused_bn1, as in JAX
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fused.train()(x)
+    # eval ignores fused_bn1, as in JAX
+    torch.testing.assert_close(fused.eval()(x), want_eval, rtol=0, atol=0)
+    assert calls == []
+    # train mode runs the fused stage: 2 + 2 dense layers, one transition
+    torch.testing.assert_close(fused.train()(x), want_train, rtol=1e-5,
+                               atol=1e-5)
+    assert len(calls) == 5
     # an int threshold fuses only stages with at most that many rows
     # (block 0 here: 2 * 4*4*2 = 64 rows; block 1: 2 * 2*2*1 = 8 rows)
+    calls.clear()
     DenseNet121_3D(block_config=(2, 2), fused_bn1=4).train()(x)
-    with pytest.raises(NotImplementedError):
-        DenseNet121_3D(block_config=(2, 2), fused_bn1=8).train()(x)
+    assert calls == []
+    DenseNet121_3D(block_config=(2, 2), fused_bn1=8).train()(x)
+    assert calls == [(8, 64), (8, 96)]
+
+
+def test_dropout_draws_from_an_explicit_generator():
+    """Two runs seeded alike draw equal masks, whatever torch.manual_seed
+    says; another seed draws others; eval mode is the identity; Dropout has
+    no state, so state_dict keys are unchanged."""
+    from torch import nn
+
+    from multimodal_survival_prediction_tpu_torch.models.layers import (
+        Dropout,
+        set_dropout_generator,
+    )
+
+    inputs = [torch.from_numpy(a) for a in
+              _gated_inputs(np.random.default_rng(8), 4, (16, 16, 8), 40)]
+
+    def hazard(seed, global_seed, train=True):
+        torch.manual_seed(global_seed)
+        m = PartialModalityNet(rna_dim=40, backbone="simple_cnn",
+                               generator=torch.Generator().manual_seed(0))
+        set_dropout_generator(m, torch.Generator().manual_seed(seed))
+        return m.train(train)(*inputs)[0].detach()
+
+    a, b, c = hazard(1, 0), hazard(1, 123), hazard(2, 0)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not torch.equal(a, c)
+    torch.testing.assert_close(hazard(1, 0, train=False),
+                               hazard(2, 5, train=False), rtol=0, atol=0)
+
+    drop = Dropout(0.5, torch.Generator().manual_seed(3)).train()
+    y = drop(torch.ones(1000))
+    assert set(y.unique().tolist()) == {0.0, 2.0}
+    assert 400 < int((y == 0).sum()) < 600
+    assert drop.state_dict() == {} and nn.Dropout(0.5).state_dict() == {}
+    assert torch.equal(Dropout(0.5).eval()(y), y)
+    with pytest.raises(RuntimeError, match="generator"):
+        Dropout(0.5).train()(y)
 
 
 def test_same_generator_seed_same_weights():
