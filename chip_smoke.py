@@ -36,8 +36,10 @@ result then):
      32x992->128, and a ragged one), then the autograd op against torch
      autograd through bn_relu_conv1x1_reference; outputs to rtol 1e-5 and
      gradients to rtol 1e-4, each with atol 1e-5 x the tensor's largest
-     |value|. Device times at 16,384x224->128 beside the H100 bound, the
-     plain version and a library call, as in phase 3.
+     |value|. Device times at one shape per dense block and the widest
+     transition (16,384x224->128, 2,048x480->128, 256x992->128,
+     32x992->128, 256x1,024->512) beside the H100 bound, the plain version
+     and a library call, as in phase 3.
   8. training (the main path of the training slice): a Trainer on
      PartialModalityNet(fused_bn1=True) at full width takes two epochs over
      the phase-4 cohort (batch 8) and a pooled evaluation; each fused
@@ -48,7 +50,8 @@ result then):
      drift, see LOSS_DRIFT_RTOL), hazards within a tenth of their range,
      C-index within the comparable pairs whose order that hazard difference
      could swap. ms per train step by CUDA events, and a torch.profiler
-     breakdown of one step, for both.
+     breakdown of one step, for both, with each fused kernel's summed
+     device time and launches in that step.
   9. summary: one JSON line of per-kernel numbers, then the final line
      {"ok": true, "device": {...}}.
 
@@ -72,6 +75,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # fp32 outside the tensor cores
+H100_TF32_OPS_PER_S = 495e12  # TF32 on the tensor cores, dense
 RESAMPLE_TOL = 2e-6
 RISK_TOL = 1e-4
 OUT_W = 32
@@ -484,7 +488,10 @@ FUSED_CASES = [
     (32, 992, 128),      # block 3, last dense layer
     (5003, 200, 72),     # ragged N, C and F
 ]
-FUSED_TIMED = (16384, 224, 128)
+FUSED_TIMED = (16384, 224, 128)  # the `ms` of the kernels line
+# one shape per dense block and the widest transition
+FUSED_TIMED_SHAPES = [FUSED_TIMED, (2048, 480, 128), (256, 992, 128),
+                      (32, 992, 128), (256, 1024, 512)]
 FUSED_NAMES = ("moments", "apply", "bwd_reduce", "bwd_dx")
 FUSED_REPLACES = {
     "moments": "multimodal_survival_prediction_tpu/ops/fused_dense.py:97",
@@ -492,6 +499,16 @@ FUSED_REPLACES = {
     "bwd_reduce": "multimodal_survival_prediction_tpu/ops/fused_dense.py:180",
     "bwd_dx": "multimodal_survival_prediction_tpu/ops/fused_dense.py:228",
 }
+# the device kernels each wrapper launches, by a part of their names in a
+# profile (ops/csrc/fused_dense.cu); all but bwd_dx end with a launch of the
+# one fold kernel, which a profile shows under one name for all three
+FUSED_DEVICE_KERNELS = {
+    "moments": ("::moments_partial_kernel",),
+    "apply": ("::apply_kernel<",),
+    "bwd_reduce": ("::bwd_reduce_kernel<",),
+    "bwd_dx": ("::bwd_dx_kernel<",),
+}
+FUSED_FOLD_KERNEL = "::fold_parts_kernel<"
 FUSED_LIBRARY = {
     "moments": "torch.var_mean(x, 0, correction=0)",
     "apply": "torch.matmul(x, W) (the contraction alone)",
@@ -502,23 +519,30 @@ FUSED_LIBRARY = {
 
 
 def fused_bound_ms(name, n, c, f):
-    """Least time on an H100 SXM for one call, from the JAX kernels'
-    CostEstimate formulas (ops/fused_dense.py:105-108, 137-142, 200-205,
-    242-247 of the JAX package; f32, 4 bytes an element): the larger of
-    bytes over the memory rate and operations over the fp32 rate."""
-    ops, n_bytes = {
-        "moments": (3 * n * c, 4 * n * c + 8 * c),
-        "apply": (2 * n * c * f + 3 * n * c,
+    """``(bound ms, bound by, CUDA-core bound ms)``: the least time on an
+    H100 SXM for one call, from the JAX kernels' CostEstimate formulas
+    (ops/fused_dense.py:105-108, 137-142, 200-205, 242-247 of the JAX
+    package; f32, 4 bytes an element). The bound is the larger of bytes over
+    the memory rate and operations over their unit's rate: the products run
+    on the tensor cores as three TF32 products each (3 x their operations
+    over the TF32 rate), the elementwise work at the fp32 rate. The last
+    value charges every operation at the fp32 rate outside the tensor
+    cores, as the kernels ran before the products moved there."""
+    product, elementwise, n_bytes = {
+        "moments": (0, 3 * n * c, 4 * n * c + 8 * c),
+        "apply": (2 * n * c * f, 3 * n * c,
                   4 * (n * c + c * f + n * f) + 8 * c),
-        "bwd_reduce": (4 * n * c * f + 8 * n * c,
+        "bwd_reduce": (4 * n * c * f, 8 * n * c,
                        4 * (n * c + n * f) + 5 * c * f * 4 + 24 * c),
-        "bwd_dx": (2 * n * c * f + 10 * n * c,
+        "bwd_dx": (2 * n * c * f, 10 * n * c,
                    4 * (2 * n * c + n * f + c * f) + 24 * c),
     }[name]
     t_bytes = n_bytes / H100_BYTES_PER_S
-    t_ops = ops / H100_F32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    t_ops = (3 * product / H100_TF32_OPS_PER_S
+             + elementwise / H100_F32_OPS_PER_S)
+    t_cuda_core = max(t_bytes, (product + elementwise) / H100_F32_OPS_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", t_cuda_core * 1e3)
 
 
 def _fused_inputs(n, c, f, device, gen):
@@ -558,16 +582,19 @@ def _held(name, got, want, rtol):
     return err
 
 
-def phase_fused_vs_plain(device="cuda", cases=None, timed=FUSED_TIMED):
-    """Returns (max |d| per kernel over all cases, timing dict per kernel)."""
+def phase_fused_vs_plain(device="cuda", cases=None, timed=None):
+    """Returns (max |d| per kernel over all cases, timing dict per kernel:
+    the first shape of ``timed``, with every timed shape under
+    ``by_shape``)."""
     import torch
 
     from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
 
     cases = FUSED_CASES if cases is None else cases
+    timed = FUSED_TIMED_SHAPES if timed is None else [tuple(t) for t in timed]
     gen = torch.Generator(device=device).manual_seed(1)
     worst = dict.fromkeys(FUSED_NAMES, 0.0)
-    timing = {}
+    by_shape = {}
     for n, c, f in cases:
         x, gamma, beta, w, g = _fused_inputs(n, c, f, device, gen)
         tag = f"{n}x{c}->{f}"
@@ -610,10 +637,55 @@ def phase_fused_vs_plain(device="cuda", cases=None, timed=FUSED_TIMED):
         log(f"fused kernels vs plain {tag}: max|d| "
             + ", ".join(f"{k} {err[k]:.3e}" for k in FUSED_NAMES)
             + f"; op vs autograd(reference) max|d| {op_err:.3e}")
-        if (n, c, f) == tuple(timed) and device != "cpu":
-            timing = _time_fused(fd, x, w, g, mul, add, mean, rstd, c1, c2)
+        if (n, c, f) in timed and device != "cpu":
+            by_shape[(n, c, f)] = _time_fused(fd, x, w, g, mul, add, mean,
+                                              rstd, c1, c2)
         del x, g, results
+    _one_row_cancellation(fd, device, gen)
+    check(device == "cpu" or set(by_shape) == set(timed),
+          f"timed shapes {timed} are not all among the cases")
+    timing = {}
+    if by_shape:
+        for name in FUSED_NAMES:
+            timing[name] = dict(by_shape[timed[0]][name], by_shape=[
+                by_shape[shape][name] for shape in timed])
     return worst, timing
+
+
+def _one_row_cancellation(fd, device, gen, draws=50):
+    """bwd_dx at N = 1. With the batch's own sums dx = mul·(dz − c1 − xhat·c2)
+    is exactly 0 in the plain version (c1 = dz, xhat = 0), and mul =
+    γ/sqrt(eps) times the last bit of g Wᵀ in a kernel that sums in another
+    order: that residual is logged, not held. Held, to the gradients'
+    tolerance, is the product that is left when nothing cancels (c1 = c2 =
+    0)."""
+    import torch
+
+    for c, f in ((5, 3), (224, 128)):
+        residual = over = worst = largest = 0.0
+        for _ in range(draws):
+            x, gamma, beta, w, g = _fused_inputs(1, c, f, device, gen)
+            mean, var, rstd, mul, add = fd._stats(x, gamma, beta, 1e-5)
+            _, dgamma, dbeta = fd.bwd_reduce_plain(x, g, w, mul, add, mean,
+                                                   rstd)
+            dx = fd.bwd_dx(x, g, w, mul, add, mean, rstd, dbeta, dgamma)
+            want = fd.bwd_dx_plain(x, g, w, mul, add, mean, rstd, dbeta,
+                                   dgamma)
+            d = float((dx - want).abs().max())
+            residual = max(residual, d)
+            over += d > FUSED_ATOL * max(1.0, float(want.abs().max()))
+            zero = torch.zeros_like(dbeta)
+            want = fd.bwd_dx_plain(x, g, w, mul, add, mean, rstd, zero, zero)
+            largest = max(largest, float(want.abs().max()))
+            worst = max(worst, _held(
+                f"bwd_dx 1x{c}->{f}, c1 = c2 = 0",
+                fd.bwd_dx(x, g, w, mul, add, mean, rstd, zero, zero), want,
+                FUSED_GRAD_RTOL))
+        log(f"bwd_dx 1x{c}->{f} over {draws} draws: with the batch's own "
+            f"sums (plain dx = 0) max|d| {residual:.3e}, {int(over)} draws "
+            f"beyond {FUSED_ATOL} (logged, not held); with c1 = c2 = 0 "
+            f"max|d| {worst:.3e} on |dx| up to {largest:.3e}, all within "
+            "tolerance")
 
 
 def _time_fused(fd, x, w, g, mul, add, mean, rstd, c1, c2):
@@ -643,16 +715,17 @@ def _time_fused(fd, x, w, g, mul, add, mean, rstd, c1, c2):
         call_ms = cuda_ms(kernel)
         plain_ms = device_ms(plain)
         library_ms = device_ms(library)
-        bound_ms, bound_by = fused_bound_ms(name, n, c, f)
+        bound_ms, bound_by, cuda_core_ms = fused_bound_ms(name, n, c, f)
         timing[name] = dict(kernel_ms=kernel_ms, call_ms=call_ms,
                             plain_ms=plain_ms, library_ms=library_ms,
                             bound_ms=bound_ms, bound_by=bound_by,
-                            shape=[n, c, f])
+                            bound_cuda_core_ms=cuda_core_ms, shape=[n, c, f])
         log(f"{name} device times {n}x{c}->{f}: kernel {kernel_ms:.4f} ms "
             f"(per call by CUDA events {call_ms:.4f} ms), plain "
             f"{plain_ms:.4f} ms, library {library_ms:.4f} ms "
             f"({FUSED_LIBRARY[name]}), H100 bound {bound_ms:.4f} ms "
-            f"({bound_by}); kernel at {bound_ms / kernel_ms:.1%} of bound")
+            f"({bound_by}; {cuda_core_ms:.4f} ms with the products on the "
+            f"CUDA cores); kernel at {bound_ms / kernel_ms:.1%} of bound")
     return timing
 
 
@@ -675,7 +748,9 @@ def _comparable_pairs(time_, event, valid, hazard, margin):
 
 def _profile_step(tr, state, data, rows, label, top=8):
     """One more train step (lr 0) under torch.profiler: device time by
-    kernel. The profiler's own overhead inflates the wall time."""
+    kernel, and the fused kernels' sums and launch counts in the step
+    (returned with the step's device-busy time and launch count). The
+    profiler's own overhead inflates the wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -704,6 +779,34 @@ def _profile_step(tr, state, data, rows, label, top=8):
     for e in kernels[:top]:
         log(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
+    # the fused kernels' sums, whatever the top holds. A fold launch counts
+    # for the wrapper whose kernel ran last before it on the stream.
+    sums = {w: dict(device_ms=0.0, by_kernel={})
+            for w in FUSED_DEVICE_KERNELS}
+    owner = None
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        if FUSED_FOLD_KERNEL in e.name:
+            check(owner is not None, "a fold launch before any fused kernel")
+            hit = (owner, FUSED_FOLD_KERNEL)
+        else:
+            hit = next(((w, part) for w, parts in FUSED_DEVICE_KERNELS.items()
+                        for part in parts if part in e.name), None)
+            if hit is None:
+                continue
+            owner = hit[0]
+        k = sums[hit[0]]["by_kernel"].setdefault(
+            hit[1], dict(device_ms=0.0, launches=0))
+        k["device_ms"] += e.self_device_time_total / 1e3
+        k["launches"] += 1
+        sums[hit[0]]["device_ms"] += e.self_device_time_total / 1e3
+    for wrapper, found in sums.items():
+        log(f"    fused {wrapper}: {found['device_ms']:.3f} ms in the step = "
+            + " + ".join(f"{part} {k['device_ms']:.3f} ms x{k['launches']}"
+                         for part, k in found["by_kernel"].items()))
+    return dict(device_busy_ms=total / 1e3,
+                device_launches=sum(e.count for e in kernels), fused=sums)
 
 
 def phase_train(table, paths, rna_dim, device="cuda", image_shape=(64, 64, 32),
@@ -799,7 +902,8 @@ def phase_train(table, paths, rna_dim, device="cuda", image_shape=(64, 64, 32),
         check(eval_launches == launches,
               f"evaluation launched fused kernels: {eval_launches}")
         if device != "cpu":
-            _profile_step(tr, state, data, rows, label)
+            runs[label]["profile"] = _profile_step(tr, state, data, rows,
+                                                   label)
 
     def rel(x, y):
         return [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(x, y)]
@@ -818,6 +922,7 @@ def phase_train(table, paths, rna_dim, device="cuda", image_shape=(64, 64, 32),
           f"per-step losses fused {a['losses']} vs unfused {b['losses']}: "
           f"max rel {max(drift):.3e} > {LOSS_DRIFT_RTOL}")
     dh = float(np.abs(a["hazards"] - b["hazards"]).max())
+    dh_repeat = float(np.abs(a["hazards"] - again["hazards"]).max())
     spread = float(b["hazards"].max() - b["hazards"].min())
     check(dh <= HAZARD_SPREAD_TOL * spread,
           f"hazards fused vs unfused max |d| {dh:.3e} > "
@@ -833,16 +938,19 @@ def phase_train(table, paths, rna_dim, device="cuda", image_shape=(64, 64, 32),
         f"{['%.2e' % x for x in drift]} (step 1 tol {FIRST_LOSS_RTOL}, later "
         f"{LOSS_DRIFT_RTOL}); fused vs fused again "
         f"{['%.2e' % x for x in repeat]}; hazards max |d| {dh:.3e} (tol "
-        f"{HAZARD_SPREAD_TOL} x range {spread:.3e}); C-index |d| {dc:.3e} "
+        f"{HAZARD_SPREAD_TOL} x range {spread:.3e}; fused vs fused again "
+        f"{dh_repeat:.3e}: the same path's own spread); C-index |d| {dc:.3e} "
         f"(tol {c_tol:.3e}: {fragile} of {pairs} comparable pairs within "
         "2 x max |d hazard|)")
     steady = {k: (r["epoch_ms"][-1] / (r["steps"] // epochs)
                   if r["epoch_ms"] else None) for k, r in runs.items()}
     return a["launches"], dict(
         steps=a["steps"], stages=a["stages"], loss_drift=drift,
-        loss_repeat=repeat, hazard_diff=dh, cindex_diff=dc,
+        loss_repeat=repeat, hazard_diff=dh, hazard_repeat=dh_repeat,
+        cindex_diff=dc,
         ms_per_step_fused=steady["fused"],
-        ms_per_step_unfused=steady["unfused"])
+        ms_per_step_unfused=steady["unfused"],
+        profile_fused=a.get("profile"), profile_unfused=b.get("profile"))
 
 
 def main() -> int:
@@ -865,7 +973,7 @@ def main() -> int:
         pred, launches = phase_predict(table, paths, ckpt, n_img)
         phase_server(table, paths, ckpt, pred)
         fused_err, fused_timing = phase_fused_vs_plain()
-        fused_launches, _ = phase_train(table, paths, 5005)
+        fused_launches, train = phase_train(table, paths, 5005)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -907,6 +1015,9 @@ def main() -> int:
             "library_call": FUSED_LIBRARY[name],
             "call_ms": t["call_ms"],
             "timed_shape": t["shape"],
+            "bound_cuda_core_ms": t["bound_cuda_core_ms"],
+            "by_shape": t["by_shape"],
+            "train_step": train["profile_fused"]["fused"][name],
         })
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

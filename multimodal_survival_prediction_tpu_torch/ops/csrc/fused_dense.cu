@@ -10,104 +10,477 @@
 // where x is the DenseNet trunk as (N rows, C channels), C contiguous,
 // z = x*mul + add, a = relu(z), g the (N, F) output cotangent,
 // da = g W^T, dz = [z > 0] da, xhat = (x - mean)*rstd. The wrapper
-// (ops/fused_dense.py) computes mul/add/mean/rstd from the moments in torch.
+// (ops/fused_dense.py) computes mul/add/mean/rstd from the moments in torch
+// and picks every launch plan (tile width, K chunks) from (N, C, F) and the
+// card's SM count.
 //
-// Bound on the H100 (SXM, 67 TFLOP/s fp32 outside the tensor cores,
-// 3.35 TB/s): the three products (apply: 2NCF, bwd_reduce: 4NCF, bwd_dx:
-// 2NCF flops) are bound by operations at the DenseNet's shapes (F = 128..512
-// outputs per row read); the moments pass is bound by bytes.
+// Bound on the H100 (SXM; 3.35 TB/s, 495 TFLOP/s TF32 dense on the tensor
+// cores, 67 TFLOP/s fp32 outside them): with the products on the tensor
+// cores as three TF32 products each (below), apply (3 x 2NCF), bwd_reduce
+// (3 x 4NCF) and bwd_dx (3 x 2NCF) are bound by the bytes of x, g and the
+// output at F = 128 and by operations only at the transitions' F = 256, 512;
+// the moments pass is bound by bytes. The DenseNet's small stages (N = 2048,
+// 256, 32 rows) are bound by neither: they are a few microseconds of latency,
+// so what matters there is how many blocks share the walk over C.
 //
-// Design (a first, simple version; tensor cores and TMA are later work):
-//   * Products are fp32 FMA on CUDA cores from shared-memory tiles: a 64x64
-//     block tile, 16-deep K steps, 256 threads holding 4x4 outputs each.
-//     No tensor cores (the reference contracts in true fp32) and no library
-//     product.
-//   * The BN + ReLU prologue is applied while the x tile is staged into
-//     shared memory, so the normalized trunk never reaches device memory.
-//     z is computed as round(round(x*mul) + add), the value torch's eager
-//     `x * mul + add` gives, so the ReLU mask equals the plain version's on
-//     the same inputs.
-//   * Blocks run in parallel in no order, unlike the TPU's sequential grid
-//     that accumulates into one output block. Every cross-block sum (the
-//     moments, dW over row chunks, dbeta/dgamma over row tiles) is written as
-//     per-block partials and folded by a second kernel in a fixed order: no
-//     atomics, so the results are the same bits run to run.
-//   * Ragged tiles: every load is masked (rows >= N, channels >= C, outputs
-//     >= F read as 0 and are not stored), so any N >= 1 and any C, F work;
+// Design:
+//   * One GEMM core (TileCopy, split_b, gemm_mainloop) serves the three
+//     products: apply (M = rows, K = C, N = F), the dW partial (M = C,
+//     K = rows, N = F) and da = g W^T (M = rows, K = F, N = C; bwd_reduce's
+//     second half and bwd_dx). A block is one warpgroup (128 threads); its
+//     tile is 64 x 128 (one column tile for F = 128, so x is staged and
+//     normalized once) or 64 x 64 where the grid would otherwise leave SMs
+//     idle; 16-deep K steps; two blocks a SM.
+//   * Pipelined loads: a ring of kStages (3) shared-memory stages, above
+//     48 KB as dynamic shared memory. Every operand tile arrives by cp.async
+//     (16 bytes a thread; 4-byte copies where a row is not 16-byte aligned;
+//     the ragged edge is zero-filled by the copy's source size, never read),
+//     two steps ahead of the arithmetic.
+//   * The product: fp32-accurate on the tensor cores as a 3xTF32 split, by
+//     wgmma (wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32, inline
+//     PTX) with A from registers and B from shared memory. Each fp32 operand
+//     is split once, big = v rounded to nearest TF32 (by integer add and mask,
+//     which was faster here than cvt.rna.tf32.f32), small = v - big: A by the
+//     warp that owns its 16 rows, as it reads its fragments from the raw
+//     tile; B by a pass of the whole block over the raw tile (split_b), which
+//     also lays it out as wgmma reads it (K-major core matrices, no swizzle:
+//     TF32 wgmma takes no other major, and g and W^T arrive with the other
+//     axis contiguous). big_a*big_b + big_a*small_b + small_a*big_b of each
+//     8-deep slab is chained from zero by three wgmma and added to the fp32
+//     accumulators by the CUDA cores: the tensor core truncates its sums, and
+//     one long chain an output left errors three to five times the CUDA-core
+//     product's. A first version of this core on mma.sync.m16n8k8 (8 warps as
+//     2 x 4, every warp converting the fragments it read) spent most of its
+//     instruction slots converting: A was converted by four warps, B by two,
+//     and mma.sync itself kept the warp schedulers busy, so tensor time and
+//     conversion time added up. wgmma with A from registers keeps the
+//     prologue where it was (fp32 registers) and runs beside the schedulers.
+//   * The BN + ReLU prologue runs in those registers: relu(round(round(x*mul)
+//     + add)) in true fp32, the value torch's eager `x * mul + add` gives, so
+//     the ReLU mask equals the plain version's. mul/add for the block's
+//     channel range are staged into shared memory once, behind the first
+//     copies. The normalized trunk never reaches device memory.
+//   * Split-K for small grids, fixed-order fold: apply splits C across
+//     blockIdx.z into chunks of whole K steps (at most kMaxK channels, the
+//     staged mul/add), writes per-chunk partial outputs and folds them in
+//     ascending order; dW splits the rows the same way. da contracts over F
+//     only (8 steps at F = 128): bwd_dx's is never split (its epilogue is
+//     not linear in da), bwd_reduce's is where the grid is small, its
+//     dbeta/dgamma partials then counting row tiles x F chunks. Blocks run
+//     in parallel in no order, so every cross-block sum (moments, dW over row
+//     chunks, dbeta/dgamma over row tiles, apply's channel chunks) is
+//     per-block partials folded by a second kernel in a fixed order: no
+//     atomics, the same bits run to run.
+//   * bwd_reduce is two launches: one runs both products side by side, part
+//     of its grid computing dW partials and the rest da tiles (64 x 64) with
+//     the dbeta/dgamma epilogue, both into one scratch buffer; one folds that
+//     into (dW, dbeta, dgamma). A small stage fills the card with the two
+//     products together and pays one launch's latency; at 16,384 rows, where
+//     each would fill the card alone, one launch was as fast as two or
+//     faster. The products are not fused block by block: a block that owned
+//     a row chunk for both would need all C x F dW accumulators (up to
+//     1024 x 128 fp32, twice an SM's register file).
+//   * Ragged tiles: rows >= N, channels >= C, outputs >= F are zero-filled on
+//     the way in and masked on the way out, so any N >= 1 and any C, F work;
 //     the JAX wrapper instead tiles only by exact divisors of N.
 //   * W is read through two strides, so the wrapper passes the conv kernel
-//     (F, C) as the (C, F) operand without a transposed copy.
+//     (F, C) as the (C, F) operand without a transposed copy; each product is
+//     instantiated for either axis of W being the contiguous one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBM = 64;  // block tile rows (the M of the product)
-constexpr int kBN = 64;  // block tile columns (the N of the product)
-constexpr int kBK = 16;  // depth of one shared-memory step
-constexpr int kTM = 4;   // outputs per thread along M: rows ty + 16*i
-constexpr int kTN = 4;   // outputs per thread along N: cols tx + 16*j
-constexpr int kPad = 4;  // shared-memory row padding (bank spread)
-constexpr int kLoads = kBM * kBK / kThreads;  // tile elements per thread (4)
-static_assert(kBM == kBN, "tile loaders assume square block tiles");
-static_assert(kBM * kBK == kLoads * kThreads, "tile must split evenly");
-static_assert((kThreads / 16) * kTM == kBM && 16 * kTN == kBN,
-              "thread grid must cover the block tile");
+constexpr int kThreads = 128;  // one warpgroup a GEMM block
+constexpr int kBM = 64;        // block tile rows: the M of one wgmma
+constexpr int kBK = 16;        // depth of one shared-memory step
+constexpr int kStages = 3;     // shared-memory ring depth
+constexpr int kKPad = 4;       // K-contiguous tile: rows of kBK + kKPad floats
+constexpr int kOPad = 8;       // outer-contiguous tile: rows of T + kOPad
+constexpr int kMaxK = 1024;    // most channels one apply block contracts over
+constexpr int kFoldThreads = 256;
+static_assert(kBK == 16 && kMaxK % kBK == 0, "a step is two 8-deep slabs");
 
 constexpr int kMomCh = 32;     // moments: channels per block (one warp wide)
 constexpr int kMomLanes = 8;   // moments: row lanes per block
-
-struct Tiles {
-  float a[kBK][kBM + kPad];  // A(m, k) stored as a[k][m]
-  float b[kBK][kBN + kPad];  // B(k, n) stored as b[k][n]
-};
 
 // z = x*mul + add with two roundings, as torch's eager `x * mul + add`.
 __device__ __forceinline__ float bn_z(float x, float mul, float add) {
   return __fadd_rn(__fmul_rn(x, mul), add);
 }
 
-__device__ __forceinline__ void zero_acc(float acc[kTM][kTN]) {
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+// ------------------------------------------------------------ the GEMM core
+
+// A shared-memory tile holds T outer positions (rows of A, columns of B) by
+// kBK positions of K. kKC: K is the contiguous axis (rows of kBK + kKPad
+// floats), else the outer axis is (rows of T + kOPad floats). Either padding
+// makes the fragment reads of A (outer = lane / 4, k = lane % 4) hit 32
+// different banks.
+template <int T>
+constexpr int kTileFloats = T * (kBK + kKPad);  // >= kBK*(T + kOPad), T >= 32
+template <int NT>
+constexpr int kStageFloats = kTileFloats<kBM> + kTileFloats<32 * NT>;
+// B's big and small halves of one step, in the layout wgmma reads
+template <int NT>
+constexpr int kSplitFloats = 2 * 32 * NT * kBK;
+template <int NT>  // staged per-channel vectors, the ring, the split B tile
+constexpr int kSmemBytes =
+    (2 * kMaxK + kStages * kStageFloats<NT> + kSplitFloats<NT>) * 4;
+// da's epilogue reads its 64 x 32 NT tile of x from shared memory, rows of
+// 32 NT + kOPad floats (float2 reads by row = lane / 4 then hit every bank)
+template <int NT>
+constexpr int kXTileFloats = kBM * (32 * NT + kOPad);
+template <int NT>
+constexpr int kDaSmemBytes = kSmemBytes<NT> + kXTileFloats<NT> * 4;
+static_assert(6 * 128 <= 2 * kMaxK, "da stages six vectors of a tile's width");
+// two blocks a SM (227 KB, 1 KB of it reserved a block)
+static_assert(2 * (kDaSmemBytes<4> + 1024) <= 227 * 1024, "two blocks a SM");
+
+template <int T, bool kKC>
+__device__ __forceinline__ int tile_idx(int o, int k) {
+  return kKC ? o * (kBK + kKPad) + k : k * (T + kOPad) + o;
 }
 
-// acc[i][j] += sum_k a[k][ty + 16 i] * b[k][tx + 16 j]
-__device__ __forceinline__ void mma_tile(const Tiles& t, float acc[kTM][kTN],
-                                         int ty, int tx) {
+// Calls fn(o, k, width) for the pieces of a tile this thread owns: 16-byte
+// pieces (width 4 along the contiguous axis) when vec, single floats else.
+template <int T, bool kKC, class Fn>
+__device__ __forceinline__ void for_own_pieces(bool vec, Fn fn) {
+  if (vec) {
+    constexpr int kPieces = T * kBK / 4;
+    static_assert(kPieces % kThreads == 0, "tile must split evenly");
 #pragma unroll
-  for (int k = 0; k < kBK; ++k) {
-    float ra[kTM], rb[kTN];
+    for (int i = 0; i < kPieces / kThreads; ++i) {
+      const int u = threadIdx.x + i * kThreads;
+      if (kKC) fn(u / (kBK / 4), (u % (kBK / 4)) * 4, 4);
+      else fn((u % (T / 4)) * 4, u / (T / 4), 4);
+    }
+  } else {
+    constexpr int kPieces = T * kBK;
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) ra[i] = t.a[k][ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) rb[j] = t.b[k][tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(ra[i], rb[j], acc[i][j]);
+    for (int i = 0; i < kPieces / kThreads; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      if (kKC) fn(e / kBK, e % kBK, 1);
+      else fn(e % T, e / T, 1);
+    }
   }
 }
 
-// dst[k][n] = W[(k0+k)*sk + (n0+n)*sn] for k < K, n < N, else 0. Threads walk
-// the unit-stride axis, so the loads coalesce whichever way W is laid out.
-__device__ __forceinline__ void load_w_tile(float (*dst)[kBN + kPad],
-                                            const float* __restrict__ w,
-                                            long long sk, long long sn,
-                                            int k0, int n0, int K, int N) {
-  const bool n_fast = (sn == 1);
-#pragma unroll
-  for (int l = 0; l < kLoads; ++l) {
-    const int e = threadIdx.x + kThreads * l;
-    const int k = n_fast ? e / kBN : e % kBK;
-    const int n = n_fast ? e % kBN : e / kBK;
-    const int gk = k0 + k, gn = n0 + n;
-    dst[k][n] = (gk < K && gn < N) ? __ldg(w + gk * sk + gn * sn) : 0.f;
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         int width, int live) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = 4 * live;  // the rest of the piece is zero-filled
+  if (width == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// One operand's tile copies, step after step along K. Element (o, k) of the
+// next step's tile is base[o*so + k*sk] for o < o_left and k < k_left, else 0
+// (zero-filled by the copy's source size, not read). vec: the tile's
+// contiguous axis has stride 1 and every 4-float piece is 16-byte aligned.
+// The state is one pointer and two counts, so a step's addressing is a few
+// integer operations a piece.
+template <int T, bool kKC>
+struct TileCopy {
+  const float* base;
+  const float* safe;  // a valid address for pieces that read nothing
+  long long so, sk;
+  int o_left, k_left;
+  bool vec;
+
+  // The tile's outer positions start at o0 of o_lim, its K at k0 of k_lim.
+  __device__ __forceinline__ TileCopy(const float* src, long long o0,
+                                      long long o_lim, long long so_,
+                                      long long k0, long long k_lim,
+                                      long long sk_, bool vec_)
+      : base(src + o0 * so_ + k0 * sk_), safe(src), so(so_), sk(sk_),
+        o_left(static_cast<int>(min(max(o_lim - o0, 0LL), 1LL * T))),
+        k_left(static_cast<int>(min(max(k_lim - k0, 0LL), 1LL << 30))),
+        vec(vec_) {}
+
+  // Starts the copies of the next step into `tile`.
+  __device__ __forceinline__ void start(float* tile) {
+    for_own_pieces<T, kKC>(vec, [&](int o, int k, int width) {
+      const int along = kKC ? k_left - k : o_left - o;
+      const bool across = kKC ? o < o_left : k < k_left;
+      const int live = across ? min(max(along, 0), width) : 0;
+      const long long at = width == 1 ? o * so + k * sk
+                           : kKC      ? o * so + k
+                                      : o + k * sk;
+      cp_async(tile + tile_idx<T, kKC>(o, k), live ? base + at : safe, width,
+               live);
+    });
+    base += kBK * sk;
+    k_left -= kBK;
   }
+};
+
+// v = big + small exactly: big is v rounded to TF32's 10 mantissa bits (to
+// nearest, ties away, as cvt.rna.tf32.f32 rounds, by an integer add and a
+// mask), small the fp32 remainder, of which the tensor core reads the
+// leading 10 bits: what is dropped is below 2^-22 |v|.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(v - __uint_as_float(big));
+}
+
+// Where this thread sits in its warpgroup and in wgmma's fragments: warp w
+// holds rows 16 w .. 16 w + 15 of the 64-row tile, and acc[j][2h + e] is the
+// output at row 16 w + g + 8 h, column 8 j + 2 t + e of the tile.
+struct Lane {
+  int w, g, t;
+  __device__ Lane() {
+    const int lane = threadIdx.x % 32;
+    w = threadIdx.x / 32;
+    g = lane / 4;
+    t = lane % 4;
+  }
+};
+
+template <int NT>
+constexpr int kNJ = 4 * NT;  // 8-column groups of a tile: acc[kNJ<NT>][4]
+
+// The split B tile, as wgmma reads it: no swizzle, K-major core matrices of
+// 8 columns x 4 depths (128 bytes, 16 a column). Element (n, k) of big and
+// of small is float ((n / 8)*(kBK / 4) + k / 4)*32 + (n % 8)*4 + k % 4.
+constexpr int kLbo = 128;              // bytes between core matrices along K
+constexpr int kSbo = (kBK / 4) * 128;  // bytes between 8-column groups
+
+// wgmma's 64-bit descriptor of a B slab (64 columns x 8 deep) at `slab`.
+__device__ __forceinline__ uint64_t b_desc(const float* slab) {
+  const uint64_t at =
+      static_cast<uint64_t>(__cvta_generic_to_shared(slab)) & 0x3ffff;
+  return (at >> 4) | (static_cast<uint64_t>(kLbo >> 4) << 16) |
+         (static_cast<uint64_t>(kSbo >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most kPending of this thread's committed groups run.
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+// Shared-memory writes of this thread become visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d = a b (scale_d = 0) or d += a b: one 64 x 64 x 8 TF32 product of the
+// warpgroup, A from registers, B from shared memory; asynchronous until
+// wgmma_wait().
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8][4],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// Keeps the compiler from moving reads or writes of d across the
+// asynchronous products' fence and wait.
+template <int kN>
+__device__ __forceinline__ void pin(float (&d)[kN][4]) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+f"(d[j][r])::"memory");
+}
+
+// Splits the raw B tile of a stage (32 NT columns x kBK deep) into its big
+// and small TF32 halves in the layout wgmma reads (see kLbo). A thread
+// converts four depths of one column a turn, neighbouring threads
+// neighbouring columns: no bank conflicts either way.
+template <int NT, bool kBKC>
+__device__ __forceinline__ void split_b(const float* raw, float* big,
+                                        float* small) {
+  constexpr int kBN = 32 * NT;
+#pragma unroll
+  for (int i = 0; i < kBN * (kBK / 4) / kThreads; ++i) {
+    const int u = threadIdx.x + i * kThreads;
+    const int n = u % kBN, k4 = u / kBN;
+    float v[4];
+    if (kBKC) {
+      const float4 q = *reinterpret_cast<const float4*>(
+          raw + tile_idx<kBN, true>(n, 4 * k4));
+      v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        v[q] = raw[tile_idx<kBN, false>(n, 4 * k4 + q)];
+    }
+    uint32_t b[4], s[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) split_tf32(v[q], b[q], s[q]);
+    const int at = ((n / 8) * (kBK / 4) + k4) * 32 + (n % 8) * 4;
+    *reinterpret_cast<uint4*>(big + at) = make_uint4(b[0], b[1], b[2], b[3]);
+    *reinterpret_cast<uint4*>(small + at) = make_uint4(s[0], s[1], s[2], s[3]);
+  }
+}
+
+// The pipelined K loop. load(stage) starts the cp.async copies of the next
+// step into a stage (it is called once a step, in order); copies run kStages
+// - 1 steps ahead of the arithmetic. A step: B's raw tile is split into the
+// tile wgmma reads (split_b) while each warp reads its own 16 rows of A from
+// the raw tile, runs a_op on them in fp32 and splits them in registers (no
+// element of A or B is converted twice); then, for each of the two 8-deep
+// slabs and each 64 columns, big*big, big*small and small*big are chained
+// from zero by three asynchronous wgmma and added to the accumulators by the
+// CUDA cores. The tensor core truncates its fp32 sums (rounds toward zero),
+// so one long chain an output drifts low by about half an ulp a link; the
+// CUDA cores round to nearest, and the error no longer grows with K. Two
+// blocks a SM keep the tensor cores busy while one of them splits or adds.
+// a_op(v, s, r, k) is the prologue of A's element at row r, depth k of step
+// s. prep() runs once, behind the first copies and before a barrier: it
+// stages what a_op reads. On return every copy has landed and the ring is
+// free for the epilogue.
+template <int NT, bool kAKC, bool kBKC, class Load, class Prep, class AOp>
+__device__ __forceinline__ void gemm_mainloop(float* ring, int steps,
+                                              float (&acc)[kNJ<NT>][4],
+                                              const Lane& ln, Load load,
+                                              Prep prep, AOp a_op) {
+  constexpr int kBN = 32 * NT;
+  float* big = ring + kStages * kStageFloats<NT>;
+  float* small = big + kBN * kBK;
+#pragma unroll
+  for (int j = 0; j < kNJ<NT>; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) load(ring + s * kStageFloats<NT>);
+    cp_async_commit();  // one group a step, empty past the end
+  }
+  prep();
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kStages - 2>();  // this thread's copies of step s landed
+    const float* stage = ring + (s % kStages) * kStageFloats<NT>;
+    // step s (and, at s = 0, what prep staged) visible to all; step s - 1
+    // done by all: its stage and the split tile are free
+    __syncthreads();
+    const int ahead = s + kStages - 1;
+    if (ahead < steps) load(ring + (ahead % kStages) * kStageFloats<NT>);
+    cp_async_commit();
+    split_b<NT, kBKC>(stage + kTileFloats<kBM>, big, small);
+    fence_async_proxy();
+    uint32_t a_big[2][4], a_small[2][4];
+#pragma unroll
+    for (int slab = 0; slab < 2; ++slab)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {  // (r, k), (r+8, k), (r, k+4), (r+8, k+4)
+        const int row = 16 * ln.w + ln.g + 8 * (q & 1);
+        const int k = 8 * slab + ln.t + 4 * (q >> 1);
+        split_tf32(a_op(stage[tile_idx<kBM, kAKC>(row, k)], s, row, k),
+                   a_big[slab][q], a_small[slab][q]);
+      }
+    __syncthreads();  // the split tile visible to all
+    // The step's products in units of 64 columns x one slab (the wide
+    // tile's left and right halves, slab after slab), two sums taking
+    // turns: while the tensor cores run one unit's chain, the CUDA cores
+    // add the sums of the unit before.
+    constexpr int kUnits = NT;  // 2 slabs x NT / 2 halves
+    float sum[2][8][4];
+    const auto chain = [&](int u) {
+      const int slab = u / (NT / 2), half = u % (NT / 2);
+      const int at = slab * 64 + half * 8 * (kBK / 4) * 32;
+      const uint64_t d_big = b_desc(big + at), d_small = b_desc(small + at);
+      pin(sum[u % 2]);
+      wgmma_fence();
+      wgmma_tf32(sum[u % 2], a_big[slab], d_big, 0);
+      wgmma_tf32(sum[u % 2], a_big[slab], d_small, 1);
+      wgmma_tf32(sum[u % 2], a_small[slab], d_big, 1);
+      wgmma_commit();
+    };
+    const auto add = [&](int u) {
+      const int half = u % (NT / 2);
+      pin(sum[u % 2]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[half * 8 + j][q] += sum[u % 2][j][q];
+    };
+    chain(0);
+    chain(1);
+#pragma unroll
+    for (int u = 2; u < kUnits; ++u) {
+      wgmma_wait<1>();
+      add(u - 2);
+      chain(u);
+    }
+    wgmma_wait<1>();
+    add(kUnits - 2);
+    wgmma_wait<0>();
+    add(kUnits - 1);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// dst[(row0 + r)*ld + col0 + c] = acc(r, c) for row0 + r < rows, col0 + c <
+// cols; vec2: ld is even and dst 8-byte aligned (col0 + c is even).
+template <int NT>
+__device__ __forceinline__ void store_acc(float* __restrict__ dst,
+                                          long long ld, long long row0,
+                                          long long rows, int col0, int cols,
+                                          const float (&acc)[kNJ<NT>][4],
+                                          const Lane& ln, bool vec2) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long row = row0 + 16 * ln.w + ln.g + 8 * h;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < kNJ<NT>; ++j) {
+      const int col = col0 + 8 * j + 2 * ln.t;
+      float* p = dst + row * ld + col;
+      if (vec2 && col + 1 < cols) {
+        *reinterpret_cast<float2*>(p) =
+            make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+      } else {
+        if (col < cols) p[0] = acc[j][2 * h];
+        if (col + 1 < cols) p[1] = acc[j][2 * h + 1];
+      }
+    }
+  }
+}
+
+// Stages v[ch0 + i] (0 past ch_lim) for i < count into shared memory.
+__device__ __forceinline__ void stage_vector(float* dst,
+                                             const float* __restrict__ v,
+                                             int ch0, int ch_lim, int count) {
+  for (int i = threadIdx.x; i < count; i += kThreads)
+    dst[i] = ch0 + i < ch_lim ? __ldg(v + ch0 + i) : 0.f;
 }
 
 // ---------------------------------------------------------------- moments
@@ -143,113 +516,160 @@ moments_partial_kernel(const float* __restrict__ x, long long n, int c,
   }
 }
 
-// out[j] = sum_{k < chunks} part[k*m + j], k ascending: the fixed-order fold
-// of every per-block partial in this file.
-__global__ void __launch_bounds__(kThreads)
-fold_kernel(const float* __restrict__ part, int chunks, long long m,
-            float* __restrict__ out) {
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long j = static_cast<long long>(blockIdx.x) * kThreads +
-                     threadIdx.x;
-       j < m; j += stride) {
-    float s = 0.f;
-    for (int k = 0; k < chunks; ++k) s += part[k * m + j];
-    out[j] = s;
+// The fold of every kernel's per-block partials, two segments in one launch
+// (the second may be empty):
+//   out[j]      = sum_{k < chunks1} part[k*m1 + j]                   j < m1
+//   out[m1 + j] = sum_{k < chunks2} part[chunks1*m1 + k*m2 + j]      j < m2
+// A thread folds kWidth neighbouring outputs (4 as float4 where m1, m2 and
+// the pointers allow and there are outputs enough, else 1). Block =
+// kFoldThreads / kLanes output groups x kLanes lanes; lane l sums chunks l,
+// l + kLanes, ... ascending, then lane 0 adds the lanes in order: a fixed
+// order for a given launch shape, which the caller picks from the sizes
+// alone, so the same bits run to run.
+template <int kWidth, int kLanes>
+__global__ void __launch_bounds__(kFoldThreads)
+fold_parts_kernel(const float* __restrict__ part, int chunks1, long long m1,
+                  int chunks2, long long m2, float* __restrict__ out) {
+  constexpr int kCols = kFoldThreads / kLanes;
+  const int col = threadIdx.x % kCols, lane = threadIdx.x / kCols;
+  const long long j =
+      (static_cast<long long>(blockIdx.x) * kCols + col) * kWidth;
+  const bool live = j < m1 + m2;
+  float s[kWidth];
+#pragma unroll
+  for (int i = 0; i < kWidth; ++i) s[i] = 0.f;
+  if (live) {
+    const bool first = j < m1;
+    const float* p = first ? part + j : part + chunks1 * m1 + (j - m1);
+    const long long m = first ? m1 : m2;
+    const int chunks = first ? chunks1 : chunks2;
+#pragma unroll 8
+    for (int k = lane; k < chunks; k += kLanes) {
+      if constexpr (kWidth == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(p + k * m);
+        s[0] += v.x, s[1] += v.y, s[2] += v.z, s[3] += v.w;
+      } else {
+        s[0] += p[k * m];
+      }
+    }
+  }
+  if constexpr (kLanes > 1) {
+    __shared__ float red[kLanes][kCols * kWidth];
+#pragma unroll
+    for (int i = 0; i < kWidth; ++i) red[lane][col * kWidth + i] = s[i];
+    __syncthreads();
+    if (lane == 0)
+      for (int l = 1; l < kLanes; ++l)
+#pragma unroll
+        for (int i = 0; i < kWidth; ++i) s[i] += red[l][col * kWidth + i];
+  }
+  if (live && lane == 0) {
+    if constexpr (kWidth == 4)
+      *reinterpret_cast<float4*>(out + j) = make_float4(s[0], s[1], s[2], s[3]);
+    else
+      out[j] = s[0];
   }
 }
 
 // ------------------------------------------------------------------ apply
 
-// out (N, F) = relu(x*mul + add) @ W; grid (ceil(N/64), ceil(F/64)).
-__global__ void __launch_bounds__(kThreads)
+// out[blockIdx.z] (N, F) = relu(x*mul + add)[:, chunk] @ W[chunk, :], the
+// chunk being channels [blockIdx.z*k_per_chunk, +k_per_chunk) (a multiple of
+// kBK, at most kMaxK); grid (ceil(N/64), ceil(F/(32 NT)), chunks).
+// kWKC: W's channel axis is the contiguous one (the conv kernel's layout).
+template <int NT, bool kWKC>
+__global__ void __launch_bounds__(kThreads, 2)
 apply_kernel(const float* __restrict__ x, const float* __restrict__ mul,
              const float* __restrict__ add, const float* __restrict__ w,
              long long w_sc, long long w_sf, long long n, int c, int f,
+             int k_per_chunk, bool x_vec, bool w_vec, bool out_vec,
              float* __restrict__ out) {
-  __shared__ Tiles t;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  extern __shared__ float4 smem4[];
+  float* smul = reinterpret_cast<float*>(smem4);
+  float* sadd = smul + kMaxK;
+  float* ring = sadd + kMaxK;
+  const Lane ln;
   const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
-  const int n0 = blockIdx.y * kBN;
-  float acc[kTM][kTN];
-  zero_acc(acc);
-  for (int k0 = 0; k0 < c; k0 += kBK) {
-#pragma unroll
-    for (int l = 0; l < kLoads; ++l) {  // A(m, k) = relu(z[m0+m, k0+k])
-      const int e = threadIdx.x + kThreads * l;
-      const int k = e % kBK, m = e / kBK;
-      const long long row = m0 + m;
-      const int ch = k0 + k;
-      float v = 0.f;
-      if (row < n && ch < c)
-        v = fmaxf(bn_z(__ldg(x + row * c + ch), __ldg(mul + ch),
-                       __ldg(add + ch)), 0.f);
-      t.a[k][m] = v;
-    }
-    load_w_tile(t.b, w, w_sc, w_sf, k0, n0, c, f);
-    __syncthreads();
-    mma_tile(t, acc, ty, tx);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const long long row = m0 + ty + 16 * i;
-    if (row >= n) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col < f) out[row * f + col] = acc[i][j];
-    }
-  }
+  const int n0 = blockIdx.y * 32 * NT;
+  const int k_beg = blockIdx.z * k_per_chunk;
+  const int k_end = min(c, k_beg + k_per_chunk);
+
+  // A(m = row, k = channel) = x, B(k = channel, n = output) = W
+  TileCopy<kBM, true> a_copy(x, m0, n, c, k_beg, k_end, 1, x_vec);
+  TileCopy<32 * NT, kWKC> b_copy(w, n0, f, w_sf, k_beg, k_end, w_sc, w_vec);
+  float acc[kNJ<NT>][4];
+  gemm_mainloop<NT, true, kWKC>(
+      ring, (k_end - k_beg + kBK - 1) / kBK, acc, ln,
+      [&](float* stage) {
+        a_copy.start(stage);
+        b_copy.start(stage + kTileFloats<kBM>);
+      },
+      [&] {
+        stage_vector(smul, mul, k_beg, k_end, k_per_chunk);
+        stage_vector(sadd, add, k_beg, k_end, k_per_chunk);
+      },
+      [&](float v, int s, int, int k) {
+        return fmaxf(bn_z(v, smul[s * kBK + k], sadd[s * kBK + k]), 0.f);
+      });
+  store_acc<NT>(out + static_cast<long long>(blockIdx.z) * n * f, f, m0, n,
+                n0, f, acc, ln, out_vec);
 }
 
 // ------------------------------------------------------------- bwd_reduce
 
-// Partial dW over one chunk of rows: part[chunk] (C, F) = a[rows]^T g[rows];
-// grid (ceil(C/64), ceil(F/64), chunks).
-__global__ void __launch_bounds__(kThreads)
-dw_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                  const float* __restrict__ mul, const float* __restrict__ add,
-                  long long n, int c, int f, long long rows_per_chunk,
-                  float* __restrict__ part) {
-  __shared__ Tiles t;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int c0 = blockIdx.x * kBM;
-  const int f0 = blockIdx.y * kBN;
-  const long long r0 = static_cast<long long>(blockIdx.z) * rows_per_chunk;
-  const long long r1 = min(n, r0 + rows_per_chunk);
-  float acc[kTM][kTN];
-  zero_acc(acc);
-  for (long long rk = r0; rk < r1; rk += kBK) {
-#pragma unroll
-    for (int l = 0; l < kLoads; ++l) {
-      const int e = threadIdx.x + kThreads * l;
-      const int m = e % kBM, k = e / kBM;  // coalesced along channels / F
-      const long long row = rk + k;
-      const bool live = row < r1;
-      const int ch = c0 + m;
-      float v = 0.f;
-      if (live && ch < c)
-        v = fmaxf(bn_z(__ldg(x + row * c + ch), __ldg(mul + ch),
-                       __ldg(add + ch)), 0.f);
-      t.a[k][m] = v;  // A(m = channel, k = row) = a[row, channel]
-      const int col = f0 + m;
-      t.b[k][m] = (live && col < f) ? __ldg(g + row * f + col) : 0.f;
-    }
-    __syncthreads();
-    mma_tile(t, acc, ty, tx);
-    __syncthreads();
-  }
-  float* dst = part + static_cast<long long>(blockIdx.z) * c * f;
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int ch = c0 + ty + 16 * i;
-    if (ch >= c) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int col = f0 + tx + 16 * j;
-      if (col < f) dst[static_cast<long long>(ch) * f + col] = acc[i][j];
-    }
-  }
+// A block's place in its product's grid (nx: the grid's x extent). The two
+// products of bwd_reduce share one launch, so neither reads blockIdx itself.
+struct Block {
+  int x, y, z, nx;
+};
+
+struct DwArgs {
+  const float *x, *g, *mul, *add;
+  long long n;
+  int c, f;
+  long long rows_per_chunk;
+  bool x_vec, g_vec, out_vec;
+  float* part;
+};
+
+// Partial dW over one chunk of rows: part[b.z] (C, F) = a[rows]^T g[rows],
+// rows [b.z*rows_per_chunk, +rows_per_chunk) (a multiple of kBK); grid
+// (ceil(C/64), ceil(F/(32 NT)), chunks).
+template <int NT>
+__device__ __forceinline__ void dw_block(const DwArgs& p, const Block& b) {
+  const float *x = p.x, *g = p.g, *mul = p.mul, *add = p.add;
+  const long long n = p.n;
+  const int c = p.c, f = p.f;
+  extern __shared__ float4 smem4[];
+  float* smul = reinterpret_cast<float*>(smem4);
+  float* sadd = smul + kMaxK;
+  float* ring = sadd + kMaxK;
+  const Lane ln;
+  const int c0 = b.x * kBM;
+  const int f0 = b.y * 32 * NT;
+  const long long r0 = static_cast<long long>(b.z) * p.rows_per_chunk;
+  const long long r1 = min(n, r0 + p.rows_per_chunk);
+
+  // A(m = channel, k = row) = x[row, channel], B(k = row, n = output) = g
+  TileCopy<kBM, false> a_copy(x, c0, c, 1, r0, r1, c, p.x_vec);
+  TileCopy<32 * NT, false> b_copy(g, f0, f, 1, r0, r1, f, p.g_vec);
+  float acc[kNJ<NT>][4];
+  gemm_mainloop<NT, false, false>(
+      ring, static_cast<int>((r1 - r0 + kBK - 1) / kBK), acc, ln,
+      [&](float* stage) {
+        a_copy.start(stage);
+        b_copy.start(stage + kTileFloats<kBM>);
+      },
+      [&] {
+        stage_vector(smul, mul, c0, c, kBM);
+        stage_vector(sadd, add, c0, c, kBM);
+      },
+      [&](float v, int, int ch, int) {
+        // rows past r1 become relu(add) here, against g rows that are 0
+        return fmaxf(bn_z(v, smul[ch], sadd[ch]), 0.f);
+      });
+  store_acc<NT>(p.part + static_cast<long long>(b.z) * c * f, f, c0, c, f0, f,
+                acc, ln, p.out_vec);
 }
 
 // --------------------------------------------------------- da = g W^T + BN
@@ -257,84 +677,155 @@ dw_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
 // da (N, C) = g (N, F) @ W^T over F, then per element:
 //   z = x*mul + add, dz = z > 0 ? da : 0, xhat = (x - mean)*rstd
 //   kDx = false: per-block partial sums over the block's 64 rows,
-//                part[row tile][c] = sum dz, part[row tile][C + c] = sum dz*xhat
-//   kDx = true:  dx = mul*(dz - c1 - xhat*c2)
-// grid (ceil(N/64), ceil(C/64)).
-template <bool kDx>
-__global__ void __launch_bounds__(kThreads)
-da_kernel(const float* __restrict__ g, const float* __restrict__ w,
-          long long w_sc, long long w_sf, const float* __restrict__ x,
-          const float* __restrict__ mul, const float* __restrict__ add,
-          const float* __restrict__ mean, const float* __restrict__ rstd,
-          const float* __restrict__ c1, const float* __restrict__ c2,
-          long long n, int c, int f, float* __restrict__ dx,
-          float* __restrict__ part) {
-  __shared__ Tiles t;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
-  const int n0 = blockIdx.y * kBN;
-  float acc[kTM][kTN];
-  zero_acc(acc);
-  for (int k0 = 0; k0 < f; k0 += kBK) {
-#pragma unroll
-    for (int l = 0; l < kLoads; ++l) {  // A(m, k) = g[m0+m, k0+k]
-      const int e = threadIdx.x + kThreads * l;
-      const int k = e % kBK, m = e / kBK;
-      const long long row = m0 + m;
-      const int col = k0 + k;
-      t.a[k][m] = (row < n && col < f) ? __ldg(g + row * f + col) : 0.f;
-    }
-    // B(k = f, n = channel) = W[channel, f]
-    load_w_tile(t.b, w, w_sf, w_sc, k0, n0, f, c);
-    __syncthreads();
-    mma_tile(t, acc, ty, tx);
-    __syncthreads();
-  }
+//                part[p][c] = sum dz, part[p][C + c] = sum dz*xhat. The sums
+//                are linear in da, so a small grid may split F too: block z
+//                contracts outputs [z*k_per_chunk, +k_per_chunk) (a multiple
+//                of kBK) and writes p = z*(row tiles) + row tile.
+//   kDx = true:  dx = mul*(dz - c1 - xhat*c2); one chunk (b.z = 0).
+// grid (ceil(N/64), ceil(C/(32 NT)), chunks). kWKC: W's F axis (the K of
+// this product) is the contiguous one.
+struct DaArgs {
+  const float *g, *w;
+  long long w_sc, w_sf;
+  const float *x, *mul, *add, *mean, *rstd, *c1, *c2;
+  long long n;
+  int c, f, k_per_chunk;
+  bool g_vec, w_vec, x_vec, dx_vec;
+  float *dx, *part;
+};
 
-  float s_db[kTN], s_dg[kTN];
+template <bool kDx, int NT, bool kWKC>
+__device__ __forceinline__ void da_block(const DaArgs& p, const Block& b) {
+  const float *g = p.g, *w = p.w, *x = p.x;
+  const long long w_sc = p.w_sc, w_sf = p.w_sf, n = p.n;
+  const int c = p.c, f = p.f;
+  const bool x_vec = p.x_vec;
+  float* dx = p.dx;
+  extern __shared__ float4 smem4[];
+  constexpr int kBN = 32 * NT, kXLd = kBN + kOPad;
+  float* vecs = reinterpret_cast<float*>(smem4);  // 6 vectors of kBN
+  float* ring = vecs + 2 * kMaxK;
+  float* x_tile = ring + kStages * kStageFloats<NT> + kSplitFloats<NT>;
+  const Lane ln;
+  const long long m0 = static_cast<long long>(b.x) * kBM;
+  const int n0 = b.y * kBN;
+
+  // A(m = row, k = f) = g[row, f], B(k = f, n = channel) = W[channel, f]
+  const int k_beg = b.z * p.k_per_chunk;
+  const int k_end = min(f, k_beg + p.k_per_chunk);
+  TileCopy<kBM, true> a_copy(g, m0, n, f, k_beg, k_end, 1, p.g_vec);
+  TileCopy<kBN, kWKC> b_copy(w, n0, c, w_sc, k_beg, k_end, w_sf, p.w_vec);
+  float acc[kNJ<NT>][4];
+  gemm_mainloop<NT, true, kWKC>(
+      ring, (k_end - k_beg + kBK - 1) / kBK, acc, ln,
+      [&](float* stage) {
+        a_copy.start(stage);
+        b_copy.start(stage + kTileFloats<kBM>);
+      },
+      [&] {
+        // what the epilogue reads, fetched behind the product: the block's
+        // tile of x (by cp.async, in the next step's group) and its slices
+        // of the per-channel vectors
+        const int width = x_vec ? 4 : 1;
+        for (int e = threadIdx.x * width; e < kBM * kBN;
+             e += kThreads * width) {
+          const int r = e / kBN, col = e % kBN;
+          const long long row = m0 + r;
+          const int left = c - (n0 + col);
+          const int live = row < n && left > 0 ? min(left, width) : 0;
+          cp_async(x_tile + r * kXLd + col,
+                   live ? x + row * c + n0 + col : x, width, live);
+        }
+        const float* src[6] = {p.mul, p.add, p.mean, p.rstd, p.c1, p.c2};
 #pragma unroll
-  for (int j = 0; j < kTN; ++j) s_db[j] = s_dg[j] = 0.f;
+        for (int v = 0; v < (kDx ? 6 : 4); ++v)
+          stage_vector(vecs + v * kBN, src[v], n0, c, kBN);
+      },
+      [](float v, int, int, int) { return v; });
+
+  float s_db[kNJ<NT>][2], s_dg[kNJ<NT>][2];
+  const auto pair = [](const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  };
 #pragma unroll
-  for (int j = 0; j < kTN; ++j) {
-    const int ch = n0 + tx + 16 * j;
-    if (ch >= c) continue;
-    const float mu = __ldg(mul + ch), ad = __ldg(add + ch);
-    const float me = __ldg(mean + ch), rs = __ldg(rstd + ch);
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const long long row = m0 + ty + 16 * i;
-      if (row >= n) continue;
-      const float xv = __ldg(x + row * c + ch);
-      const float dz = bn_z(xv, mu, ad) > 0.f ? acc[i][j] : 0.f;
-      const float xhat = (xv - me) * rs;
-      if constexpr (kDx) {
-        dx[row * c + ch] = mu * (dz - __ldg(c1 + ch) - xhat * __ldg(c2 + ch));
-      } else {
-        s_db[j] += dz;
-        s_dg[j] += dz * xhat;
-      }
+  for (int j = 0; j < kNJ<NT>; ++j) {
+    // two neighbouring channels a thread; channels past C hold zeros
+    // (vectors and x alike) and are not stored
+    const int col = 8 * j + 2 * ln.t;
+    const int ch = n0 + col;
+    const float2 mu = pair(vecs + col), ad = pair(vecs + kBN + col);
+    const float2 me = pair(vecs + 2 * kBN + col);
+    const float2 rs = pair(vecs + 3 * kBN + col);
+    float2 k1 = make_float2(0.f, 0.f), k2 = k1;
+    if constexpr (kDx) {
+      k1 = pair(vecs + 4 * kBN + col);
+      k2 = pair(vecs + 5 * kBN + col);
     }
+    s_db[j][0] = s_db[j][1] = s_dg[j][0] = s_dg[j][1] = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = 16 * ln.w + ln.g + 8 * h;
+        const long long row = m0 + r;
+        const float2 xv = pair(x_tile + r * kXLd + col);
+        const float dz0 =
+            bn_z(xv.x, mu.x, ad.x) > 0.f ? acc[j][2 * h] : 0.f;
+        const float dz1 =
+            bn_z(xv.y, mu.y, ad.y) > 0.f ? acc[j][2 * h + 1] : 0.f;
+        const float xhat0 = (xv.x - me.x) * rs.x;
+        const float xhat1 = (xv.y - me.y) * rs.y;
+        if constexpr (kDx) {
+          if (row >= n) continue;
+          const float d0 = mu.x * (dz0 - k1.x - xhat0 * k2.x);
+          const float d1 = mu.y * (dz1 - k1.y - xhat1 * k2.y);
+          float* dst = dx + row * c + ch;
+          if (p.dx_vec && ch + 1 < c) {
+            *reinterpret_cast<float2*>(dst) = make_float2(d0, d1);
+          } else {
+            if (ch < c) dst[0] = d0;
+            if (ch + 1 < c) dst[1] = d1;
+          }
+        } else {
+          // rows past N add 0: their da is 0 (g is zero-filled)
+          s_db[j][0] += dz0;
+          s_db[j][1] += dz1;
+          s_dg[j][0] += dz0 * xhat0;
+          s_dg[j][1] += dz1 * xhat1;
+        }
+      }
   }
 
   if constexpr (!kDx) {
-    // Fold the 16 row-threads of each column in a fixed order.
-    __shared__ float red_db[kThreads / 16][kBN], red_dg[kThreads / 16][kBN];
+    // Column sums over the block's 64 rows in a fixed order: the 8 row
+    // lanes of a warp by butterfly, then the four warps.
+    constexpr int kWarps = kThreads / 32;
+    float* red = ring;  // [2 (db, dg)][kWarps][32 NT]
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      red_db[ty][tx + 16 * j] = s_db[j];
-      red_dg[ty][tx + 16 * j] = s_dg[j];
-    }
+    for (int j = 0; j < kNJ<NT>; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float db = s_db[j][e], dg = s_dg[j][e];
+#pragma unroll
+        for (int mask = 4; mask < 32; mask <<= 1) {
+          db += __shfl_xor_sync(0xffffffffu, db, mask);
+          dg += __shfl_xor_sync(0xffffffffu, dg, mask);
+        }
+        if (ln.g == 0) {
+          const int col = 8 * j + 2 * ln.t + e;
+          red[ln.w * kBN + col] = db;
+          red[(kWarps + ln.w) * kBN + col] = dg;
+        }
+      }
     __syncthreads();
     if (threadIdx.x < kBN) {
-      const int col = threadIdx.x;
-      const int ch = n0 + col;
+      const int col = threadIdx.x, ch = n0 + col;
       if (ch < c) {
         float db = 0.f, dg = 0.f;
-        for (int r = 0; r < kThreads / 16; ++r) {
-          db += red_db[r][col];
-          dg += red_dg[r][col];
+        for (int r = 0; r < kWarps; ++r) {
+          db += red[r * kBN + col];
+          dg += red[(kWarps + r) * kBN + col];
         }
-        float* dst = part + static_cast<long long>(blockIdx.x) * 2 * c;
+        float* dst =
+            p.part + (static_cast<long long>(b.z) * b.nx + b.x) * 2 * c;
         dst[ch] = db;
         dst[c + ch] = dg;
       }
@@ -342,14 +833,161 @@ da_kernel(const float* __restrict__ g, const float* __restrict__ w,
   }
 }
 
-int fold_grid(long long m) {
-  const long long blocks = (m + kThreads - 1) / kThreads;
-  return static_cast<int>(blocks < 1024 ? blocks : 1024);
+// bwd_dx: the da product with the BN backward as its epilogue; grid
+// (ceil(N/64), ceil(C/(32 NT))).
+template <int NT, bool kWKC>
+__global__ void __launch_bounds__(kThreads, 2)
+bwd_dx_kernel(const DaArgs p) {
+  da_block<true, NT, kWKC>(
+      p, Block{static_cast<int>(blockIdx.x), static_cast<int>(blockIdx.y), 0,
+               static_cast<int>(gridDim.x)});
 }
+
+// bwd_reduce's two products in one launch, sharing the card and one launch's
+// latency. Blocks [0, dw.n) of the 1-D grid are the dW partials' grid
+// (dw.x x dw.y x ...), the rest the da product's (64 x 64 tiles), both in
+// x-fastest order.
+struct Grid {
+  int x, y, n;  // extents in x and y, blocks in all
+};
+
+template <int kDwNT, bool kWKC>
+__global__ void __launch_bounds__(kThreads, 2)
+bwd_reduce_kernel(const DwArgs dw, const DaArgs da, const Grid dw_grid,
+                  const Grid da_grid) {
+  int id = blockIdx.x;
+  if (id < dw_grid.n) {
+    dw_block<kDwNT>(dw, Block{id % dw_grid.x, id / dw_grid.x % dw_grid.y,
+                              id / (dw_grid.x * dw_grid.y), dw_grid.x});
+  } else {
+    id -= dw_grid.n;
+    da_block<false, 2, kWKC>(
+        da, Block{id % da_grid.x, id / da_grid.x % da_grid.y,
+                  id / (da_grid.x * da_grid.y), da_grid.x});
+  }
+}
+
+// --------------------------------------------------------- host launchers
 
 int ceil_div(long long a, long long b) {
   return static_cast<int>((a + b - 1) / b);
 }
+
+// True when 4-float pieces along a unit-stride axis are 16-byte aligned:
+// `contiguous` is that axis's stride, `ld` the other axis's.
+bool vec4_ok(const void* p, long long contiguous, long long ld) {
+  return contiguous == 1 && ld % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+bool vec2_ok(const void* p, long long ld) {
+  return ld % 2 == 0 && reinterpret_cast<uintptr_t>(p) % 8 == 0;
+}
+
+// Lets `kernel` use `bytes` of dynamic shared memory (above the 48 KB a
+// launch gets unasked).
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// share_chunks: let 8 lanes share a long walk over the chunks; without it
+// one thread sums a column's chunks in ascending order.
+cudaError_t launch_fold_parts(const float* part, int chunks1, long long m1,
+                              int chunks2, long long m2, float* out,
+                              bool share_chunks, cudaStream_t s) {
+  // float4 columns where there are outputs enough to fill the card with them
+  const bool wide = m1 % 4 == 0 && m2 % 4 == 0 && m1 + m2 >= (1 << 16) &&
+                    reinterpret_cast<uintptr_t>(part) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  // few chunks: a thread walks them all; many: 8 lanes share them
+  const bool lanes =
+      share_chunks && (chunks1 > chunks2 ? chunks1 : chunks2) > 8;
+  const int groups = ceil_div(m1 + m2, wide ? 4 : 1);
+#define MSP_FOLD(W, L)                                                      \
+  fold_parts_kernel<W, L>                                                   \
+      <<<ceil_div(groups, kFoldThreads / L), kFoldThreads, 0, s>>>(         \
+          part, chunks1, m1, chunks2, m2, out)
+  if (wide && lanes) MSP_FOLD(4, 8);
+  else if (wide) MSP_FOLD(4, 1);
+  else if (lanes) MSP_FOLD(1, 8);
+  else MSP_FOLD(1, 1);
+#undef MSP_FOLD
+  return cudaGetLastError();
+}
+
+template <int NT, bool kWKC>
+cudaError_t launch_apply(const float* x, const float* mul, const float* add,
+                         const float* w, long long w_sc, long long w_sf,
+                         long long n, int c, int f, int chunks,
+                         int k_per_chunk, float* dst, cudaStream_t s) {
+  auto kernel = apply_kernel<NT, kWKC>;
+  cudaError_t e = allow_smem(kernel, kSmemBytes<NT>);
+  if (e != cudaSuccess) return e;
+  dim3 grid(ceil_div(n, kBM), ceil_div(f, 32 * NT), chunks);
+  const bool w_vec = kWKC ? vec4_ok(w, w_sc, w_sf) : vec4_ok(w, w_sf, w_sc);
+  // every chunk's (n, f) slab must keep the 8-byte alignment
+  const bool out_vec = vec2_ok(dst, f) && (chunks == 1 || (n * f) % 2 == 0);
+  kernel<<<grid, kThreads, kSmemBytes<NT>, s>>>(
+      x, mul, add, w, w_sc, w_sf, n, c, f, k_per_chunk, vec4_ok(x, 1, c),
+      w_vec, out_vec, dst);
+  return cudaGetLastError();
+}
+
+Grid dw_grid_of(const DwArgs& dw, int tile_cols) {
+  Grid grid{ceil_div(dw.c, kBM), ceil_div(dw.f, tile_cols), 0};
+  grid.n = grid.x * grid.y * ceil_div(dw.n, dw.rows_per_chunk);
+  return grid;
+}
+
+Grid da_grid_of(const DaArgs& da) {
+  Grid grid{ceil_div(da.n, kBM), ceil_div(da.c, 64), 0};
+  grid.n = grid.x * grid.y * ceil_div(da.f, da.k_per_chunk);
+  return grid;
+}
+
+template <int NT, bool kWKC>
+cudaError_t launch_bwd_dx(const DaArgs& da, cudaStream_t s) {
+  auto kernel = bwd_dx_kernel<NT, kWKC>;
+  cudaError_t e = allow_smem(kernel, kDaSmemBytes<NT>);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(ceil_div(da.n, kBM), ceil_div(da.c, 32 * NT)), kThreads,
+           kDaSmemBytes<NT>, s>>>(da);
+  return cudaGetLastError();
+}
+
+template <int kDwNT, bool kWKC>
+cudaError_t launch_bwd_reduce(const DwArgs& dw, const DaArgs& da,
+                              cudaStream_t s) {
+  auto kernel = bwd_reduce_kernel<kDwNT, kWKC>;
+  constexpr int kBytes = kSmemBytes<kDwNT> > kDaSmemBytes<2>
+                             ? kSmemBytes<kDwNT> : kDaSmemBytes<2>;
+  cudaError_t e = allow_smem(kernel, kBytes);
+  if (e != cudaSuccess) return e;
+  const Grid dw_grid = dw_grid_of(dw, 32 * kDwNT);
+  const Grid da_grid = da_grid_of(da);
+  kernel<<<dw_grid.n + da_grid.n, kThreads, kBytes, s>>>(dw, da, dw_grid,
+                                                         da_grid);
+  return cudaGetLastError();
+}
+
+// The da product's arguments but dx, part and the plan.
+DaArgs da_args(const float* g, const float* w, long long w_sc, long long w_sf,
+               const float* x, const float* mul, const float* add,
+               const float* mean, const float* rstd, long long n, int c,
+               int f) {
+  DaArgs da{};
+  da.g = g, da.w = w, da.w_sc = w_sc, da.w_sf = w_sf, da.x = x;
+  da.mul = mul, da.add = add, da.mean = mean, da.rstd = rstd;
+  da.n = n, da.c = c, da.f = f;
+  da.g_vec = vec4_ok(g, 1, f), da.x_vec = vec4_ok(x, 1, c);
+  // W[channel, f]: the tile's K axis (f) is contiguous when w_sf == 1
+  da.w_vec = w_sf == 1 ? vec4_ok(w, w_sf, w_sc) : vec4_ok(w, w_sc, w_sf);
+  return da;
+}
+
+bool tile_cols_ok(int tile_cols) { return tile_cols == 64 || tile_cols == 128; }
 
 }  // namespace
 
@@ -357,9 +995,11 @@ extern "C" {
 
 // All pointers are device pointers to float32; x is (n, c) and g (n, f),
 // both C-contiguous; W is read as W[c*w_sc + f*w_sf]; vectors are (c,).
-// Each function launches on `stream` without synchronising and returns
-// cudaGetLastError() (0 on success). Scratch (`part`) is allocated by the
-// caller with the sizes noted.
+// Each function launches on `stream` without synchronising and returns the
+// first CUDA error of its attribute calls and launches (0 on success;
+// cudaErrorInvalidValue for a plan the kernels do not take). Scratch
+// (`part`) is allocated by the caller with the sizes noted; the launch plan
+// (tile_cols 64 or 128, chunk sizes as multiples of 16) is the caller's.
 
 // out (2c): sums then sums of squares. part: chunks * 2c floats, with
 // chunks = ceil(n / rows_per_chunk).
@@ -373,52 +1013,72 @@ int msp_fused_moments(const float* x, long long n, int c,
       x, n, c, rows_per_chunk, part);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  fold_kernel<<<fold_grid(2LL * c), kThreads, 0, s>>>(part, chunks, 2LL * c,
-                                                     out);
-  return cudaGetLastError();
+  // one thread a column: the batch statistics are a plain ascending sum of
+  // the row chunks
+  return launch_fold_parts(part, chunks, 2LL * c, 0, 0, out, false, s);
 }
 
-// out (n, f) = relu(x*mul + add) @ W.
+// out (n, f) = relu(x*mul + add) @ W. Channels are contracted in chunks of
+// k_per_chunk (a multiple of 16, at most 1024); with one chunk the kernel
+// writes out and part is unused, else part holds chunks * n * f floats,
+// chunks = ceil(c / k_per_chunk), folded into out in ascending order.
 int msp_fused_apply(const float* x, const float* mul, const float* add,
                     const float* w, long long w_sc, long long w_sf,
-                    long long n, int c, int f, float* out, void* stream) {
+                    long long n, int c, int f, int tile_cols,
+                    int k_per_chunk, float* part, float* out, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  dim3 grid(ceil_div(n, kBM), ceil_div(f, kBN));
-  apply_kernel<<<grid, kThreads, 0, s>>>(x, mul, add, w, w_sc, w_sf, n, c, f,
-                                         out);
-  return cudaGetLastError();
+  if (!tile_cols_ok(tile_cols) || k_per_chunk <= 0 || k_per_chunk % kBK ||
+      k_per_chunk > kMaxK)
+    return cudaErrorInvalidValue;
+  const int chunks = ceil_div(c, k_per_chunk);
+  float* dst = chunks == 1 ? out : part;
+  const bool wide = tile_cols == 128, kc = w_sc == 1;
+#define MSP_APPLY(NT, KC)                                                  \
+  launch_apply<NT, KC>(x, mul, add, w, w_sc, w_sf, n, c, f, chunks,        \
+                       k_per_chunk, dst, s)
+  cudaError_t e = wide ? (kc ? MSP_APPLY(4, true) : MSP_APPLY(4, false))
+                       : (kc ? MSP_APPLY(2, true) : MSP_APPLY(2, false));
+#undef MSP_APPLY
+  if (e != cudaSuccess || chunks == 1) return e;
+  return launch_fold_parts(part, chunks, n * f, 0, 0, out, true, s);
 }
 
-// dw (c, f), dbg (2c): dbeta then dgamma. part_dw: chunks * c * f floats
-// with chunks = ceil(n / rows_per_chunk); part_bg: ceil(n / 64) * 2c floats.
+// out (c*f + 2c): dW (c, f), then dbeta (c), then dgamma (c). part:
+// dw_chunks * c * f floats, dw_chunks = ceil(n / rows_per_chunk)
+// (rows_per_chunk a multiple of 16), then ceil(n / 64) * da_chunks * 2c
+// floats, da_chunks = ceil(f / da_k_per_chunk) (a multiple of 16 too).
 int msp_fused_bwd_reduce(const float* x, const float* g, const float* w,
                          long long w_sc, long long w_sf, const float* mul,
                          const float* add, const float* mean,
                          const float* rstd, long long n, int c, int f,
-                         long long rows_per_chunk, float* part_dw,
-                         float* part_bg, float* dw, float* dbg,
+                         int dw_tile_cols, long long rows_per_chunk,
+                         int da_k_per_chunk, float* part, float* out,
                          void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  const int chunks = ceil_div(n, rows_per_chunk);
-  dim3 grid_dw(ceil_div(c, kBM), ceil_div(f, kBN), chunks);
-  dw_partial_kernel<<<grid_dw, kThreads, 0, s>>>(x, g, mul, add, n, c, f,
-                                                 rows_per_chunk, part_dw);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const int row_tiles = ceil_div(n, kBM);
-  dim3 grid_da(row_tiles, ceil_div(c, kBN));
-  da_kernel<false><<<grid_da, kThreads, 0, s>>>(
-      g, w, w_sc, w_sf, x, mul, add, mean, rstd, nullptr, nullptr, n, c, f,
-      nullptr, part_bg);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  if (!tile_cols_ok(dw_tile_cols) || rows_per_chunk <= 0 ||
+      rows_per_chunk % kBK || da_k_per_chunk <= 0 || da_k_per_chunk % kBK)
+    return cudaErrorInvalidValue;
+  const int dw_chunks = ceil_div(n, rows_per_chunk);
   const long long m_dw = static_cast<long long>(c) * f;
-  fold_kernel<<<fold_grid(m_dw), kThreads, 0, s>>>(part_dw, chunks, m_dw, dw);
-  e = cudaGetLastError();
+  DwArgs dw{x, g, mul, add, n, c, f, rows_per_chunk, vec4_ok(x, 1, c),
+            vec4_ok(g, 1, f),
+            vec2_ok(part, f) && (dw_chunks == 1 || m_dw % 2 == 0), part};
+  DaArgs da = da_args(g, w, w_sc, w_sf, x, mul, add, mean, rstd, n, c, f);
+  da.k_per_chunk = da_k_per_chunk;
+  da.part = part + dw_chunks * m_dw;
+  const bool dw_wide = dw_tile_cols == 128, kc = w_sf == 1;
+  cudaError_t e;
+  if (dw_wide) {
+    e = kc ? launch_bwd_reduce<4, true>(dw, da, s)
+           : launch_bwd_reduce<4, false>(dw, da, s);
+  } else {
+    e = kc ? launch_bwd_reduce<2, true>(dw, da, s)
+           : launch_bwd_reduce<2, false>(dw, da, s);
+  }
   if (e != cudaSuccess) return e;
-  fold_kernel<<<fold_grid(2LL * c), kThreads, 0, s>>>(part_bg, row_tiles,
-                                                     2LL * c, dbg);
-  return cudaGetLastError();
+  const int bg_parts = ceil_div(n, kBM) * ceil_div(f, da_k_per_chunk);
+  return launch_fold_parts(part, dw_chunks, m_dw, bg_parts, 2LL * c, out, true,
+                           s);
 }
 
 // dx (n, c) = mul*(dz - c1 - xhat*c2).
@@ -426,13 +1086,17 @@ int msp_fused_bwd_dx(const float* x, const float* g, const float* w,
                      long long w_sc, long long w_sf, const float* mul,
                      const float* add, const float* mean, const float* rstd,
                      const float* c1, const float* c2, long long n, int c,
-                     int f, float* dx, void* stream) {
+                     int f, int tile_cols, float* dx, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  dim3 grid(ceil_div(n, kBM), ceil_div(c, kBN));
-  da_kernel<true><<<grid, kThreads, 0, s>>>(g, w, w_sc, w_sf, x, mul, add,
-                                            mean, rstd, c1, c2, n, c, f, dx,
-                                            nullptr);
-  return cudaGetLastError();
+  if (!tile_cols_ok(tile_cols)) return cudaErrorInvalidValue;
+  DaArgs da = da_args(g, w, w_sc, w_sf, x, mul, add, mean, rstd, n, c, f);
+  da.c1 = c1, da.c2 = c2, da.dx = dx, da.dx_vec = vec2_ok(dx, c);
+  da.k_per_chunk = ceil_div(f, kBK) * kBK;  // all of F
+  const bool kc = w_sf == 1;
+  if (tile_cols == 128)
+    return kc ? launch_bwd_dx<4, true>(da, s)
+              : launch_bwd_dx<4, false>(da, s);
+  return kc ? launch_bwd_dx<2, true>(da, s) : launch_bwd_dx<2, false>(da, s);
 }
 
 const char* msp_cuda_error_string(int code) {

@@ -18,6 +18,13 @@ tensor takes the plain torch version beside it (``moments_plain``, ...); no
 build or launch is wrapped in a fallback. The kernels are float32; other
 dtypes raise on the card (the bf16 variant is ROADMAP Queue 2 item 7).
 
+The three products (``apply``, and the two of the backward) run on the
+tensor cores as 3xTF32 splits, which keep fp32 accuracy
+(:func:`matmul_3xtf32_plain` emulates the split in plain torch). Their
+launch plan — 64x128 or 64x64 block tiles, how many K chunks share a
+contraction — is plain Python, :func:`launch_plan`, a function of
+``(n, c, f)`` and the card's SM count only.
+
 Semantics are flax's ``BatchNorm(momentum=0.9, epsilon=1e-5,
 use_fast_variance=True)`` in train mode followed by ReLU and a bias-free
 1x1x1 conv: statistics in float32, fast variance clipped at 0, the
@@ -34,16 +41,20 @@ Unlike the JAX wrappers, which tile only by exact divisors of N
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
 _SOURCE = "fused_dense.cu"
-_GEMM_TILE = 64   # kBM = kBN in the source
-_GEMM_DEPTH = 16  # kBK in the source
+_TILE_ROWS = 64   # kBM in the source: rows of a GEMM block tile
+_TILE_COLS = (128, 64)  # 32 NT in the source: the wide and the narrow tile
+_K_STEP = 16      # kBK in the source
+_MAX_K = 1024     # kMaxK in the source: most channels one apply block takes
 _MOMENT_ROWS = 256  # rows per moments block
 
 _lock = threading.Lock()
@@ -104,6 +115,135 @@ def bn_relu_conv1x1_reference(x2d, scale, bias, w2d, eps: float = 1e-5):
     return out, mean, var
 
 
+def round_tf32_plain(v: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def matmul_3xtf32_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the kernels' tensor-core product computes it: each fp32
+    operand split into ``big = tf32(v)`` and ``small = tf32(v - big)`` (the
+    tensor core reads the remainder's leading 10 mantissa bits; here it is
+    rounded), the three products big·big + big·small + small·big (each exact
+    in fp32: two 11-bit significands) summed in float32."""
+    a_big = round_tf32_plain(a)
+    a_small = round_tf32_plain(a - a_big)
+    b_big = round_tf32_plain(b)
+    b_small = round_tf32_plain(b - b_big)
+    return a_big @ b_big + a_big @ b_small + a_small @ b_big
+
+
+# ---------------------------------------------------------------------------
+# The launch plan
+# ---------------------------------------------------------------------------
+
+class LaunchPlan(NamedTuple):
+    """How the three products of one (n, c, f) stage are launched.
+
+    ``*_tile_cols`` is the block tile's width (its height is 64).
+    ``apply`` contracts the channels in ``apply_chunks`` chunks of
+    ``apply_k_per_chunk`` (the last may be short); with more than one chunk
+    it writes ``apply_scratch`` floats of partial outputs, folded in
+    ascending order. The dW product splits the rows the same way. The
+    product g Wᵀ takes 64x64 tiles in ``bwd_reduce`` and is split over F
+    there (``da_chunks`` of ``da_k_per_chunk``); ``bwd_dx`` always contracts
+    all of F, in tiles ``dx_tile_cols`` wide. ``reduce_scratch`` holds the
+    dW partials and then the dbeta/dgamma partials of every (64-row tile,
+    F chunk)."""
+    apply_tile_cols: int
+    apply_chunks: int
+    apply_k_per_chunk: int
+    apply_scratch: int
+    dw_tile_cols: int
+    dw_chunks: int
+    dw_rows_per_chunk: int
+    dx_tile_cols: int
+    da_chunks: int
+    da_k_per_chunk: int
+    reduce_scratch: int
+
+
+def _split(steps: int, tiles: int, sm_count: int, max_steps=None):
+    """``(chunks, steps per chunk)``: a contraction of ``steps`` K steps
+    whose ``tiles`` output tiles leave SMs idle is split until there are
+    about two blocks per SM, and no more, so that all of them are resident
+    at once; one that fills the card is not split."""
+    want = 1 if tiles >= sm_count else max(1, 2 * sm_count // tiles)
+    per_chunk = math.ceil(steps / want)
+    if max_steps is not None:
+        per_chunk = min(per_chunk, max_steps)
+    return math.ceil(steps / per_chunk), per_chunk
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(n: int, c: int, f: int, sm_count: int) -> LaunchPlan:
+    """The launch plan of a stage with ``n`` rows, ``c`` channels in and
+    ``f`` out on a card with ``sm_count`` SMs. A product takes the wide
+    64x128 tile (one column tile at F = 128) when that alone puts a block
+    on every SM; otherwise the narrow 64x64 tile, and if that still leaves
+    SMs idle its contraction is split into chunks of whole K steps until
+    there are about two blocks per SM (``apply`` over the channels, dW over
+    the rows). ``bwd_reduce`` runs dW and g Wᵀ in one launch, g Wᵀ always in
+    narrow tiles, split over F while they leave SMs idle."""
+    wide, narrow = _TILE_COLS
+    row_tiles = math.ceil(n / _TILE_ROWS)
+    c_steps, n_steps = math.ceil(c / _K_STEP), math.ceil(n / _K_STEP)
+
+    tiles = row_tiles * math.ceil(f / wide)
+    apply_cols = wide
+    if tiles < sm_count:
+        apply_cols, tiles = narrow, row_tiles * math.ceil(f / narrow)
+    apply_chunks, k_steps = _split(c_steps, tiles, sm_count,
+                                   _MAX_K // _K_STEP)
+
+    tiles = math.ceil(c / _TILE_ROWS) * math.ceil(f / wide)
+    dw_cols = wide
+    if tiles * n_steps < 2 * sm_count:
+        dw_cols = narrow
+        tiles = math.ceil(c / _TILE_ROWS) * math.ceil(f / narrow)
+    dw_chunks, row_steps = _split(n_steps, tiles, sm_count)
+
+    dx_cols = wide if row_tiles * math.ceil(c / wide) >= sm_count else narrow
+    da_chunks, f_steps = _split(math.ceil(f / _K_STEP),
+                                row_tiles * math.ceil(c / narrow), sm_count)
+    return LaunchPlan(
+        apply_tile_cols=apply_cols, apply_chunks=apply_chunks,
+        apply_k_per_chunk=k_steps * _K_STEP,
+        apply_scratch=apply_chunks * n * f if apply_chunks > 1 else 0,
+        dw_tile_cols=dw_cols, dw_chunks=dw_chunks,
+        dw_rows_per_chunk=row_steps * _K_STEP, dx_tile_cols=dx_cols,
+        da_chunks=da_chunks, da_k_per_chunk=f_steps * _K_STEP,
+        reduce_scratch=(dw_chunks * c * f
+                        + row_tiles * da_chunks * 2 * c))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _plan_for(x2d: torch.Tensor, f: int) -> LaunchPlan:
+    return launch_plan(x2d.shape[0], x2d.shape[1], f, _sm_count(x2d.device))
+
+
+def _apply_buffers(plan: LaunchPlan, n: int, f: int, device):
+    """``(out (n, f), scratch)`` for one ``apply`` launch."""
+    out = torch.empty((n, f), dtype=torch.float32, device=device)
+    part = torch.empty(plan.apply_scratch, dtype=torch.float32, device=device)
+    return out, part
+
+
+def _reduce_buffers(plan: LaunchPlan, c: int, f: int, device):
+    """``(out, scratch)`` for one ``bwd_reduce`` launch; ``out`` holds dW
+    (c, f), then dbeta (c), then dgamma (c)."""
+    out = torch.empty(c * f + 2 * c, dtype=torch.float32, device=device)
+    part = torch.empty(plan.reduce_scratch, dtype=torch.float32,
+                       device=device)
+    return out, part
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -115,11 +255,12 @@ def _lib():
         if not _argtypes_set:
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.msp_fused_moments.argtypes = [p, ll, i, ll, p, p, p]
-            lib.msp_fused_apply.argtypes = [p, p, p, p, ll, ll, ll, i, i, p, p]
+            lib.msp_fused_apply.argtypes = [
+                p, p, p, p, ll, ll, ll, i, i, i, i, p, p, p]
             lib.msp_fused_bwd_reduce.argtypes = [
-                p, p, p, ll, ll, p, p, p, p, ll, i, i, ll, p, p, p, p, p]
+                p, p, p, ll, ll, p, p, p, p, ll, i, i, i, ll, i, p, p, p]
             lib.msp_fused_bwd_dx.argtypes = [
-                p, p, p, ll, ll, p, p, p, p, p, p, ll, i, i, p, p]
+                p, p, p, ll, ll, p, p, p, p, p, p, ll, i, i, i, p, p]
             for fn in (lib.msp_fused_moments, lib.msp_fused_apply,
                        lib.msp_fused_bwd_reduce, lib.msp_fused_bwd_dx):
                 fn.restype = i
@@ -207,40 +348,37 @@ def moments(x2d: torch.Tensor):
 
 def apply(x2d, mul, add, w2d):
     """``relu(x*mul + add) @ W`` -> (N, F) — see :func:`apply_plain`.
-    ``w2d`` (C, F) may be any strided view (the conv kernel's transpose)."""
+    ``w2d`` (C, F) may be any strided view (the conv kernel's transpose).
+    Kernel: a pipelined 3xTF32 tensor-core product with the BN + ReLU as
+    its prologue; a small grid splits the channels into chunks whose partial
+    outputs a second kernel folds in ascending order (no atomics)."""
     if not _on_card("apply", x2d, mul, add, w2d):
         return apply_plain(x2d, mul, add, w2d)
     _check_operands("apply", x2d, None, w2d)
     n, c = x2d.shape
     f = w2d.shape[1]
     mul, add = _vec(mul, c), _vec(add, c)
-    out = torch.empty((n, f), dtype=torch.float32, device=x2d.device)
+    dev = x2d.device
+    plan = _plan_for(x2d, f)
+    out, part = _apply_buffers(plan, n, f, dev)
     lib = _lib()
-    with torch.cuda.device(x2d.device):
+    with torch.cuda.device(dev):
         rc = lib.msp_fused_apply(
             x2d.data_ptr(), mul.data_ptr(), add.data_ptr(), w2d.data_ptr(),
-            w2d.stride(0), w2d.stride(1), n, c, f, out.data_ptr(),
-            _stream(x2d.device))
+            w2d.stride(0), w2d.stride(1), n, c, f, plan.apply_tile_cols,
+            plan.apply_k_per_chunk, part.data_ptr(), out.data_ptr(),
+            _stream(dev))
     _check(lib, rc, "apply")
     _count(apply)
     return out
 
 
-def _dw_rows_per_chunk(n: int, c: int, f: int, device) -> int:
-    """Rows per dW partial: enough chunks for about two blocks per SM, each
-    a multiple of the kernel's K step."""
-    tiles = math.ceil(c / _GEMM_TILE) * math.ceil(f / _GEMM_TILE)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    chunks = max(1, math.ceil(2 * sms / tiles))
-    rows = math.ceil(n / chunks)
-    return math.ceil(rows / _GEMM_DEPTH) * _GEMM_DEPTH
-
-
 def bwd_reduce(x2d, g, w2d, mul, add, mean, rstd):
     """``(dW (C, F), dgamma (C,), dbeta (C,))`` — see
-    :func:`bwd_reduce_plain`. Kernels: dW partials per row chunk, dbeta /
-    dgamma partials per 64-row tile from the product g Wᵀ, both folded in a
-    fixed order (no atomics)."""
+    :func:`bwd_reduce_plain`. Kernels: one launch writes dW partials per
+    row chunk and dbeta / dgamma partials per 64-row tile from the product
+    g Wᵀ into one scratch buffer, a second folds it in a fixed order (no
+    atomics)."""
     if not _on_card("bwd_reduce", x2d, g, w2d, mul, add, mean, rstd):
         return bwd_reduce_plain(x2d, g, w2d, mul, add, mean, rstd)
     _check_operands("bwd_reduce", x2d, g, w2d)
@@ -249,28 +387,26 @@ def bwd_reduce(x2d, g, w2d, mul, add, mean, rstd):
     g = g.contiguous()
     mul, add, mean, rstd = (_vec(t, c) for t in (mul, add, mean, rstd))
     dev = x2d.device
-    rows = _dw_rows_per_chunk(n, c, f, dev)
-    chunks = math.ceil(n / rows)
-    part_dw = torch.empty((chunks, c, f), dtype=torch.float32, device=dev)
-    part_bg = torch.empty((math.ceil(n / _GEMM_TILE), 2 * c),
-                          dtype=torch.float32, device=dev)
-    dw = torch.empty((c, f), dtype=torch.float32, device=dev)
-    dbg = torch.empty(2 * c, dtype=torch.float32, device=dev)
+    plan = _plan_for(x2d, f)
+    out, part = _reduce_buffers(plan, c, f, dev)
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.msp_fused_bwd_reduce(
             x2d.data_ptr(), g.data_ptr(), w2d.data_ptr(), w2d.stride(0),
             w2d.stride(1), mul.data_ptr(), add.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), n, c, f, rows, part_dw.data_ptr(),
-            part_bg.data_ptr(), dw.data_ptr(), dbg.data_ptr(), _stream(dev))
+            rstd.data_ptr(), n, c, f, plan.dw_tile_cols,
+            plan.dw_rows_per_chunk, plan.da_k_per_chunk, part.data_ptr(),
+            out.data_ptr(), _stream(dev))
     _check(lib, rc, "bwd_reduce")
     _count(bwd_reduce)
-    return dw, dbg[c:], dbg[:c]
+    dbeta, dgamma = out[c * f:c * f + c], out[c * f + c:]
+    return out[:c * f].view(c, f), dgamma, dbeta
 
 
 def bwd_dx(x2d, g, w2d, mul, add, mean, rstd, c1, c2):
     """``dx (N, C) = mul·(dz − c1 − xhat·c2)`` — see :func:`bwd_dx_plain`.
-    Kernel: the product g Wᵀ with the BN backward as its epilogue."""
+    Kernel: the product g Wᵀ (the mainloop it shares with ``bwd_reduce``)
+    with the BN backward as its epilogue."""
     if not _on_card("bwd_dx", x2d, g, w2d, mul, add, mean, rstd, c1, c2):
         return bwd_dx_plain(x2d, g, w2d, mul, add, mean, rstd, c1, c2)
     _check_operands("bwd_dx", x2d, g, w2d)
@@ -286,7 +422,8 @@ def bwd_dx(x2d, g, w2d, mul, add, mean, rstd, c1, c2):
             x2d.data_ptr(), g.data_ptr(), w2d.data_ptr(), w2d.stride(0),
             w2d.stride(1), mul.data_ptr(), add.data_ptr(), mean.data_ptr(),
             rstd.data_ptr(), c1.data_ptr(), c2.data_ptr(), n, c, f,
-            dx.data_ptr(), _stream(x2d.device))
+            _plan_for(x2d, f).dx_tile_cols, dx.data_ptr(),
+            _stream(x2d.device))
     _check(lib, rc, "bwd_dx")
     _count(bwd_dx)
     return dx
