@@ -39,7 +39,10 @@ result then):
      |value|. Device times at one shape per dense block and the widest
      transition (16,384x224->128, 2,048x480->128, 256x992->128,
      32x992->128, 256x1,024->512) beside the H100 bound, the plain version
-     and a library call, as in phase 3.
+     and a library call, as in phase 3. For each case bwd_dx's plan (F
+     chunks, one thread-block cluster of them a tile) and the clusters the
+     card keeps resident at once; at the timed shapes bwd_dx's planned
+     launch in turns with its unsplit launch (one F chunk).
   8. training (the main path of the training slice): a Trainer on
      PartialModalityNet(fused_bn1=True) at full width takes two epochs over
      the phase-4 cohort (batch 8) and a pooled evaluation; each fused
@@ -102,25 +105,120 @@ def log(msg):
     print(f"chip_smoke: {msg}", flush=True)
 
 
-def device_ms(fn, warmup=3, iters=20):
+SENTINEL_KERNEL = "spin_kernel"  # torch.cuda._sleep's
+
+
+class _profiled:
+    """A torch.profiler window on the device that opens with one launch of
+    ``torch.cuda._sleep`` (the first launch of a window can be missing from
+    its trace) and closes with a synchronize. ``.events`` then holds
+    ``key_averages()``' device events without the sentinel, ``.prof`` the
+    profiler."""
+
+    def __init__(self, cpu=False):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.prof = profile(activities=[ProfilerActivity.CUDA]
+                            + ([ProfilerActivity.CPU] if cpu else []))
+
+    def __enter__(self):
+        import torch
+
+        self.prof.__enter__()
+        torch.cuda._sleep(1 << 16)
+        torch.cuda.synchronize()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        from torch.autograd import DeviceType
+
+        if exc[0] is None:
+            torch.cuda.synchronize()
+        self.prof.__exit__(*exc)
+        if exc[0] is None:
+            self.events = [e for e in self.prof.key_averages()
+                           if e.device_type == DeviceType.CUDA
+                           and SENTINEL_KERNEL not in e.key]
+        return False
+
+
+def device_ms(fn, warmup=3, iters=20, windows=3, attempts=3, kernels=()):
     """Mean device milliseconds per call of ``fn``: the summed durations of
     the GPU kernels (and copies) it launched over ``iters`` calls, from
-    torch.profiler, so host dispatch between launches does not count."""
+    torch.profiler, so host dispatch between launches does not count; the
+    median of ``windows`` such windows.
+
+    A trace can come back with launches lost: the window's first (hence the
+    sentinel of ``_profiled``), and after many profiler windows in one
+    process all of them or some. ``fn`` launches the same work every call,
+    so a whole window holds each device event name ``iters`` times or a
+    multiple of that, and at least ``iters`` events whose names hold one of
+    ``kernels`` (the wrapper's own kernel, which every call launches). A
+    window that does not is run again, up to ``attempts`` times; if none is
+    whole, that window's reading is ``queued_event_ms`` instead, and the log
+    says so. A window can also hold every launch and read about half the
+    time of the others: the median keeps it out, and a spread of more than
+    1.5x between windows is logged."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    check(us > 0, "torch.profiler recorded no device time")
-    return us / iters / 1e3
+    readings = []
+    for _ in range(windows):
+        for attempt in range(attempts):
+            with _profiled() as window:
+                for _ in range(iters):
+                    fn()
+            events = window.events
+            own = sum(e.count for e in events
+                      if any(k in e.key for k in kernels))
+            short = [f"{e.key[:60]} x{e.count}" for e in events
+                     if e.count % iters]
+            if kernels and own < iters:
+                short.append(f"{' or '.join(kernels)} x{own}")
+            if events and not short:
+                readings.append(sum(e.self_device_time_total
+                                    for e in events) / iters / 1e3)
+                break
+            log(f"torch.profiler lost launches over {iters} calls (attempt "
+                f"{attempt + 1} of {attempts}): "
+                + ("no device event" if not events else "; ".join(short)))
+        else:
+            readings.append(queued_event_ms(fn, iters))
+            log(f"no whole trace in {attempts} windows: this window's reading "
+                f"is {readings[-1]:.5f} ms a call by CUDA events behind a "
+                "spin kernel (gaps between launches included)")
+    readings.sort()
+    if readings[-1] > 1.5 * readings[0]:
+        log(f"device_ms windows disagree: {[round(r, 5) for r in readings]}"
+            " ms a call; the median is kept")
+    return readings[len(readings) // 2]
+
+
+def queued_event_ms(fn, iters=20):
+    """Mean device milliseconds per call of ``fn`` by CUDA events around
+    ``iters`` calls that the host queues behind one ``torch.cuda._sleep``
+    long enough to cover their dispatch: the stream holds them all before
+    the first runs, so host dispatch does not count, the device's gaps
+    between launches do."""
+    import torch
+
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    dispatch_s = time.perf_counter() - t0  # dispatch and device, an upper bound
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * dispatch_s * 2e9) + (1 << 16))  # ~2 GHz clock
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def cuda_ms(fn, warmup=3, iters=20):
@@ -250,7 +348,8 @@ def phase_kernel_vs_plain(device="cuda", cases=None, timed_case=0):
             f"{mx.item()})")
         if ci == timed_case and device != "cpu":
             rx_t = rs._matrix(w, OUT_W, vol.device).T.contiguous()
-            kernel_ms = device_ms(lambda: rs.wpass(rows, OUT_W, hu))
+            kernel_ms = device_ms(lambda: rs.wpass(rows, OUT_W, hu),
+                                  kernels=("wpass_kernel<",))
             call_ms = cuda_ms(lambda: rs.wpass(rows, OUT_W, hu))
             plain_ms = device_ms(lambda: rs.wpass_plain(rows, OUT_W, hu))
             library_ms = device_ms(lambda: torch.matmul(rows.float(), rx_t))
@@ -506,7 +605,7 @@ FUSED_DEVICE_KERNELS = {
     "moments": ("::moments_partial_kernel",),
     "apply": ("::apply_kernel<",),
     "bwd_reduce": ("::bwd_reduce_kernel<",),
-    "bwd_dx": ("::bwd_dx_kernel<",),
+    "bwd_dx": ("::bwd_dx_kernel<", "::bwd_dx_cluster_kernel<"),
 }
 FUSED_FOLD_KERNEL = "::fold_parts_kernel<"
 FUSED_LIBRARY = {
@@ -614,6 +713,8 @@ def phase_fused_vs_plain(device="cuda", cases=None, timed=None):
             _held(f"bwd_reduce {part} {tag}", a, b, FUSED_GRAD_RTOL)
             for part, a, b in zip(("dW", "dgamma", "dbeta"), got, want))
         c1, c2 = want[2] / n, want[1] / n
+        if device != "cpu":
+            _log_dx_plan(fd, x, w, tag)
         err["bwd_dx"] = _held(
             f"bwd_dx {tag}", fd.bwd_dx(x, g, w, mul, add, mean, rstd, c1, c2),
             fd.bwd_dx_plain(x, g, w, mul, add, mean, rstd, c1, c2),
@@ -650,6 +751,22 @@ def phase_fused_vs_plain(device="cuda", cases=None, timed=None):
             timing[name] = dict(by_shape[timed[0]][name], by_shape=[
                 by_shape[shape][name] for shape in timed])
     return worst, timing
+
+
+def _log_dx_plan(fd, x, w, tag):
+    """Prints bwd_dx's plan for x and W and, where it splits F, how many of
+    its clusters the card keeps resident at once; fails if none fits."""
+    n, c = x.shape
+    plan = fd._plan_for(x, w.shape[1])
+    clusters = fd.bwd_dx_max_clusters(x, w)
+    log(f"bwd_dx plan {tag}: tile 64x{plan.dx_tile_cols}, F in "
+        f"{plan.dx_chunks} chunk(s) of {plan.dx_k_per_chunk}, "
+        f"{math.ceil(n / 64) * math.ceil(c / plan.dx_tile_cols)} tiles; "
+        + ("unsplit launch" if clusters is None else
+           f"clusters of {plan.dx_chunks} blocks, {clusters} resident at "
+           "once (cudaOccupancyMaxActiveClusters)"))
+    check(clusters is None or clusters >= 1,
+          f"bwd_dx {tag}: no cluster of {plan.dx_chunks} blocks fits")
 
 
 def _one_row_cancellation(fd, device, gen, draws=50):
@@ -711,7 +828,7 @@ def _time_fused(fd, x, w, g, mul, add, mean, rstd, c1, c2):
     }
     timing = {}
     for name, (kernel, plain, library) in calls.items():
-        kernel_ms = device_ms(kernel)
+        kernel_ms = device_ms(kernel, kernels=FUSED_DEVICE_KERNELS[name])
         call_ms = cuda_ms(kernel)
         plain_ms = device_ms(plain)
         library_ms = device_ms(library)
@@ -726,7 +843,36 @@ def _time_fused(fd, x, w, g, mul, add, mean, rstd, c1, c2):
             f"({FUSED_LIBRARY[name]}), H100 bound {bound_ms:.4f} ms "
             f"({bound_by}; {cuda_core_ms:.4f} ms with the products on the "
             f"CUDA cores); kernel at {bound_ms / kernel_ms:.1%} of bound")
+    timing["bwd_dx"].update(_time_dx_split(fd, x, w, g, mul, add, mean, rstd,
+                                           c1, c2))
     return timing
+
+
+def _time_dx_split(fd, x, w, g, mul, add, mean, rstd, c1, c2, rounds=3):
+    """bwd_dx's planned launch (F split across a cluster where the grid is
+    small) and its unsplit launch (one F chunk, the kernel before the split)
+    in turns, by device time (one build: ``_launch_bwd_dx`` at the plan's
+    F chunk and at all of F). A turn is one profiler window: the turns'
+    median, not a window's, is the reading."""
+    n, c = x.shape
+    f = w.shape[1]
+    plan = fd._plan_for(x, f)
+    vecs = (mul, add, mean, rstd, c1, c2)
+    launches = {"planned": (plan.dx_tile_cols, plan.dx_k_per_chunk),
+                "unsplit": (plan.dx_tile_cols, math.ceil(f / 16) * 16)}
+    turns = {k: [] for k in launches}
+    for _ in range(rounds):  # in order, then in reverse
+        for k in ("planned", "unsplit", "unsplit", "planned"):
+            turns[k].append(device_ms(
+                lambda k=k: fd._launch_bwd_dx(x, g, w, vecs, *launches[k]),
+                windows=1, kernels=FUSED_DEVICE_KERNELS["bwd_dx"]))
+    log(f"bwd_dx {n}x{c}->{f} in turns, device ms: planned ({plan.dx_chunks} "
+        f"F chunk(s)) {[round(t, 5) for t in turns['planned']]}, unsplit "
+        f"{[round(t, 5) for t in turns['unsplit']]}; medians "
+        f"{sorted(turns['planned'])[rounds]:.5f} / "
+        f"{sorted(turns['unsplit'])[rounds]:.5f}")
+    return dict(dx_chunks=plan.dx_chunks, planned_turns_ms=turns["planned"],
+                unsplit_turns_ms=turns["unsplit"])
 
 
 # --------------------------------------------------------------------------
@@ -746,30 +892,47 @@ def _comparable_pairs(time_, event, valid, hazard, margin):
     return int(comp.sum()), int((comp & near).sum())
 
 
-def _profile_step(tr, state, data, rows, label, top=8):
+def _profile_step(tr, state, data, rows, label, top=8, attempts=3):
     """One more train step (lr 0) under torch.profiler: device time by
     kernel, and the fused kernels' sums and launch counts in the step
     (returned with the step's device-busy time and launch count). The
-    profiler's own overhead inflates the wall time."""
+    profiler's own overhead inflates the wall time. A trace that holds
+    fewer of a fused wrapper's own kernels than the wrapper counted
+    launches in the step has lost events (see ``device_ms``): the step is
+    profiled again, up to ``attempts`` times. If no trace is whole, the
+    last is reported with ``whole`` false: its sums are short."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+
+    from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
 
     idx, bvalid = tr._device_indices(*tr._pad_indices(rows, tr.cfg.batch_size,
                                                       None))
     batch = tr._gather_batch(data, idx[0], bvalid[0])
     tr.train_step(state, batch, 0.0)  # warm, outside the window
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        tr.train_step(state, batch, 0.0)
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    for attempt in range(attempts):
+        before = [k.launches for k in fd.KERNELS]
+        with _profiled(cpu=True) as window:
+            t0 = time.perf_counter()
+            tr.train_step(state, batch, 0.0)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        prof = window.prof
+        counted = {name: k.launches - b for name, k, b in
+                   zip(FUSED_NAMES, fd.KERNELS, before)}
+        traced = {name: sum(e.count for e in window.events
+                            if any(part in e.key for part in parts))
+                  for name, parts in FUSED_DEVICE_KERNELS.items()}
+        whole = traced == counted
+        if whole:
+            break
+        log(f"profile {label}: the trace holds fused launches {traced}, the "
+            f"wrappers counted {counted} (attempt {attempt + 1} of "
+            f"{attempts})" + ("" if attempt + 1 < attempts else
+                              "; reported as it is, marked not whole"))
 
-    from torch.autograd import DeviceType
-
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = list(window.events)
     total = sum(e.self_device_time_total for e in kernels)
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     log(f"profile {label}: one train step, wall {wall_ms:.1f} ms (under the "
@@ -806,7 +969,8 @@ def _profile_step(tr, state, data, rows, label, top=8):
             + " + ".join(f"{part} {k['device_ms']:.3f} ms x{k['launches']}"
                          for part, k in found["by_kernel"].items()))
     return dict(device_busy_ms=total / 1e3,
-                device_launches=sum(e.count for e in kernels), fused=sums)
+                device_launches=sum(e.count for e in kernels), fused=sums,
+                whole=whole)
 
 
 def phase_train(table, paths, rna_dim, device="cuda", image_shape=(64, 64, 32),
@@ -1017,7 +1181,8 @@ def main() -> int:
             "timed_shape": t["shape"],
             "bound_cuda_core_ms": t["bound_cuda_core_ms"],
             "by_shape": t["by_shape"],
-            "train_step": train["profile_fused"]["fused"][name],
+            "train_step": dict(train["profile_fused"]["fused"][name],
+                               whole_trace=train["profile_fused"]["whole"]),
         })
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

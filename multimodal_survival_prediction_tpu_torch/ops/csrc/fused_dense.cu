@@ -64,13 +64,17 @@
 //     blockIdx.z into chunks of whole K steps (at most kMaxK channels, the
 //     staged mul/add), writes per-chunk partial outputs and folds them in
 //     ascending order; dW splits the rows the same way. da contracts over F
-//     only (8 steps at F = 128): bwd_dx's is never split (its epilogue is
-//     not linear in da), bwd_reduce's is where the grid is small, its
-//     dbeta/dgamma partials then counting row tiles x F chunks. Blocks run
-//     in parallel in no order, so every cross-block sum (moments, dW over row
-//     chunks, dbeta/dgamma over row tiles, apply's channel chunks) is
-//     per-block partials folded by a second kernel in a fixed order: no
-//     atomics, the same bits run to run.
+//     only (8 steps at F = 128), and both of its users split F where the
+//     grid is small: bwd_reduce's dbeta/dgamma partials then count row tiles
+//     x F chunks; bwd_dx's epilogue is affine in da (the mask [z > 0]
+//     depends on x alone), so its F chunks are the blocks of one
+//     thread-block cluster, folded through distributed shared memory before
+//     the mask and the BN backward run once (bwd_dx_cluster_kernel). Blocks
+//     run in parallel in no order, so every cross-block sum (moments, dW
+//     over row chunks, dbeta/dgamma over row tiles, apply's channel chunks,
+//     bwd_dx's F chunks) is per-block partials folded in a fixed order, by a
+//     second kernel or inside the cluster: no atomics, the same bits run to
+//     run.
 //   * bwd_reduce is two launches: one runs both products side by side, part
 //     of its grid computing dW partials and the rest da tiles (64 x 64) with
 //     the dbeta/dgamma epilogue, both into one scratch buffer; one folds that
@@ -87,10 +91,13 @@
 //     (F, C) as the (C, F) operand without a transposed copy; each product is
 //     instantiated for either axis of W being the contiguous one.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kThreads = 128;  // one warpgroup a GEMM block
 constexpr int kBM = 64;        // block tile rows: the M of one wgmma
@@ -100,6 +107,7 @@ constexpr int kKPad = 4;       // K-contiguous tile: rows of kBK + kKPad floats
 constexpr int kOPad = 8;       // outer-contiguous tile: rows of T + kOPad
 constexpr int kMaxK = 1024;    // most channels one apply block contracts over
 constexpr int kFoldThreads = 256;
+constexpr int kMaxCluster = 8;  // bwd_dx's F chunks: the portable cluster size
 static_assert(kBK == 16 && kMaxK % kBK == 0, "a step is two 8-deep slabs");
 
 constexpr int kMomCh = 32;     // moments: channels per block (one warp wide)
@@ -483,6 +491,28 @@ __device__ __forceinline__ void stage_vector(float* dst,
     dst[i] = ch0 + i < ch_lim ? __ldg(v + ch0 + i) : 0.f;
 }
 
+// Starts the cp.async copies (in the caller's next group) of rows [r_lo,
+// r_hi) of a block's 64 x kBN tile of x (N, C) at row m0, channel n0 into
+// x_tile, rows of kBN + kOPad floats; rows past N and channels past C are
+// zero-filled.
+template <int kBN>
+__device__ __forceinline__ void stage_x_tile(float* x_tile,
+                                             const float* __restrict__ x,
+                                             long long m0, int n0, long long n,
+                                             int c, int r_lo, int r_hi,
+                                             bool x_vec) {
+  const int width = x_vec ? 4 : 1;
+  for (int e = r_lo * kBN + threadIdx.x * width; e < r_hi * kBN;
+       e += kThreads * width) {
+    const int r = e / kBN, col = e % kBN;
+    const long long row = m0 + r;
+    const int left = c - (n0 + col);
+    const int live = row < n && left > 0 ? min(left, width) : 0;
+    cp_async(x_tile + r * (kBN + kOPad) + col,
+             live ? x + row * c + n0 + col : x, width, live);
+  }
+}
+
 // ---------------------------------------------------------------- moments
 
 // Block (kMomCh channels x kMomLanes row lanes) sums one chunk of rows.
@@ -681,7 +711,8 @@ __device__ __forceinline__ void dw_block(const DwArgs& p, const Block& b) {
 //                are linear in da, so a small grid may split F too: block z
 //                contracts outputs [z*k_per_chunk, +k_per_chunk) (a multiple
 //                of kBK) and writes p = z*(row tiles) + row tile.
-//   kDx = true:  dx = mul*(dz - c1 - xhat*c2); one chunk (b.z = 0).
+//   kDx = true:  dx = mul*(dz - c1 - xhat*c2); one chunk (b.z = 0), the
+//                unsplit launch (bwd_dx_cluster_kernel splits F).
 // grid (ceil(N/64), ceil(C/(32 NT)), chunks). kWKC: W's F axis (the K of
 // this product) is the contiguous one.
 struct DaArgs {
@@ -690,58 +721,100 @@ struct DaArgs {
   const float *x, *mul, *add, *mean, *rstd, *c1, *c2;
   long long n;
   int c, f, k_per_chunk;
-  bool g_vec, w_vec, x_vec, dx_vec;
+  // dx_vec: dx's rows take float2 stores (bwd_dx_kernel), dx_vec4: float4
+  // (bwd_dx_cluster_kernel). bwd_dx_kernel<4> sits at the register limit:
+  // with one flag fewer (dx, part 8 bytes lower) ptxas spilled 64-136 bytes
+  // there and the kernel ran 11 % slower on an H100.
+  bool g_vec, w_vec, x_vec, dx_vec, dx_vec4;
   float *dx, *part;
 };
 
-template <bool kDx, int NT, bool kWKC>
-__device__ __forceinline__ void da_block(const DaArgs& p, const Block& b) {
-  const float *g = p.g, *w = p.w, *x = p.x;
-  const long long w_sc = p.w_sc, w_sf = p.w_sf, n = p.n;
-  const int c = p.c, f = p.f;
-  const bool x_vec = p.x_vec;
-  float* dx = p.dx;
-  extern __shared__ float4 smem4[];
-  constexpr int kBN = 32 * NT, kXLd = kBN + kOPad;
-  float* vecs = reinterpret_cast<float*>(smem4);  // 6 vectors of kBN
-  float* ring = vecs + 2 * kMaxK;
-  float* x_tile = ring + kStages * kStageFloats<NT> + kSplitFloats<NT>;
-  const Lane ln;
-  const long long m0 = static_cast<long long>(b.x) * kBM;
-  const int n0 = b.y * kBN;
+// A da block's shared memory: the per-channel vectors (6 of 32 NT), the
+// mainloop's ring and the block's tile of x (rows of 32 NT + kOPad floats).
+struct DaSmem {
+  float *vecs, *ring, *x_tile;
+};
 
+template <int NT>
+__device__ __forceinline__ DaSmem da_smem() {
+  extern __shared__ float4 smem4[];
+  float* vecs = reinterpret_cast<float*>(smem4);
+  float* ring = vecs + 2 * kMaxK;
+  return {vecs, ring, ring + kStages * kStageFloats<NT> + kSplitFloats<NT>};
+}
+
+// The da product of the 64 x 32NT tile at row m0, channel n0 over F chunk
+// kz (outputs [kz*k_per_chunk, +k_per_chunk)) into acc. Behind the product
+// it fetches what the epilogue reads: rows [r_lo, r_hi) of the tile of x
+// (by cp.async, in the next step's group) and the tile's slices of the
+// first kVecs of (mul, add, mean, rstd, c1, c2).
+template <int kVecs, int NT, bool kWKC>
+__device__ __forceinline__ void da_product(const DaArgs& p, const DaSmem& s,
+                                           long long m0, int n0, int kz,
+                                           int r_lo, int r_hi, const Lane& ln,
+                                           float (&acc)[kNJ<NT>][4]) {
+  constexpr int kBN = 32 * NT;
   // A(m = row, k = f) = g[row, f], B(k = f, n = channel) = W[channel, f]
-  const int k_beg = b.z * p.k_per_chunk;
-  const int k_end = min(f, k_beg + p.k_per_chunk);
-  TileCopy<kBM, true> a_copy(g, m0, n, f, k_beg, k_end, 1, p.g_vec);
-  TileCopy<kBN, kWKC> b_copy(w, n0, c, w_sc, k_beg, k_end, w_sf, p.w_vec);
-  float acc[kNJ<NT>][4];
+  const int k_beg = kz * p.k_per_chunk;
+  const int k_end = min(p.f, k_beg + p.k_per_chunk);
+  TileCopy<kBM, true> a_copy(p.g, m0, p.n, p.f, k_beg, k_end, 1, p.g_vec);
+  TileCopy<kBN, kWKC> b_copy(p.w, n0, p.c, p.w_sc, k_beg, k_end, p.w_sf,
+                             p.w_vec);
   gemm_mainloop<NT, true, kWKC>(
-      ring, (k_end - k_beg + kBK - 1) / kBK, acc, ln,
+      s.ring, (k_end - k_beg + kBK - 1) / kBK, acc, ln,
       [&](float* stage) {
         a_copy.start(stage);
         b_copy.start(stage + kTileFloats<kBM>);
       },
       [&] {
-        // what the epilogue reads, fetched behind the product: the block's
-        // tile of x (by cp.async, in the next step's group) and its slices
-        // of the per-channel vectors
-        const int width = x_vec ? 4 : 1;
-        for (int e = threadIdx.x * width; e < kBM * kBN;
-             e += kThreads * width) {
-          const int r = e / kBN, col = e % kBN;
-          const long long row = m0 + r;
-          const int left = c - (n0 + col);
-          const int live = row < n && left > 0 ? min(left, width) : 0;
-          cp_async(x_tile + r * kXLd + col,
-                   live ? x + row * c + n0 + col : x, width, live);
-        }
+        stage_x_tile<kBN>(s.x_tile, p.x, m0, n0, p.n, p.c, r_lo, r_hi,
+                          p.x_vec);
         const float* src[6] = {p.mul, p.add, p.mean, p.rstd, p.c1, p.c2};
 #pragma unroll
-        for (int v = 0; v < (kDx ? 6 : 4); ++v)
-          stage_vector(vecs + v * kBN, src[v], n0, c, kBN);
+        for (int v = 0; v < kVecs; ++v)
+          stage_vector(s.vecs + v * kBN, src[v], n0, p.c, kBN);
       },
       [](float v, int, int, int) { return v; });
+}
+
+// bwd_dx's epilogue at one element: the mask [z > 0] and the BN backward.
+__device__ __forceinline__ float dx_of(float x, float da, float mul,
+                                       float add, float mean, float rstd,
+                                       float c1, float c2) {
+  const float dz = bn_z(x, mul, add) > 0.f ? da : 0.f;
+  return mul * (dz - c1 - (x - mean) * rstd * c2);
+}
+
+// Stores kW neighbouring values of a row of dx from channel ch on: one
+// vector store where `vec` and all kW channels are below C, else the live
+// ones one by one.
+template <int kW>
+__device__ __forceinline__ void store_dx(float* dst, const float (&v)[kW],
+                                         int ch, int c, bool vec) {
+  static_assert(kW == 2 || kW == 4, "a float2 or a float4 store");
+  if (vec && ch + kW - 1 < c) {
+    if constexpr (kW == 4)
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    else
+      *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < kW; ++e)
+      if (ch + e < c) dst[e] = v[e];
+  }
+}
+
+template <bool kDx, int NT, bool kWKC>
+__device__ __forceinline__ void da_block(const DaArgs& p, const Block& b) {
+  const int c = p.c;
+  constexpr int kBN = 32 * NT, kXLd = kBN + kOPad;
+  const DaSmem s = da_smem<NT>();
+  const float* vecs = s.vecs;
+  const Lane ln;
+  const long long m0 = static_cast<long long>(b.x) * kBM;
+  const int n0 = b.y * kBN;
+  float acc[kNJ<NT>][4];
+  da_product<kDx ? 6 : 4, NT, kWKC>(p, s, m0, n0, b.z, 0, kBM, ln, acc);
 
   float s_db[kNJ<NT>][2], s_dg[kNJ<NT>][2];
   const auto pair = [](const float* p) {
@@ -765,27 +838,23 @@ __device__ __forceinline__ void da_block(const DaArgs& p, const Block& b) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
         const int r = 16 * ln.w + ln.g + 8 * h;
-        const long long row = m0 + r;
-        const float2 xv = pair(x_tile + r * kXLd + col);
-        const float dz0 =
-            bn_z(xv.x, mu.x, ad.x) > 0.f ? acc[j][2 * h] : 0.f;
-        const float dz1 =
-            bn_z(xv.y, mu.y, ad.y) > 0.f ? acc[j][2 * h + 1] : 0.f;
-        const float xhat0 = (xv.x - me.x) * rs.x;
-        const float xhat1 = (xv.y - me.y) * rs.y;
+        const float2 xv = pair(s.x_tile + r * kXLd + col);
         if constexpr (kDx) {
-          if (row >= n) continue;
-          const float d0 = mu.x * (dz0 - k1.x - xhat0 * k2.x);
-          const float d1 = mu.y * (dz1 - k1.y - xhat1 * k2.y);
-          float* dst = dx + row * c + ch;
-          if (p.dx_vec && ch + 1 < c) {
-            *reinterpret_cast<float2*>(dst) = make_float2(d0, d1);
-          } else {
-            if (ch < c) dst[0] = d0;
-            if (ch + 1 < c) dst[1] = d1;
-          }
+          const long long row = m0 + r;
+          if (row >= p.n) continue;
+          const float d[2] = {
+              dx_of(xv.x, acc[j][2 * h], mu.x, ad.x, me.x, rs.x, k1.x, k2.x),
+              dx_of(xv.y, acc[j][2 * h + 1], mu.y, ad.y, me.y, rs.y, k1.y,
+                    k2.y)};
+          store_dx<2>(p.dx + row * c + ch, d, ch, c, p.dx_vec);
         } else {
           // rows past N add 0: their da is 0 (g is zero-filled)
+          const float dz0 =
+              bn_z(xv.x, mu.x, ad.x) > 0.f ? acc[j][2 * h] : 0.f;
+          const float dz1 =
+              bn_z(xv.y, mu.y, ad.y) > 0.f ? acc[j][2 * h + 1] : 0.f;
+          const float xhat0 = (xv.x - me.x) * rs.x;
+          const float xhat1 = (xv.y - me.y) * rs.y;
           s_db[j][0] += dz0;
           s_db[j][1] += dz1;
           s_dg[j][0] += dz0 * xhat0;
@@ -798,7 +867,7 @@ __device__ __forceinline__ void da_block(const DaArgs& p, const Block& b) {
     // Column sums over the block's 64 rows in a fixed order: the 8 row
     // lanes of a warp by butterfly, then the four warps.
     constexpr int kWarps = kThreads / 32;
-    float* red = ring;  // [2 (db, dg)][kWarps][32 NT]
+    float* red = s.ring;  // [2 (db, dg)][kWarps][32 NT]
 #pragma unroll
     for (int j = 0; j < kNJ<NT>; ++j)
 #pragma unroll
@@ -841,6 +910,82 @@ bwd_dx_kernel(const DaArgs p) {
   da_block<true, NT, kWKC>(
       p, Block{static_cast<int>(blockIdx.x), static_cast<int>(blockIdx.y), 0,
                static_cast<int>(gridDim.x)});
+}
+
+// bwd_dx with F split across a thread-block cluster, for grids that leave
+// SMs idle: grid (ceil(N/64), ceil(C/64), chunks), cluster (1, 1, chunks),
+// 2 <= chunks <= kMaxCluster. dx is affine in da = sum_k P_k, P_k = g[:, F
+// chunk k] W[:, F chunk k]^T, because the mask [z > 0] depends on x alone.
+// So block k of a cluster contracts F chunk k (k_per_chunk outputs, a
+// multiple of kBK) on the shared mainloop and leaves P_k in its own shared
+// memory; after a cluster barrier, rank r sums P_0 + P_1 + ... in that order
+// for its share of the tile's live rows, reading its peers' shared memory,
+// and applies the mask and the BN backward to that share alone. One launch,
+// no scratch in device memory, no atomics: the same bits run to run, and the
+// unsplit kernel's but for the order of the sum over F.
+template <bool kWKC>
+__global__ void __launch_bounds__(kThreads, 2)
+bwd_dx_cluster_kernel(const DaArgs p) {
+  constexpr int NT = 2, kBN = 32 * NT, kXLd = kBN + kOPad, kQuads = kBN / 4;
+  const DaSmem s = da_smem<NT>();
+  float* part = s.ring;  // P_k, kBM rows of kXLd floats, once the ring is free
+  static_assert(kBM * kXLd <= kStages * kStageFloats<NT>, "P_k in the ring");
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int chunks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const Lane ln;
+  const long long n = p.n, m0 = static_cast<long long>(blockIdx.x) * kBM;
+  const int c = p.c, n0 = blockIdx.y * kBN;
+  // this rank's rows of the tile: an even share of the live ones
+  const int live = static_cast<int>(min(1LL * kBM, n - m0));
+  const int share = (live + chunks - 1) / chunks;
+  const int r_lo = min(live, rank * share), r_hi = min(live, r_lo + share);
+  float acc[kNJ<NT>][4];
+  da_product<6, NT, kWKC>(p, s, m0, n0, rank, r_lo, r_hi, ln, acc);
+
+#pragma unroll
+  for (int j = 0; j < kNJ<NT>; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * ln.w + ln.g + 8 * h, col = 8 * j + 2 * ln.t;
+      *reinterpret_cast<float2*>(part + r * kXLd + col) =
+          make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+  cluster.sync();  // every P_k written and visible to the whole cluster
+
+  const float* peer[kMaxCluster];
+#pragma unroll
+  for (int k = 0; k < kMaxCluster; ++k)
+    peer[k] = cluster.map_shared_rank(part, k < chunks ? k : 0);
+  const auto quad = [](const float* q) {
+    return *reinterpret_cast<const float4*>(q);
+  };
+  for (int u = threadIdx.x; u < (r_hi - r_lo) * kQuads; u += kThreads) {
+    const int r = r_lo + u / kQuads, col = (u % kQuads) * 4;
+    const int at = r * kXLd + col;
+    float4 q[kMaxCluster];  // all loads in flight before the sum
+#pragma unroll
+    for (int k = 0; k < kMaxCluster; ++k)
+      if (k < chunks) q[k] = quad(peer[k] + at);
+    float4 da = q[0];
+#pragma unroll
+    for (int k = 1; k < kMaxCluster; ++k)
+      if (k < chunks) da.x += q[k].x, da.y += q[k].y, da.z += q[k].z,
+                      da.w += q[k].w;
+    const float4 xv = quad(s.x_tile + at), mu = quad(s.vecs + col),
+                 ad = quad(s.vecs + kBN + col),
+                 me = quad(s.vecs + 2 * kBN + col),
+                 rs = quad(s.vecs + 3 * kBN + col),
+                 k1 = quad(s.vecs + 4 * kBN + col),
+                 k2 = quad(s.vecs + 5 * kBN + col);
+    const float out[4] = {
+        dx_of(xv.x, da.x, mu.x, ad.x, me.x, rs.x, k1.x, k2.x),
+        dx_of(xv.y, da.y, mu.y, ad.y, me.y, rs.y, k1.y, k2.y),
+        dx_of(xv.z, da.z, mu.z, ad.z, me.z, rs.z, k1.z, k2.z),
+        dx_of(xv.w, da.w, mu.w, ad.w, me.w, rs.w, k1.w, k2.w)};
+    store_dx<4>(p.dx + (m0 + r) * c + n0 + col, out, n0 + col, c, p.dx_vec4);
+  }
+  cluster.sync();  // no block leaves while a peer may still read its P_k
 }
 
 // bwd_reduce's two products in one launch, sharing the card and one launch's
@@ -955,6 +1100,53 @@ cudaError_t launch_bwd_dx(const DaArgs& da, cudaStream_t s) {
   kernel<<<dim3(ceil_div(da.n, kBM), ceil_div(da.c, 32 * NT)), kThreads,
            kDaSmemBytes<NT>, s>>>(da);
   return cudaGetLastError();
+}
+
+// The cluster launch of bwd_dx: `chunks` F chunks, one cluster of `chunks`
+// blocks a 64 x 64 tile, the cluster's size set at run time (it differs
+// from stage to stage). `attr` backs the returned config.
+cudaLaunchConfig_t dx_cluster_config(long long n, int c, int chunks,
+                                     cudaStream_t s,
+                                     cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = chunks;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(ceil_div(n, kBM), ceil_div(c, 64), chunks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kDaSmemBytes<2>;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <bool kWKC>
+cudaError_t launch_bwd_dx_cluster(const DaArgs& da, int chunks,
+                                  cudaStream_t s) {
+  auto kernel = bwd_dx_cluster_kernel<kWKC>;
+  cudaError_t e = allow_smem(kernel, kDaSmemBytes<2>);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = dx_cluster_config(da.n, da.c, chunks, s,
+                                                   &attr);
+  void* args[] = {const_cast<DaArgs*>(&da)};
+  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// How many clusters of bwd_dx_cluster_kernel<kWKC> the card keeps resident
+// at once for this launch shape.
+template <bool kWKC>
+cudaError_t dx_max_clusters(long long n, int c, int chunks, int* clusters) {
+  auto kernel = bwd_dx_cluster_kernel<kWKC>;
+  cudaError_t e = allow_smem(kernel, kDaSmemBytes<2>);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = dx_cluster_config(n, c, chunks, 0, &attr);
+  return cudaOccupancyMaxActiveClusters(
+      clusters, reinterpret_cast<const void*>(kernel), &cfg);
 }
 
 template <int kDwNT, bool kWKC>
@@ -1081,22 +1273,47 @@ int msp_fused_bwd_reduce(const float* x, const float* g, const float* w,
                            s);
 }
 
-// dx (n, c) = mul*(dz - c1 - xhat*c2).
+// dx (n, c) = mul*(dz - c1 - xhat*c2). F is contracted in chunks of
+// k_per_chunk (a multiple of 16): one chunk is the unsplit launch (tile_cols
+// 64 or 128); 2 to 8 chunks the cluster launch (tile_cols 64), which a card
+// may refuse for its cluster shape: that error is returned, nothing falls
+// back.
 int msp_fused_bwd_dx(const float* x, const float* g, const float* w,
                      long long w_sc, long long w_sf, const float* mul,
                      const float* add, const float* mean, const float* rstd,
                      const float* c1, const float* c2, long long n, int c,
-                     int f, int tile_cols, float* dx, void* stream) {
+                     int f, int tile_cols, int k_per_chunk, float* dx,
+                     void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (!tile_cols_ok(tile_cols)) return cudaErrorInvalidValue;
+  if (!tile_cols_ok(tile_cols) || k_per_chunk <= 0 || k_per_chunk % kBK)
+    return cudaErrorInvalidValue;
+  const int chunks = ceil_div(f, k_per_chunk);
+  if (chunks > kMaxCluster || (chunks > 1 && tile_cols != 64))
+    return cudaErrorInvalidValue;
   DaArgs da = da_args(g, w, w_sc, w_sf, x, mul, add, mean, rstd, n, c, f);
   da.c1 = c1, da.c2 = c2, da.dx = dx, da.dx_vec = vec2_ok(dx, c);
-  da.k_per_chunk = ceil_div(f, kBK) * kBK;  // all of F
+  da.dx_vec4 = vec4_ok(dx, 1, c);
+  da.k_per_chunk = k_per_chunk;
   const bool kc = w_sf == 1;
+  if (chunks > 1)
+    return kc ? launch_bwd_dx_cluster<true>(da, chunks, s)
+              : launch_bwd_dx_cluster<false>(da, chunks, s);
   if (tile_cols == 128)
     return kc ? launch_bwd_dx<4, true>(da, s)
               : launch_bwd_dx<4, false>(da, s);
   return kc ? launch_bwd_dx<2, true>(da, s) : launch_bwd_dx<2, false>(da, s);
+}
+
+// *clusters = how many clusters of bwd_dx's cluster launch for (n, c, f) in
+// chunks of k_per_chunk (2 to 8 chunks) the card keeps resident at once
+// (cudaOccupancyMaxActiveClusters); w_kc: W's F axis is the contiguous one.
+int msp_fused_bwd_dx_max_clusters(long long n, int c, int f, int k_per_chunk,
+                                  int w_kc, int* clusters) {
+  if (k_per_chunk <= 0 || k_per_chunk % kBK) return cudaErrorInvalidValue;
+  const int chunks = ceil_div(f, k_per_chunk);
+  if (chunks < 2 || chunks > kMaxCluster) return cudaErrorInvalidValue;
+  return w_kc ? dx_max_clusters<true>(n, c, chunks, clusters)
+              : dx_max_clusters<false>(n, c, chunks, clusters);
 }
 
 const char* msp_cuda_error_string(int code) {

@@ -56,6 +56,7 @@ _TILE_COLS = (128, 64)  # 32 NT in the source: the wide and the narrow tile
 _K_STEP = 16      # kBK in the source
 _MAX_K = 1024     # kMaxK in the source: most channels one apply block takes
 _MOMENT_ROWS = 256  # rows per moments block
+_MAX_CLUSTER = 8  # kMaxCluster in the source: bwd_dx's most F chunks
 
 _lock = threading.Lock()
 _argtypes_set = False
@@ -148,10 +149,14 @@ class LaunchPlan(NamedTuple):
     it writes ``apply_scratch`` floats of partial outputs, folded in
     ascending order. The dW product splits the rows the same way. The
     product g Wᵀ takes 64x64 tiles in ``bwd_reduce`` and is split over F
-    there (``da_chunks`` of ``da_k_per_chunk``); ``bwd_dx`` always contracts
-    all of F, in tiles ``dx_tile_cols`` wide. ``reduce_scratch`` holds the
-    dW partials and then the dbeta/dgamma partials of every (64-row tile,
-    F chunk)."""
+    there (``da_chunks`` of ``da_k_per_chunk``). ``bwd_dx`` takes tiles
+    ``dx_tile_cols`` wide and splits F too (``dx_chunks`` of
+    ``dx_k_per_chunk``, at most 8): its epilogue is affine in g Wᵀ (the
+    mask [z > 0] depends on x alone), so the F chunks of a tile are the
+    blocks of one thread-block cluster, which sum their partial products in
+    ascending order before the mask and the BN backward run once; one chunk
+    is the unsplit launch. ``reduce_scratch`` holds the dW partials and then
+    the dbeta/dgamma partials of every (64-row tile, F chunk)."""
     apply_tile_cols: int
     apply_chunks: int
     apply_k_per_chunk: int
@@ -160,17 +165,24 @@ class LaunchPlan(NamedTuple):
     dw_chunks: int
     dw_rows_per_chunk: int
     dx_tile_cols: int
+    dx_chunks: int
+    dx_k_per_chunk: int
     da_chunks: int
     da_k_per_chunk: int
     reduce_scratch: int
 
 
-def _split(steps: int, tiles: int, sm_count: int, max_steps=None):
+def _split(steps: int, tiles: int, sm_count: int, max_steps=None,
+           max_chunks=None, blocks_per_sm=2):
     """``(chunks, steps per chunk)``: a contraction of ``steps`` K steps
     whose ``tiles`` output tiles leave SMs idle is split until there are
-    about two blocks per SM, and no more, so that all of them are resident
-    at once; one that fills the card is not split."""
-    want = 1 if tiles >= sm_count else max(1, 2 * sm_count // tiles)
+    about ``blocks_per_sm`` blocks per SM, and no more, so that all of them
+    are resident at once (into at most ``max_chunks``); one that fills the
+    card is not split."""
+    want = 1 if tiles >= sm_count else max(
+        1, blocks_per_sm * sm_count // tiles)
+    if max_chunks is not None:
+        want = min(want, max_chunks)
     per_chunk = math.ceil(steps / want)
     if max_steps is not None:
         per_chunk = min(per_chunk, max_steps)
@@ -186,7 +198,11 @@ def launch_plan(n: int, c: int, f: int, sm_count: int) -> LaunchPlan:
     SMs idle its contraction is split into chunks of whole K steps until
     there are about two blocks per SM (``apply`` over the channels, dW over
     the rows). ``bwd_reduce`` runs dW and g Wᵀ in one launch, g Wᵀ always in
-    narrow tiles, split over F while they leave SMs idle."""
+    narrow tiles, split over F while they leave SMs idle. ``bwd_dx`` splits
+    F into at most one cluster's 8 blocks, up to one block per SM: its
+    clusters must sit whole inside one group of SMs, so fewer of them than
+    two blocks per SM would suggest are resident at once, and a launch of
+    two blocks per SM ran part of its clusters in a second wave."""
     wide, narrow = _TILE_COLS
     row_tiles = math.ceil(n / _TILE_ROWS)
     c_steps, n_steps = math.ceil(c / _K_STEP), math.ceil(n / _K_STEP)
@@ -206,6 +222,9 @@ def launch_plan(n: int, c: int, f: int, sm_count: int) -> LaunchPlan:
     dw_chunks, row_steps = _split(n_steps, tiles, sm_count)
 
     dx_cols = wide if row_tiles * math.ceil(c / wide) >= sm_count else narrow
+    dx_chunks, dx_steps = _split(math.ceil(f / _K_STEP),
+                                 row_tiles * math.ceil(c / dx_cols), sm_count,
+                                 max_chunks=_MAX_CLUSTER, blocks_per_sm=1)
     da_chunks, f_steps = _split(math.ceil(f / _K_STEP),
                                 row_tiles * math.ceil(c / narrow), sm_count)
     return LaunchPlan(
@@ -214,6 +233,7 @@ def launch_plan(n: int, c: int, f: int, sm_count: int) -> LaunchPlan:
         apply_scratch=apply_chunks * n * f if apply_chunks > 1 else 0,
         dw_tile_cols=dw_cols, dw_chunks=dw_chunks,
         dw_rows_per_chunk=row_steps * _K_STEP, dx_tile_cols=dx_cols,
+        dx_chunks=dx_chunks, dx_k_per_chunk=dx_steps * _K_STEP,
         da_chunks=da_chunks, da_k_per_chunk=f_steps * _K_STEP,
         reduce_scratch=(dw_chunks * c * f
                         + row_tiles * da_chunks * 2 * c))
@@ -260,9 +280,12 @@ def _lib():
             lib.msp_fused_bwd_reduce.argtypes = [
                 p, p, p, ll, ll, p, p, p, p, ll, i, i, i, ll, i, p, p, p]
             lib.msp_fused_bwd_dx.argtypes = [
-                p, p, p, ll, ll, p, p, p, p, p, p, ll, i, i, i, p, p]
+                p, p, p, ll, ll, p, p, p, p, p, p, ll, i, i, i, i, p, p]
+            lib.msp_fused_bwd_dx_max_clusters.argtypes = [
+                ll, i, i, i, i, ctypes.POINTER(i)]
             for fn in (lib.msp_fused_moments, lib.msp_fused_apply,
-                       lib.msp_fused_bwd_reduce, lib.msp_fused_bwd_dx):
+                       lib.msp_fused_bwd_reduce, lib.msp_fused_bwd_dx,
+                       lib.msp_fused_bwd_dx_max_clusters):
                 fn.restype = i
             lib.msp_cuda_error_string.argtypes = [i]
             lib.msp_cuda_error_string.restype = ctypes.c_char_p
@@ -406,27 +429,55 @@ def bwd_reduce(x2d, g, w2d, mul, add, mean, rstd):
 def bwd_dx(x2d, g, w2d, mul, add, mean, rstd, c1, c2):
     """``dx (N, C) = mul·(dz − c1 − xhat·c2)`` — see :func:`bwd_dx_plain`.
     Kernel: the product g Wᵀ (the mainloop it shares with ``bwd_reduce``)
-    with the BN backward as its epilogue."""
+    with the BN backward as its epilogue, one launch; where the grid leaves
+    SMs idle, F is split across the blocks of a thread-block cluster whose
+    partial products are summed in a fixed order in shared memory."""
     if not _on_card("bwd_dx", x2d, g, w2d, mul, add, mean, rstd, c1, c2):
         return bwd_dx_plain(x2d, g, w2d, mul, add, mean, rstd, c1, c2)
     _check_operands("bwd_dx", x2d, g, w2d)
+    plan = _plan_for(x2d, w2d.shape[1])
+    dx = _launch_bwd_dx(x2d, g, w2d, (mul, add, mean, rstd, c1, c2),
+                        plan.dx_tile_cols, plan.dx_k_per_chunk)
+    _count(bwd_dx)
+    return dx
+
+
+def _launch_bwd_dx(x2d, g, w2d, vecs, tile_cols: int, k_per_chunk: int):
+    """One launch of the ``bwd_dx`` kernel on CUDA tensors at the given tile
+    width and F chunk (``k_per_chunk`` >= F: the unsplit launch), without
+    counting it; :func:`bwd_dx` passes its plan's. ``vecs`` is ``(mul, add,
+    mean, rstd, c1, c2)``."""
     n, c = x2d.shape
     f = w2d.shape[1]
     g = g.contiguous()
-    mul, add, mean, rstd, c1, c2 = (
-        _vec(t, c) for t in (mul, add, mean, rstd, c1, c2))
+    vecs = [_vec(t, c) for t in vecs]
     dx = torch.empty((n, c), dtype=torch.float32, device=x2d.device)
     lib = _lib()
     with torch.cuda.device(x2d.device):
         rc = lib.msp_fused_bwd_dx(
             x2d.data_ptr(), g.data_ptr(), w2d.data_ptr(), w2d.stride(0),
-            w2d.stride(1), mul.data_ptr(), add.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), c1.data_ptr(), c2.data_ptr(), n, c, f,
-            _plan_for(x2d, f).dx_tile_cols, dx.data_ptr(),
-            _stream(x2d.device))
+            w2d.stride(1), *(v.data_ptr() for v in vecs), n, c, f, tile_cols,
+            k_per_chunk, dx.data_ptr(), _stream(x2d.device))
     _check(lib, rc, "bwd_dx")
-    _count(bwd_dx)
     return dx
+
+
+def bwd_dx_max_clusters(x2d: torch.Tensor, w2d: torch.Tensor):
+    """How many clusters of :func:`bwd_dx`'s planned launch for ``x2d`` (N,
+    C) and ``w2d`` (C, F) the card keeps resident at once
+    (``cudaOccupancyMaxActiveClusters``), or None where the plan does not
+    split F."""
+    plan = _plan_for(x2d, w2d.shape[1])
+    if plan.dx_chunks == 1:
+        return None
+    lib = _lib()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(x2d.device):
+        rc = lib.msp_fused_bwd_dx_max_clusters(
+            x2d.shape[0], x2d.shape[1], w2d.shape[1], plan.dx_k_per_chunk,
+            int(w2d.stride(1) == 1), ctypes.byref(out))
+    _check(lib, rc, "bwd_dx occupancy")
+    return out.value
 
 
 moments.launches = 0

@@ -135,17 +135,30 @@ def _fused_inputs(n, c, f, device, seed=0):
                  for a in (x, gamma, beta, w, g))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,c,f", [
-    (1, 5, 3), (97, 40, 24), (256, 96, 128), (300, 200, 72),
-    (2048, 160, 128),
+# (n, c, f) and bwd_dx's F chunks on a 132-SM card (an H100 SXM): above 1
+# the cluster kernel runs
+FUSED_CASES = {
+    (1, 5, 3): 1, (97, 40, 24): 2, (256, 96, 128): 8, (300, 200, 72): 5,
+    (2048, 160, 128): 1, (2048, 128, 128): 2,
     # split-K plans: channels in 62 chunks, 8 chunks at F = 512, and ragged
-    # N, C and F with rows that are not 16-byte aligned
-    (32, 992, 128), (256, 1024, 512), (33, 1000, 130)])
+    # N, C and F with rows that are not 16-byte aligned (bwd_dx: a short
+    # last F chunk); bwd_dx's F in 2 chunks at the widest dense layer
+    (32, 992, 128): 8, (256, 1024, 512): 2, (33, 1000, 130): 5,
+    (256, 992, 128): 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,f", list(FUSED_CASES))
 def test_fused_kernels_match_plain_on_card(cuda_device, n, c, f):
     """Each kernel against its plain version on the same inputs, with
     ragged N, C and F; one launch each."""
     x, gamma, beta, w, g = _fused_inputs(n, c, f, cuda_device)
+    assert fd.launch_plan(n, c, f, 132).dx_chunks == FUSED_CASES[(n, c, f)]
+    if torch.cuda.get_device_properties(x.device).multi_processor_count \
+            == 132:  # this card's plan is the table's
+        assert fd._plan_for(x, f).dx_chunks == FUSED_CASES[(n, c, f)]
+    if fd._plan_for(x, f).dx_chunks > 1:
+        assert fd.bwd_dx_max_clusters(x, w) >= 1
     before = [k.launches for k in fd.KERNELS]
     s, sq = fd.moments(x)
     ps, psq = fd.moments_plain(x)
@@ -179,17 +192,22 @@ def test_fused_kernels_match_plain_on_card(cuda_device, n, c, f):
     (16384, 224, 128), (32, 992, 128), (256, 1024, 512), (33, 1000, 130)])
 def test_fused_kernels_repeat_bit_equal_on_card(cuda_device, n, c, f):
     """Two calls on the same inputs give the same bits: every cross-block
-    sum (split-K chunks, dW row chunks, dbeta/dgamma row tiles) is folded in
-    a fixed order, with no atomics."""
+    sum (split-K chunks, dW row chunks, dbeta/dgamma row tiles, bwd_dx's F
+    chunks inside a cluster) is folded in a fixed order, with no atomics."""
     x, gamma, beta, w, g = _fused_inputs(n, c, f, cuda_device, seed=3)
     mean, var, rstd, mul, add = fd._stats(x, gamma, beta, 1e-5)
     w_t = w.t().contiguous().t()
-    first = (fd.apply(x, mul, add, w_t),
-             *fd.bwd_reduce(x, g, w_t, mul, add, mean, rstd))
+
+    def calls():
+        dw, dgamma, dbeta = fd.bwd_reduce(x, g, w_t, mul, add, mean, rstd)
+        return (fd.apply(x, mul, add, w_t), dw, dgamma, dbeta,
+                fd.bwd_dx(x, g, w_t, mul, add, mean, rstd, dbeta / n,
+                          dgamma / n))
+
+    first = calls()
     # other work in between, so the second call finds other scratch memory
     torch.randn(1 << 20, device=cuda_device).sum().item()
-    again = (fd.apply(x, mul, add, w_t),
-             *fd.bwd_reduce(x, g, w_t, mul, add, mean, rstd))
+    again = calls()
     for a, b in zip(first, again):
         assert torch.equal(a, b)
 

@@ -105,6 +105,48 @@ def test_plain_versions_match_jax_kernels(n, c, f):
         rtol=1e-4, atol=1e-5)
 
 
+# (n, c, f) and bwd_dx's F chunks on a 132-SM card (an H100 SXM): every row
+# count of the train step that splits, the widest transition, and a short
+# last chunk
+DX_SPLITS = [((32, 992, 128), 8), ((256, 512, 128), 4), ((256, 992, 128), 2),
+             ((256, 1024, 512), 2), ((2048, 128, 128), 2),
+             ((33, 1000, 130), 5), ((97, 40, 24), 2)]
+
+
+@pytest.mark.parametrize("shape,chunks", DX_SPLITS)
+def test_dx_split_over_f_is_exact(shape, chunks):
+    """The sum the cluster kernel of bwd_dx computes, in plain torch: dx =
+    mul·([z>0]·Σₖ Pₖ − c1 − x̂·c2) with Pₖ the 3xTF32 product of F chunk k
+    at the plan's chunking, summed in ascending k, and the mask and the BN
+    backward applied once after. Equal to the unsplit plain version and to
+    the JAX kernel within rtol 1e-4 + 1e-5·max|dx|. (The kernel itself is
+    held against the plain version on the card, tests/test_torch_cuda.py.)"""
+    n, c, f = shape
+    plan = fd.launch_plan(n, c, f, 132)
+    assert plan.dx_chunks == chunks
+    x, scale, bias, w, cot = _data(n, c, f, seed=4)
+    tx, tw, tg = _t(x, w, cot)
+    mean, var, rstd, mul, add = fd._stats(tx, *_t(scale, bias), 1e-5)
+    _, dgamma, dbeta = fd.bwd_reduce_plain(tx, tg, tw, mul, add, mean, rstd)
+    c1, c2 = dbeta / n, dgamma / n
+    da = None
+    for lo in range(0, f, plan.dx_k_per_chunk):
+        hi = min(f, lo + plan.dx_k_per_chunk)
+        part = fd.matmul_3xtf32_plain(tg[:, lo:hi].contiguous(),
+                                      tw[:, lo:hi].T.contiguous())
+        da = part if da is None else da + part
+    dz = torch.where(tx * mul + add > 0, da, 0.0)
+    dx = mul * (dz - c1 - (tx - mean) * rstd * c2)
+    plain = fd.bwd_dx_plain(tx, tg, tw, mul, add, mean, rstd, c1, c2)
+    vec = [jnp.asarray(v.numpy())[None, :]
+           for v in (mul, add, mean, rstd, c1, c2)]
+    want = torch.from_numpy(np.array(jfd._bwd_dx(
+        jnp.asarray(x), jnp.asarray(cot), jnp.asarray(w), *vec)))
+    for ref in (plain, want):
+        torch.testing.assert_close(dx, ref, rtol=1e-4,
+                                   atol=1e-5 * float(ref.abs().max()))
+
+
 def test_reference_matches_jax_reference():
     x, scale, bias, w, _ = _data(64, 20, 12, seed=3)
     got = fd.bn_relu_conv1x1_reference(*_t(x, scale, bias, w))

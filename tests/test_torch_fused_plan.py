@@ -8,7 +8,8 @@ count. The kernels themselves run only on a GPU (tests/test_torch_cuda.py);
 here the split product is emulated in plain torch (round to TF32's 10
 mantissa bits, three products, float32 sums) and held against float64 with
 the kernels' tolerances: outputs rtol 1e-5, gradients rtol 1e-4, each with
-an atol of 1e-5 times the tensor's largest |value|.
+an atol of 1e-5 times the tensor's largest |value|. bwd_dx's split of F is
+held against the JAX kernel in tests/test_torch_fused_dense.py.
 """
 
 import math
@@ -21,6 +22,7 @@ from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
 
 SMS = 132  # an H100 SXM
 K_STEP, MAX_K, TILE_ROWS = 16, 1024, 64
+MAX_CLUSTER = 8  # bwd_dx's F chunks: the portable cluster size
 
 
 def _densenet_stages(batch=8, trunk=(16, 16, 8), block_config=(6, 12, 24, 16),
@@ -75,7 +77,8 @@ def test_plan_chunks_cover_each_contraction_once(n, c, f):
     for total, per_chunk, chunks in (
             (c, plan.apply_k_per_chunk, plan.apply_chunks),
             (n, plan.dw_rows_per_chunk, plan.dw_chunks),
-            (f, plan.da_k_per_chunk, plan.da_chunks)):
+            (f, plan.da_k_per_chunk, plan.da_chunks),
+            (f, plan.dx_k_per_chunk, plan.dx_chunks)):
         assert per_chunk > 0 and per_chunk % K_STEP == 0
         assert chunks == math.ceil(total / per_chunk)  # as the launcher counts
         ranges = _chunks(total, per_chunk)
@@ -84,6 +87,23 @@ def test_plan_chunks_cover_each_contraction_once(n, c, f):
         assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
         assert all(hi > lo for lo, hi in ranges)
     assert plan.apply_k_per_chunk <= MAX_K
+    assert plan.dx_chunks <= MAX_CLUSTER
+
+
+@pytest.mark.parametrize("n,c,f", STAGES + RAGGED)
+def test_dx_clusters_take_narrow_tiles_and_fill_no_more_than_the_card(n, c,
+                                                                      f):
+    """bwd_dx splits F only where its tiles leave SMs idle, so only in 64x64
+    tiles (the cluster kernel's), into 2 to 8 chunks (one cluster each), and
+    never past one block per SM, so that every cluster is resident at
+    once."""
+    plan = fd.launch_plan(n, c, f, SMS)
+    tiles = math.ceil(n / TILE_ROWS) * math.ceil(c / plan.dx_tile_cols)
+    if plan.dx_chunks > 1:
+        assert plan.dx_tile_cols == 64 and tiles < SMS
+        assert tiles * plan.dx_chunks <= SMS
+    else:
+        assert plan.dx_k_per_chunk >= f
 
 
 @pytest.mark.parametrize("n,c,f", STAGES + RAGGED)
@@ -115,6 +135,9 @@ def test_small_stages_fill_the_card(n, c, f):
     dw_blocks = (math.ceil(c / TILE_ROWS) * math.ceil(f / plan.dw_tile_cols)
                  * plan.dw_chunks)
     assert 32 <= dw_blocks <= 2 * SMS + SMS // 2
+    dx_blocks = (math.ceil(n / TILE_ROWS) * math.ceil(c / plan.dx_tile_cols)
+                 * plan.dx_chunks)
+    assert 64 <= dx_blocks <= 2 * SMS + SMS // 2
 
 
 @pytest.mark.parametrize("n,c,f", [s for s in STAGES if s[0] == 16384])
@@ -125,6 +148,7 @@ def test_large_stages_are_not_split(n, c, f):
     assert plan.apply_tile_cols == 128 and f == 128
     assert plan.apply_chunks == 1 and plan.apply_scratch == 0
     assert plan.dx_tile_cols == 128 and plan.da_chunks == 1
+    assert plan.dx_chunks == 1 and plan.dx_k_per_chunk == f
     assert _apply_blocks(plan, n, f) == n // 64
 
 
