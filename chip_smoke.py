@@ -55,7 +55,22 @@ result then):
      could swap. ms per train step by CUDA events, and a torch.profiler
      breakdown of one step, for both, with each fused kernel's summed
      device time and launches in that step.
-  9. summary: one JSON line of per-kernel numbers, then the final line
+     Part of phase 7: bwd_dx at N = 1, c1 and c2 from the bwd_reduce
+     kernel, must cancel to max |dx| <= 1e-5 (the plain version's 0).
+  9. CV (the main path of the CV slice): the partial_modality training
+     CLI's main(argv) in-process on the phase-4 cohort at full width with
+     --pallas-resample --n-folds 2 --epochs 2: the W-pass launch count,
+     reset just before, must equal the imaging patients after the ingest;
+     no fused kernel launches (the driver's model is unfused, as JAX's);
+     cv_results.json in the standard schema; both fold checkpoints with a
+     .meta.json pinning use_pallas_resample and resample_mode "device";
+     the logged TF32 flags both off. Then predict_risk on each fold
+     checkpoint (one W-pass launch per imaging patient) reproduces the
+     fold's best_c_index on its validation patients (a pair whose hazards
+     differ by under 1e-5 may count either way), and the fold ensemble's
+     risks are finite. Prints the phase's and each fold's wall, each
+     epoch's ms by CUDA events and epoch 2's steps and ms/step.
+  10. summary: one JSON line of per-kernel numbers, then the final line
      {"ok": true, "device": {...}}.
 
 Everything it writes goes under build/ in this checkout (kernel build,
@@ -770,27 +785,32 @@ def _log_dx_plan(fd, x, w, tag):
 
 
 def _one_row_cancellation(fd, device, gen, draws=50):
-    """bwd_dx at N = 1. With the batch's own sums dx = mul·(dz − c1 − xhat·c2)
-    is exactly 0 in the plain version (c1 = dz, xhat = 0), and mul =
-    γ/sqrt(eps) times the last bit of g Wᵀ in a kernel that sums in another
-    order: that residual is logged, not held. Held, to the gradients'
-    tolerance, is the product that is left when nothing cancels (c1 = c2 =
-    0)."""
+    """bwd_dx at N = 1 (ROADMAP Queue 3's former fault). With the batch's
+    own sums xhat = 0 and c1 = Σ dz = dz, so the reference's dx = mul·(dz −
+    c1 − xhat·c2) is exactly 0. The op's backward takes c1 and c2 from the
+    bwd_reduce kernel and dz from the bwd_dx kernel, each at launch_plan's
+    own plan: held, over ``draws`` draws, is max |dx| <= FUSED_ATOL through
+    the wrappers and through the autograd op (the plain pair gives 0).
+    Held too, to the gradients' tolerance, is the product that is left when
+    nothing cancels (c1 = c2 = 0)."""
     import torch
 
     for c, f in ((5, 3), (224, 128)):
-        residual = over = worst = largest = 0.0
+        cancel = op = worst = largest = 0.0
         for _ in range(draws):
             x, gamma, beta, w, g = _fused_inputs(1, c, f, device, gen)
             mean, var, rstd, mul, add = fd._stats(x, gamma, beta, 1e-5)
-            _, dgamma, dbeta = fd.bwd_reduce_plain(x, g, w, mul, add, mean,
-                                                   rstd)
+            _, dgamma, dbeta = fd.bwd_reduce(x, g, w, mul, add, mean, rstd)
             dx = fd.bwd_dx(x, g, w, mul, add, mean, rstd, dbeta, dgamma)
-            want = fd.bwd_dx_plain(x, g, w, mul, add, mean, rstd, dbeta,
-                                   dgamma)
-            d = float((dx - want).abs().max())
-            residual = max(residual, d)
-            over += d > FUSED_ATOL * max(1.0, float(want.abs().max()))
+            cancel = max(cancel, float(dx.abs().max()))
+            args = [t.clone().requires_grad_(True) for t in (x, gamma, beta)]
+            out, _, _ = fd.fused_bn_relu_conv1x1(*args, w)
+            op = max(op, float(torch.autograd.grad(out, args[0], g)[0]
+                               .abs().max()))
+            _, pg, pb = fd.bwd_reduce_plain(x, g, w, mul, add, mean, rstd)
+            plain = fd.bwd_dx_plain(x, g, w, mul, add, mean, rstd, pb, pg)
+            check(float(plain.abs().max()) == 0.0,
+                  f"plain bwd_dx 1x{c}->{f} does not cancel: {plain}")
             zero = torch.zeros_like(dbeta)
             want = fd.bwd_dx_plain(x, g, w, mul, add, mean, rstd, zero, zero)
             largest = max(largest, float(want.abs().max()))
@@ -798,11 +818,17 @@ def _one_row_cancellation(fd, device, gen, draws=50):
                 f"bwd_dx 1x{c}->{f}, c1 = c2 = 0",
                 fd.bwd_dx(x, g, w, mul, add, mean, rstd, zero, zero), want,
                 FUSED_GRAD_RTOL))
-        log(f"bwd_dx 1x{c}->{f} over {draws} draws: with the batch's own "
-            f"sums (plain dx = 0) max|d| {residual:.3e}, {int(over)} draws "
-            f"beyond {FUSED_ATOL} (logged, not held); with c1 = c2 = 0 "
-            f"max|d| {worst:.3e} on |dx| up to {largest:.3e}, all within "
-            "tolerance")
+        plan = fd._plan_for(x, f) if device != "cpu" else None
+        chunks = f"{plan.da_chunks} / {plan.dx_chunks}" if plan else "-"
+        log(f"bwd_dx 1x{c}->{f} over {draws} draws, c1 and c2 from the "
+            f"bwd_reduce kernel (F chunks of bwd_reduce / bwd_dx: {chunks}):"
+            f" max|dx| "
+            f"{cancel:.3e} through the wrappers, {op:.3e} through the op "
+            f"(plain 0; tol {FUSED_ATOL}); with c1 = c2 = 0 max|d| "
+            f"{worst:.3e} on |dx| up to {largest:.3e}")
+        check(cancel <= FUSED_ATOL and op <= FUSED_ATOL,
+              f"bwd_dx 1x{c}->{f} does not cancel: max|dx| {cancel:.3e} "
+              f"(wrappers), {op:.3e} (op) > {FUSED_ATOL}")
 
 
 def _time_fused(fd, x, w, g, mul, add, mean, rstd, c1, c2):
@@ -1117,6 +1143,200 @@ def phase_train(table, paths, rna_dim, device="cuda", image_shape=(64, 64, 32),
         profile_fused=a.get("profile"), profile_unfused=b.get("profile"))
 
 
+# --------------------------------------------------------------------------
+# 9: the CV slice (training CLI -> fold checkpoints -> predict_risk)
+# --------------------------------------------------------------------------
+
+CV_STANDARD_KEYS = {"model", "n_folds", "num_epochs", "dataset_size",
+                    "c_index_mean", "c_index_std", "fold_results",
+                    "hyperparameters"}
+CV_HAZARD_MARGIN = 1e-5  # a pair this close may count either way
+
+
+def phase_cv(work, table, paths, n_img, smi="", device="cuda", extra_argv=(),
+             expect_launches=True):
+    """The partial_modality training CLI's ``main(argv)`` in-process on the
+    phase-4 cohort: ingest through the W-pass kernel, 2 folds x 2 epochs,
+    fold checkpoints, cv_results.json; then ``predict_risk`` on each fold
+    checkpoint and on the fold ensemble. The W-pass launch count is reset
+    just before the CLI runs and read just after its ingest, again around
+    each predict_risk. Returns the phase's numbers."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    from multimodal_survival_prediction_tpu_torch.config import (
+        PARTIAL_MODALITY as CFG,
+    )
+    from multimodal_survival_prediction_tpu_torch.io.checkpoint import (
+        load_fold_meta,
+    )
+    from multimodal_survival_prediction_tpu_torch.io.results import (
+        load_cv_results,
+    )
+    from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
+    from multimodal_survival_prediction_tpu_torch.ops import resample as rs
+    from multimodal_survival_prediction_tpu_torch.ops.cindex import (
+        concordance_index,
+    )
+    from multimodal_survival_prediction_tpu_torch.train import cli, cv, engine
+    from multimodal_survival_prediction_tpu_torch.train import (
+        partial_modality_training as pmt,
+    )
+    from multimodal_survival_prediction_tpu_torch.train.predict import (
+        fold_checkpoints,
+        predict_risk,
+    )
+
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    results, models = work / "cv_results", work / "cv_models"
+    argv = ["--data-root", str(paths["root"]), "--results-dir", str(results),
+            "--models-dir", str(models), "--pallas-resample", "--n-folds",
+            "2", "--epochs", "2", "--device", device, *extra_argv]
+    kept, epochs, messages = {}, [], []
+    prepare, run = cv.prepare_cv_data, cli.run_cross_validation
+    train_epoch = engine.Trainer.train_epoch
+
+    def prepare_and_keep(*a, **k):  # the ingest's wall and launches
+        t = time.perf_counter()
+        kept["arrays"], kept["splits"] = out = prepare(*a, **k)
+        sync()
+        kept["ingest_s"] = time.perf_counter() - t
+        kept["ingest_launches"] = rs.wpass.launches
+        return out
+
+    def run_and_keep(*a, **k):
+        payload, kept["outcomes"] = out = run(*a, **k)
+        return out
+
+    def timed_epoch(self, *a, **k):  # each epoch's ms by CUDA events
+        if device != "cpu":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        out = train_epoch(self, *a, **k)
+        ms = None
+        if device != "cpu":
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        epochs.append((ms, len(self.step_losses)))
+        return out
+
+    class _Keep(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    handler, level = _Keep(), cli.log.level
+    cli.log.addHandler(handler)
+    cli.log.setLevel(logging.INFO)
+    cv.prepare_cv_data, cli.run_cross_validation = prepare_and_keep, \
+        run_and_keep
+    engine.Trainer.train_epoch = timed_epoch
+    try:
+        rs.wpass.launches = 0  # the CV path's counts start here
+        fd.reset_launches()
+        t0 = time.perf_counter()
+        payload = pmt.main(argv)
+        sync()
+        wall = time.perf_counter() - t0
+        fused = [k.launches for k in fd.KERNELS]  # ... and are read here
+    finally:
+        cv.prepare_cv_data, cli.run_cross_validation = prepare, run
+        engine.Trainer.train_epoch = train_epoch
+        cli.log.removeHandler(handler)
+        cli.log.setLevel(level)
+
+    arrays, splits, outcomes = kept["arrays"], kept["splits"], kept["outcomes"]
+    ingest = kept["ingest_launches"]
+    per_fold, i = [], 0
+    for o in outcomes:
+        fold_epochs, i = epochs[i:i + o.epochs_run], i + o.epochs_run
+        ms, steps = fold_epochs[-1]
+        per_fold.append(dict(fold=o.fold, wall_s=o.wall_s, steps=steps,
+                             epoch_ms=[e[0] for e in fold_epochs],
+                             ms_per_step_last_epoch=(
+                                 ms / steps if ms is not None else None),
+                             best_epoch=o.best_epoch,
+                             best_c_index=o.best_c_index))
+    tf32 = [m for m in messages if "allow_tf32" in m]
+    log(f"CV (train/partial_modality_training.py main, {smi}): wall "
+        f"{wall:.2f} s, ingest {kept['ingest_s']:.2f} s with "
+        f"{ingest} W-pass launches for {n_img} imaging patients; fused "
+        f"kernel launches {fused}; TF32 log {tf32}")
+    for f in per_fold:
+        log(f"  fold {f['fold']}: wall {f['wall_s']:.2f} s; epoch ms "
+            f"{f['epoch_ms']}; epoch 2: {f['steps']} steps, "
+            f"{f['ms_per_step_last_epoch']} ms/step; best C-index "
+            f"{f['best_c_index']:.6f} @ epoch {f['best_epoch']}")
+    check(ingest == (n_img if expect_launches else 0),
+          f"the CV ingest launched the W-pass kernel {ingest} times, "
+          f"expected one per imaging patient ({n_img})")
+    check(fused == [0] * len(fused),
+          f"the CV driver's unfused model launched fused kernels: {fused}")
+    check(len(tf32) == 1 and "matmul.allow_tf32=False" in tf32[0]
+          and "cudnn.allow_tf32=False" in tf32[0],
+          f"the CLI did not log both TF32 flags off: {tf32}")
+    loaded = load_cv_results(results / CFG.name)
+    check(set(loaded["raw"]) == CV_STANDARD_KEYS and loaded["raw"] == payload
+          and len(payload["fold_results"]) == 2,
+          f"cv_results.json does not carry the standard schema: "
+          f"{sorted(loaded['raw'])}")
+    ckpts = fold_checkpoints(models, CFG.name)
+    check([c.name for c in ckpts] == ["fold_1_best.pt", "fold_2_best.pt"],
+          f"fold checkpoints {ckpts}")
+
+    scored = []
+    for ckpt, fold, (_, val_rows, _) in zip(ckpts, per_fold, splits):
+        meta = load_fold_meta(ckpt)
+        check(meta is not None and meta["use_pallas_resample"] is True
+              and meta["resample_mode"] == "device",
+              f"{ckpt.name}.meta.json: {meta}")
+        rs.wpass.launches = 0
+        pred = predict_risk(CFG, ckpt, table, rnaseq_csv=paths["rnaseq_csv"],
+                            labeled_only=False, device=device)
+        sync()
+        launches = rs.wpass.launches
+        check(launches == (n_img if expect_launches else 0),
+              f"predict_risk on {ckpt.name} launched the W-pass kernel "
+              f"{launches} times, expected {n_img}")
+        check(list(pred["patient_id"]) == list(arrays.patient_ids),
+              "predict_risk's patients are not the CV cohort's")
+        h = pred["risk_score"][val_rows].astype(np.float64)
+        t = arrays.arrays["time"][val_rows]
+        e = arrays.arrays["event"][val_rows]
+        v = arrays.arrays["svalid"][val_rows]
+        c = float(concordance_index(torch.from_numpy(h).float(), t, e,
+                                    valid=v))
+        pairs, fragile = _comparable_pairs(t, e, v, h, CV_HAZARD_MARGIN)
+        tol = fragile / max(pairs, 1) + 1e-6
+        dc = abs(c - fold["best_c_index"])
+        log(f"predict_risk on {ckpt.name}: {launches} W-pass launches; "
+            f"C-index on the fold's {len(val_rows)} validation patients "
+            f"{c:.6f} vs the fold's best_c_index {fold['best_c_index']:.6f}"
+            f" (|d| {dc:.3e}, tol {tol:.3e}: {fragile} of {pairs} "
+            f"comparable pairs within {CV_HAZARD_MARGIN})")
+        check(dc <= tol, f"predict_risk on {ckpt.name} gives C-index {c} on "
+              f"the fold's validation patients, the fold's best_c_index is "
+              f"{fold['best_c_index']}")
+        scored.append(launches)
+    rs.wpass.launches = 0
+    ensemble = predict_risk(CFG, ckpts, table, rnaseq_csv=paths["rnaseq_csv"],
+                            labeled_only=False, device=device)
+    sync()
+    scored.append(rs.wpass.launches)
+    check(np.all(np.isfinite(ensemble["risk_score"]))
+          and ensemble["risk_score"].shape == (len(table),),
+          f"fold-ensemble risks not finite: {ensemble['risk_score']}")
+    log(f"fold ensemble over {len(ckpts)} checkpoints: {scored[-1]} W-pass "
+        f"launches; risks {np.round(ensemble['risk_score'], 4).tolist()}")
+    return dict(wall_s=wall, ingest_s=kept["ingest_s"],
+                ingest_launches=ingest, predict_launches=scored,
+                fused_launches=dict(zip(FUSED_NAMES, fused)),
+                folds=per_fold, c_index_mean=payload["c_index_mean"])
+
+
 def main() -> int:
     import torch
 
@@ -1126,7 +1346,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     t_start = time.perf_counter()
-    phase_device()
+    smi = phase_device()
     phase_build()
     max_err, timing = phase_kernel_vs_plain()
     work = ROOT / "build" / "chip_smoke"
@@ -1138,6 +1358,7 @@ def main() -> int:
         phase_server(table, paths, ckpt, pred)
         fused_err, fused_timing = phase_fused_vs_plain()
         fused_launches, train = phase_train(table, paths, 5005)
+        cv_run = phase_cv(work, table, paths, n_img, smi=smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1154,6 +1375,10 @@ def main() -> int:
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
+        "launches_by_path": {
+            "predict_risk": launches,
+            "cv_ingest": cv_run["ingest_launches"],
+            "cv_predict_risk": cv_run["predict_launches"]},
         "kernel_ms": timing["kernel_ms"],
         "call_ms": timing["call_ms"],
         "bound_us": timing["bound_ms"] * 1e3,
@@ -1177,6 +1402,9 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "library_call": FUSED_LIBRARY[name],
+            "launches_by_path": {
+                "train": fused_launches[name],
+                "cv": cv_run["fused_launches"][name]},
             "call_ms": t["call_ms"],
             "timed_shape": t["shape"],
             "bound_cuda_core_ms": t["bound_cuda_core_ms"],

@@ -12,7 +12,10 @@ Ported so far, for the flagship gated ``partial_modality`` model:
     W-pass kernel (``ops/csrc/resample_wpass.cu``);
   * training — ``train.engine.Trainer`` with the Cox loss, the C-index and
     the LR schedules, and DenseNet121-3D's ``fused_bn1`` train mode through
-    the fused BN->ReLU->1x1-conv kernels (``ops/csrc/fused_dense.cu``).
+    the fused BN->ReLU->1x1-conv kernels (``ops/csrc/fused_dense.cu``);
+  * cross-validation — the K-fold driver (``train.cv``), both
+    ``cv_results.json`` schemas (``io.results``) and the training CLI
+    ``python -m multimodal_survival_prediction_tpu_torch.train.partial_modality_training``.
 ROADMAP.md lists what is still to come.
 """
 

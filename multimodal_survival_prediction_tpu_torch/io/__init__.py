@@ -1,1 +1,2 @@
-"""Checkpoint I/O of the port and the weight carry-over from JAX."""
+"""Checkpoint and results I/O of the port and the weight carry-over from
+JAX."""

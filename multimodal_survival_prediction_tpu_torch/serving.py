@@ -27,7 +27,7 @@ from .config import ALL_CONFIGS, ModelRunConfig
 from .io.checkpoint import load_checkpoint, load_fold_meta
 from .ops.resample import resample_normalize_bucketed
 from .train.adapters import make_model_and_adapters
-from .utils.device import resolve_device
+from .utils.device import pin_fp32_policy, resolve_device
 
 
 class RiskScorer:
@@ -285,6 +285,7 @@ def main(argv=None) -> None:
     ap.add_argument("--hu-window", type=float, nargs=2, default=None)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    print(f"[serve] {pin_fp32_policy()}", flush=True)
     scorer = RiskScorer(args.model, args.checkpoint,
                         batch_size=args.batch_size, hu_window=args.hu_window,
                         device=args.device)

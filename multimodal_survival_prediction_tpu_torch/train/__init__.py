@@ -1,1 +1,2 @@
-"""Scoring (and, in a later slice, training) of the port."""
+"""Training (the Trainer, the K-fold CV driver and its CLI) and scoring of
+the port."""

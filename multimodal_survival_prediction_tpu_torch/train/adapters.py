@@ -23,21 +23,11 @@ _FAMILY_TODO = {
 }
 
 
-def make_model_and_adapters(cfg: ModelRunConfig, rna_dim: int | None = None,
-                            backbone: str = "densenet121",
-                            generator: torch.Generator | None = None,
-                            dropout_generator: torch.Generator | None = None):
-    """Returns ``(model, batch_to_inputs, hazard_and_aux)``; the model is
-    built on the CPU (move it with ``.to(device)``), its weights drawn from
-    ``generator`` and its dropout masks from ``dropout_generator`` (which
-    must live on the device the model trains on)."""
+def make_adapters(cfg: ModelRunConfig):
+    """``(batch_to_inputs, hazard_and_aux)`` of ``cfg``'s model family,
+    without building a model."""
     name = cfg.name
     if name == "partial_modality":
-        model = PartialModalityNet(
-            rna_dim=rna_dim if rna_dim is not None else cfg.rna_dim,
-            backbone=backbone, generator=generator)
-        if dropout_generator is not None:
-            set_dropout_generator(model, dropout_generator)
         w = cfg.gate_entropy_weight
 
         def hazard_and_aux(out, batch):
@@ -47,10 +37,27 @@ def make_model_and_adapters(cfg: ModelRunConfig, rna_dim: int | None = None,
             aux = w * gate_entropy_loss(gates, valid=batch["valid"])
             return hazard, aux
 
-        return model, (lambda b: (b["image"], b["rnaseq"], b["clinical"],
-                                  b["mask"])), hazard_and_aux
+        return (lambda b: (b["image"], b["rnaseq"], b["clinical"],
+                           b["mask"])), hazard_and_aux
     if name in _FAMILY_TODO:
         raise NotImplementedError(
             f"model family {name!r} is not ported yet: ROADMAP.md "
             f"{_FAMILY_TODO[name]}")
     raise ValueError(f"unknown model {name!r}")
+
+
+def make_model_and_adapters(cfg: ModelRunConfig, rna_dim: int | None = None,
+                            backbone: str = "densenet121",
+                            generator: torch.Generator | None = None,
+                            dropout_generator: torch.Generator | None = None):
+    """Returns ``(model, batch_to_inputs, hazard_and_aux)``; the model is
+    built on the CPU (move it with ``.to(device)``), its weights drawn from
+    ``generator`` and its dropout masks from ``dropout_generator`` (which
+    must live on the device the model trains on)."""
+    batch_to_inputs, hazard_and_aux = make_adapters(cfg)
+    model = PartialModalityNet(
+        rna_dim=rna_dim if rna_dim is not None else cfg.rna_dim,
+        backbone=backbone, generator=generator)
+    if dropout_generator is not None:
+        set_dropout_generator(model, dropout_generator)
+    return model, batch_to_inputs, hazard_and_aux

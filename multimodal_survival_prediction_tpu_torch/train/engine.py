@@ -123,6 +123,37 @@ class TrainState:
     dropout_generator: torch.Generator
 
 
+def train_state_dict(state: TrainState) -> dict:
+    """``state`` as a dict of tensors and ints (the CV driver's resume
+    file): the model's state_dict, Adam's moments and count, the step, and
+    the dropout generator's state."""
+    return {"model": state.model.state_dict(),
+            "opt_mu": list(state.opt_state.mu),
+            "opt_nu": list(state.opt_state.nu),
+            "opt_count": state.opt_state.count, "step": state.step,
+            "dropout_rng": state.dropout_generator.get_state()}
+
+
+def load_train_state_dict(state: TrainState, saved: dict) -> TrainState:
+    """Restore a :func:`train_state_dict` into ``state`` in place (its
+    model, moments and generator keep their devices); returns ``state``."""
+    state.model.load_state_dict(saved["model"], strict=True)
+    with torch.no_grad():
+        torch._foreach_copy_(state.opt_state.mu, saved["opt_mu"])
+        torch._foreach_copy_(state.opt_state.nu, saved["opt_nu"])
+    state.opt_state.count = int(saved["opt_count"])
+    state.step = int(saved["step"])
+    state.dropout_generator.set_state(saved["dropout_rng"])
+    return state
+
+
+def best_weights(state: TrainState) -> dict:
+    """A copy on the CPU of the model's state_dict (parameters and
+    BatchNorm running stats): what a fold checkpoint holds."""
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in state.model.state_dict().items()}
+
+
 def _init_seed(seed: int, fold: int) -> int:
     """A fold-varying init seed (the counterpart of ``fold_in``)."""
     return int(np.random.SeedSequence([seed, fold]).generate_state(1)[0])

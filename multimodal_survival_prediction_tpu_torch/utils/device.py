@@ -14,3 +14,16 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def pin_fp32_policy() -> str:
+    """Turn TF32 off for cuDNN and for matmuls in this process, so that
+    convolutions and products run in true fp32 as the JAX reference
+    computes them; returns a line stating both flags. The port's CLIs call
+    it once at start-up; library functions set no global flags."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return ("precision: torch.backends.cuda.matmul.allow_tf32="
+            f"{torch.backends.cuda.matmul.allow_tf32}, "
+            f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}"
+            " (fp32 convolutions and matmuls, as the JAX reference computes)")

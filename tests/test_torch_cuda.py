@@ -174,17 +174,38 @@ def test_fused_kernels_match_plain_on_card(cuda_device, n, c, f):
             _close(a, b, 1e-4)
         c1, c2 = want[2] / n, want[1] / n
         if n == 1:
-            # with the batch's own sums dx = mul·(dz − c1 − xhat·c2) is
-            # exactly 0 in the plain version (c1 = dz, xhat = 0) and mul =
-            # γ/sqrt(eps) times the product's last bit in any other: no
-            # kernel holds that to 1e-5, so hold the product that is left
-            # when nothing cancels
+            # the plain pair's dx = mul·(dz − c1 − xhat·c2) is exactly 0
+            # (c1 = dz, xhat = 0), so hold the product that is left when
+            # nothing cancels; the kernels' own cancellation is
+            # test_fused_op_cancels_at_one_row_on_card's
             c1, c2 = torch.zeros_like(c1), torch.zeros_like(c2)
         _close(fd.bwd_dx(x, g, wv, mul, add, mean, rstd, c1, c2),
                fd.bwd_dx_plain(x, g, w, mul, add, mean, rstd, c1, c2), 1e-4)
     torch.cuda.synchronize()
     assert [k.launches - b for k, b in zip(fd.KERNELS, before)] == \
         [1 + 1, 2, 2, 2]  # moments: once directly, once inside _stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,f", [(5, 3), (224, 128)])
+def test_fused_op_cancels_at_one_row_on_card(cuda_device, c, f):
+    """At N = 1, xhat = 0 and c1 = Σ dz = dz, so the reference's dx is
+    exactly 0. The op's backward takes c1 and c2 from the bwd_reduce kernel
+    and dz from the bwd_dx kernel, each at launch_plan's own plan: their two
+    products must agree to the bit for dx to cancel. Held to 1e-5 over 20
+    draws and both W layouts, through the wrappers and through the
+    autograd op."""
+    for seed in range(20):
+        x, gamma, beta, w, g = _fused_inputs(1, c, f, cuda_device, seed=seed)
+        mean, var, rstd, mul, add = fd._stats(x, gamma, beta, 1e-5)
+        for wv in (w, w.t().contiguous().t()):
+            _, dgamma, dbeta = fd.bwd_reduce(x, g, wv, mul, add, mean, rstd)
+            dx = fd.bwd_dx(x, g, wv, mul, add, mean, rstd, dbeta, dgamma)
+            assert float(dx.abs().max()) <= 1e-5, (seed, dx)
+            args = [t.clone().requires_grad_(True) for t in (x, gamma, beta)]
+            out, _, _ = fd.fused_bn_relu_conv1x1(*args, wv)
+            dx_op = torch.autograd.grad(out, args[0], g)[0]
+            assert float(dx_op.abs().max()) <= 1e-5, (seed, dx_op)
 
 
 @pytest.mark.cuda
