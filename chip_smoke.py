@@ -70,7 +70,26 @@ result then):
      differ by under 1e-5 may count either way), and the fold ensemble's
      risks are finite. Prints the phase's and each fold's wall, each
      epoch's ms by CUDA events and epoch 2's steps and ms/step.
-  10. summary: one JSON line of per-kernel numbers, then the final line
+  10. families: one 32-patient cohort (seed 15; CTs 48-64x256x256 int16,
+     p_imaging 0.75, p_rnaseq 0.9, p_dead 0.75, one labeled patient with no
+     modality at all), then each of the seven other families' training CLI
+     main(argv) in-process at full width (rnaseq_only, image_only,
+     simple_fusion, flexible_multimodal, final, simmim, mmsurv) with
+     --pallas-resample --n-folds 2 --epochs 1 (simmim also
+     --stage1-epochs 1): the W-pass launches in the ingest, reset just
+     before, one per imaging patient of the family's cohort (0 for
+     rnaseq_only); no fused launch; cv_results.json (image_only: the
+     reference's legacy schema) and both fold checkpoints; each fold's
+     C-index from predict_risk on its checkpoint equal to its best_c_index
+     (pairs within 1e-5 may swap); RiskScorer on both fold checkpoints,
+     calibrated by predict_risk's fold stats, scoring every patient with a
+     modality one at a time: within 1e-4 of the ensemble on the
+     log-hazard (the limit carried through the fold z-score), and fold 1's
+     raw log-hazards within 1e-4 of predict_risk's; simmim's log holds a stage-1 epoch before each
+     fold's main epoch; mmsurv's risks are finite on the patient with no
+     modality. Prints each family's parameter count, CLI and ingest walls
+     and each epoch's ms by CUDA events beside the card's name and limit.
+  11. summary: one JSON line of per-kernel numbers, then the final line
      {"ok": true, "device": {...}}.
 
 Everything it writes goes under build/ in this checkout (kernel build,
@@ -1153,47 +1172,22 @@ CV_STANDARD_KEYS = {"model", "n_folds", "num_epochs", "dataset_size",
 CV_HAZARD_MARGIN = 1e-5  # a pair this close may count either way
 
 
-def phase_cv(work, table, paths, n_img, smi="", device="cuda", extra_argv=(),
-             expect_launches=True):
-    """The partial_modality training CLI's ``main(argv)`` in-process on the
-    phase-4 cohort: ingest through the W-pass kernel, 2 folds x 2 epochs,
-    fold checkpoints, cv_results.json; then ``predict_risk`` on each fold
-    checkpoint and on the fold ensemble. The W-pass launch count is reset
-    just before the CLI runs and read just after its ingest, again around
-    each predict_risk. Returns the phase's numbers."""
+def _drive_cli(main, argv, device):
+    """Run a training CLI's ``main(argv)`` in-process. The W-pass and fused
+    launch counts are reset just before it and read just after; the W-pass
+    count is read again right after the ingest (``prepare_cv_data``).
+    Returns the payload, the walls, the counts, the driver's outcomes, the
+    prepared arrays and splits, each train epoch's (ms by CUDA events,
+    steps), and the messages the train package logged."""
     import logging
 
-    import numpy as np
     import torch
 
-    from multimodal_survival_prediction_tpu_torch.config import (
-        PARTIAL_MODALITY as CFG,
-    )
-    from multimodal_survival_prediction_tpu_torch.io.checkpoint import (
-        load_fold_meta,
-    )
-    from multimodal_survival_prediction_tpu_torch.io.results import (
-        load_cv_results,
-    )
     from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
     from multimodal_survival_prediction_tpu_torch.ops import resample as rs
-    from multimodal_survival_prediction_tpu_torch.ops.cindex import (
-        concordance_index,
-    )
     from multimodal_survival_prediction_tpu_torch.train import cli, cv, engine
-    from multimodal_survival_prediction_tpu_torch.train import (
-        partial_modality_training as pmt,
-    )
-    from multimodal_survival_prediction_tpu_torch.train.predict import (
-        fold_checkpoints,
-        predict_risk,
-    )
 
     sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
-    results, models = work / "cv_results", work / "cv_models"
-    argv = ["--data-root", str(paths["root"]), "--results-dir", str(results),
-            "--models-dir", str(models), "--pallas-resample", "--n-folds",
-            "2", "--epochs", "2", "--device", device, *extra_argv]
     kept, epochs, messages = {}, [], []
     prepare, run = cv.prepare_cv_data, cli.run_cross_validation
     train_epoch = engine.Trainer.train_epoch
@@ -1228,31 +1222,37 @@ def phase_cv(work, table, paths, n_img, smi="", device="cuda", extra_argv=(),
         def emit(self, record):
             messages.append(record.getMessage())
 
-    handler, level = _Keep(), cli.log.level
-    cli.log.addHandler(handler)
-    cli.log.setLevel(logging.INFO)
+    logger = logging.getLogger(cli.__name__.rsplit(".", 1)[0])
+    handler, level = _Keep(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
     cv.prepare_cv_data, cli.run_cross_validation = prepare_and_keep, \
         run_and_keep
     engine.Trainer.train_epoch = timed_epoch
     try:
-        rs.wpass.launches = 0  # the CV path's counts start here
+        rs.wpass.launches = 0  # the CLI's counts start here
         fd.reset_launches()
         t0 = time.perf_counter()
-        payload = pmt.main(argv)
+        payload = main(argv)
         sync()
         wall = time.perf_counter() - t0
         fused = [k.launches for k in fd.KERNELS]  # ... and are read here
     finally:
         cv.prepare_cv_data, cli.run_cross_validation = prepare, run
         engine.Trainer.train_epoch = train_epoch
-        cli.log.removeHandler(handler)
-        cli.log.setLevel(level)
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    return dict(kept, payload=payload, wall_s=wall, fused=fused,
+                epochs=epochs, messages=messages)
 
-    arrays, splits, outcomes = kept["arrays"], kept["splits"], kept["outcomes"]
-    ingest = kept["ingest_launches"]
+
+def _per_fold(outcomes, epochs, stage1_epochs=0):
+    """Each fold's wall, epochs' ms (CUDA events; stage 1's first) and its
+    last epoch's steps and ms/step, from ``_drive_cli``'s epoch list."""
     per_fold, i = [], 0
     for o in outcomes:
-        fold_epochs, i = epochs[i:i + o.epochs_run], i + o.epochs_run
+        n = stage1_epochs + o.epochs_run
+        fold_epochs, i = epochs[i:i + n], i + n
         ms, steps = fold_epochs[-1]
         per_fold.append(dict(fold=o.fold, wall_s=o.wall_s, steps=steps,
                              epoch_ms=[e[0] for e in fold_epochs],
@@ -1260,9 +1260,73 @@ def phase_cv(work, table, paths, n_img, smi="", device="cuda", extra_argv=(),
                                  ms / steps if ms is not None else None),
                              best_epoch=o.best_epoch,
                              best_c_index=o.best_c_index))
-    tf32 = [m for m in messages if "allow_tf32" in m]
+    return per_fold
+
+
+def _fold_c_index(pred, arrays, val_rows):
+    """The C-index of ``pred``'s risks on a fold's validation rows, and the
+    tolerance against the fold's best_c_index: the share of comparable
+    pairs whose hazards lie within CV_HAZARD_MARGIN (their order may swap
+    between the trainer's padded batches and predict_risk's), + 1e-6.
+    Returns ``(c, tol, pairs, fragile)``."""
+    import numpy as np
+    import torch
+
+    from multimodal_survival_prediction_tpu_torch.ops.cindex import (
+        concordance_index,
+    )
+
+    h = pred["risk_score"][val_rows].astype(np.float64)
+    t = arrays.arrays["time"][val_rows]
+    e = arrays.arrays["event"][val_rows]
+    v = arrays.arrays["svalid"][val_rows]
+    c = float(concordance_index(torch.from_numpy(h).float(), t, e, valid=v))
+    pairs, fragile = _comparable_pairs(t, e, v, h, CV_HAZARD_MARGIN)
+    return c, fragile / max(pairs, 1) + 1e-6, pairs, fragile
+
+
+def phase_cv(work, table, paths, n_img, smi="", device="cuda", extra_argv=(),
+             expect_launches=True):
+    """The partial_modality training CLI's ``main(argv)`` in-process on the
+    phase-4 cohort: ingest through the W-pass kernel, 2 folds x 2 epochs,
+    fold checkpoints, cv_results.json; then ``predict_risk`` on each fold
+    checkpoint and on the fold ensemble. The W-pass launch count is reset
+    just before the CLI runs and read just after its ingest, again around
+    each predict_risk. Returns the phase's numbers."""
+    import numpy as np
+    import torch
+
+    from multimodal_survival_prediction_tpu_torch.config import (
+        PARTIAL_MODALITY as CFG,
+    )
+    from multimodal_survival_prediction_tpu_torch.io.checkpoint import (
+        load_fold_meta,
+    )
+    from multimodal_survival_prediction_tpu_torch.io.results import (
+        load_cv_results,
+    )
+    from multimodal_survival_prediction_tpu_torch.ops import resample as rs
+    from multimodal_survival_prediction_tpu_torch.train import (
+        partial_modality_training as pmt,
+    )
+    from multimodal_survival_prediction_tpu_torch.train.predict import (
+        fold_checkpoints,
+        predict_risk,
+    )
+
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    results, models = work / "cv_results", work / "cv_models"
+    argv = ["--data-root", str(paths["root"]), "--results-dir", str(results),
+            "--models-dir", str(models), "--pallas-resample", "--n-folds",
+            "2", "--epochs", "2", "--device", device, *extra_argv]
+    run = _drive_cli(pmt.main, argv, device)
+    payload, wall, fused = run["payload"], run["wall_s"], run["fused"]
+    arrays, splits = run["arrays"], run["splits"]
+    ingest = run["ingest_launches"]
+    per_fold = _per_fold(run["outcomes"], run["epochs"])
+    tf32 = [m for m in run["messages"] if "allow_tf32" in m]
     log(f"CV (train/partial_modality_training.py main, {smi}): wall "
-        f"{wall:.2f} s, ingest {kept['ingest_s']:.2f} s with "
+        f"{wall:.2f} s, ingest {run['ingest_s']:.2f} s with "
         f"{ingest} W-pass launches for {n_img} imaging patients; fused "
         f"kernel launches {fused}; TF32 log {tf32}")
     for f in per_fold:
@@ -1303,14 +1367,7 @@ def phase_cv(work, table, paths, n_img, smi="", device="cuda", extra_argv=(),
               f"{launches} times, expected {n_img}")
         check(list(pred["patient_id"]) == list(arrays.patient_ids),
               "predict_risk's patients are not the CV cohort's")
-        h = pred["risk_score"][val_rows].astype(np.float64)
-        t = arrays.arrays["time"][val_rows]
-        e = arrays.arrays["event"][val_rows]
-        v = arrays.arrays["svalid"][val_rows]
-        c = float(concordance_index(torch.from_numpy(h).float(), t, e,
-                                    valid=v))
-        pairs, fragile = _comparable_pairs(t, e, v, h, CV_HAZARD_MARGIN)
-        tol = fragile / max(pairs, 1) + 1e-6
+        c, tol, pairs, fragile = _fold_c_index(pred, arrays, val_rows)
         dc = abs(c - fold["best_c_index"])
         log(f"predict_risk on {ckpt.name}: {launches} W-pass launches; "
             f"C-index on the fold's {len(val_rows)} validation patients "
@@ -1331,10 +1388,232 @@ def phase_cv(work, table, paths, n_img, smi="", device="cuda", extra_argv=(),
           f"fold-ensemble risks not finite: {ensemble['risk_score']}")
     log(f"fold ensemble over {len(ckpts)} checkpoints: {scored[-1]} W-pass "
         f"launches; risks {np.round(ensemble['risk_score'], 4).tolist()}")
-    return dict(wall_s=wall, ingest_s=kept["ingest_s"],
+    return dict(wall_s=wall, ingest_s=run["ingest_s"],
                 ingest_launches=ingest, predict_launches=scored,
                 fused_launches=dict(zip(FUSED_NAMES, fused)),
                 folds=per_fold, c_index_mean=payload["c_index_mean"])
+
+
+# --------------------------------------------------------------------------
+# 10: the seven other families (training CLIs -> fold checkpoints ->
+#     predict_risk and RiskScorer)
+# --------------------------------------------------------------------------
+
+# family -> its entry point under multimodal_survival_prediction_tpu_torch/train
+FAMILY_ENTRIES = {
+    "rnaseq_only": "train_rnaseq_only", "image_only": "image_only",
+    "simple_fusion": "simple_fusion",
+    "flexible_multimodal": "flexible_multimodal",
+    "final": "final_multimodal", "simmim": "simmlm", "mmsurv": "mmsurv",
+}
+# 32 patients; seed 15 gives every family comparable pairs in both folds
+# and one labeled patient with no CT, no RNA and no age (mmsurv's check)
+FAMILY_COHORT = dict(n_patients=32, seed=15, p_imaging=0.75, p_rnaseq=0.9,
+                     p_dead=0.75, image_dtype="int16", compress=False)
+FAMILY_CT_SHAPES = ((64, 256, 256), (48, 256, 256), (56, 256, 256))
+
+
+def phase_families(work, smi="", device="cuda", image_shapes=FAMILY_CT_SHAPES,
+                   extra_argv=(), expect_launches=True):
+    """Each of the seven other families' training CLI ``main(argv)``
+    in-process on one 32-patient cohort at full width (5,005 genes),
+    2 folds x 1 epoch (simmlm after one stage-1 epoch), then
+    ``predict_risk`` on each fold checkpoint and on the ensemble, and
+    ``RiskScorer`` on the fold checkpoints, one patient at a time. Returns
+    each family's numbers."""
+    import importlib
+
+    from multimodal_survival_prediction_tpu_torch.data.synthetic import (
+        SyntheticCohortSpec,
+        generate_synthetic_cohort,
+    )
+
+    t0 = time.perf_counter()
+    table, paths = generate_synthetic_cohort(
+        work / "families", SyntheticCohortSpec(
+            rna_dim=5005, image_shapes=image_shapes, **FAMILY_COHORT))
+    log(f"families cohort: {len(table)} patients, "
+        f"{sum(bool(r['has_imaging']) for r in table)} int16 CTs "
+        f"{list(image_shapes)}, rna_dim 5005, "
+        f"{sum(bool(r['has_survival']) for r in table)} labeled "
+        f"({time.perf_counter() - t0:.1f} s)")
+    out = {}
+    for name, entry in FAMILY_ENTRIES.items():
+        main = importlib.import_module(
+            f"multimodal_survival_prediction_tpu_torch.train.{entry}").main
+        out[name] = _one_family(name, entry, main, work, table, paths, smi,
+                                device, extra_argv, expect_launches)
+    walls = {k: round(v["wall_s"], 2) for k, v in out.items()}
+    log(f"families ({smi}): CLI walls s {walls}, together "
+        f"{sum(walls.values()):.2f} s; the phase (cohort, CLIs, scoring) "
+        f"{time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def _one_family(name, entry, main, work, table, paths, smi, device,
+                extra_argv, expect_launches):
+    import numpy as np
+    import torch
+
+    from multimodal_survival_prediction_tpu_torch.config import ALL_CONFIGS
+    from multimodal_survival_prediction_tpu_torch.data.datasets import (
+        load_rnaseq_matrix,
+        select_cohort,
+    )
+    from multimodal_survival_prediction_tpu_torch.io.checkpoint import (
+        load_fold_meta,
+    )
+    from multimodal_survival_prediction_tpu_torch.io.results import (
+        load_cv_results,
+    )
+    from multimodal_survival_prediction_tpu_torch.ops import resample as rs
+    from multimodal_survival_prediction_tpu_torch.serving import RiskScorer
+    from multimodal_survival_prediction_tpu_torch.train.predict import (
+        fold_checkpoints,
+        predict_risk,
+    )
+
+    cfg = ALL_CONFIGS[name]
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    has_image = "image" in cfg.modalities
+    n_img = (sum(bool(r["has_imaging"]) and bool(r["nifti_path"])
+                 for r in select_cohort(table, name)) if has_image else 0)
+    want = n_img if expect_launches else 0
+    results, models = work / "families_results", work / "families_models"
+    stage1 = ["--stage1-epochs", "1"] if cfg.stage1_epochs else []
+    argv = ["--data-root", str(paths["root"]), "--results-dir", str(results),
+            "--models-dir", str(models), "--pallas-resample", "--n-folds",
+            "2", "--epochs", "1", "--device", device, *stage1, *extra_argv]
+    run = _drive_cli(main, argv, device)
+    payload, arrays, splits = run["payload"], run["arrays"], run["splits"]
+    per_fold = _per_fold(run["outcomes"], run["epochs"], len(stage1) // 2)
+    check(run["ingest_launches"] == want,
+          f"{name}: the ingest launched the W-pass kernel "
+          f"{run['ingest_launches']} times, expected {want} (one per imaging "
+          f"patient of its cohort)")
+    check(run["fused"] == [0] * len(run["fused"]),
+          f"{name}: the driver launched fused kernels: {run['fused']}")
+    keys = (CV_STANDARD_KEYS if name != "image_only"  # the reference's
+            else CV_STANDARD_KEYS - {"model", "hyperparameters"})  # legacy
+    loaded = load_cv_results(results / name)
+    check(set(loaded["raw"]) == keys and loaded["raw"] == payload
+          and len(payload["fold_results"]) == 2,
+          f"{name}: cv_results.json keys {sorted(loaded['raw'])}")
+    ckpts = fold_checkpoints(models, name)
+    check([c.name for c in ckpts] == ["fold_1_best.pt", "fold_2_best.pt"]
+          and all(load_fold_meta(c) is not None for c in ckpts),
+          f"{name}: fold checkpoints {ckpts}")
+    if cfg.stage1_epochs:
+        msgs = run["messages"]
+        for fold in (1, 2):
+            s1 = [j for j, m in enumerate(msgs)
+                  if m.startswith(f"[{name} fold {fold}] stage1 epoch 1 ")]
+            s2 = [j for j, m in enumerate(msgs)
+                  if m.startswith(f"[{name} fold {fold}] epoch 1 ")]
+            check(s1 and s2 and s1[0] < s2[0],
+                  f"{name} fold {fold}: no stage-1 epoch logged before the "
+                  f"main epoch: {msgs}")
+
+    fold_c, raw = [], []
+    for ckpt, fold, (_, val_rows, _) in zip(ckpts, per_fold, splits):
+        rs.wpass.launches = 0
+        pred = predict_risk(cfg, ckpt, table, rnaseq_csv=paths["rnaseq_csv"],
+                            labeled_only=False, device=device)
+        sync()
+        check(rs.wpass.launches == want,
+              f"{name}: predict_risk on {ckpt.name} launched the W-pass "
+              f"kernel {rs.wpass.launches} times, expected {want}")
+        check(list(pred["patient_id"]) == list(arrays.patient_ids),
+              f"{name}: predict_risk's patients are not the CV cohort's")
+        c, tol, pairs, fragile = _fold_c_index(pred, arrays, val_rows)
+        dc = abs(c - fold["best_c_index"])
+        check(pairs > 0, f"{name} fold {fold['fold']}: no comparable pair")
+        check(dc <= tol, f"{name}: predict_risk on {ckpt.name} gives "
+              f"C-index {c}, the fold's best_c_index is "
+              f"{fold['best_c_index']} (tol {tol})")
+        fold_c.append((c, fold["best_c_index"], pairs, fragile))
+        raw.append(pred["risk_score"])
+
+    pred, stats = predict_risk(cfg, ckpts, table,
+                               rnaseq_csv=paths["rnaseq_csv"],
+                               labeled_only=False, return_fold_stats=True,
+                               device=device)
+    risk = pred["risk_score"]
+    check(np.all(np.isfinite(risk)), f"{name}: ensemble risks {risk}")
+    none = np.nonzero(arrays.arrays["mask"].sum(1) == 0)[0]
+    if name == "mmsurv":
+        check(len(none) > 0 and np.all(np.isfinite(risk[none])),
+              f"{name}: patients with no modality {none.tolist()}, risks "
+              f"{risk[none].tolist()}")
+
+    # RiskScorer, one patient at a time, on every patient of the cohort
+    # with a modality, against the ensemble. The two ingests differ in the
+    # last bits (the server's plain bucketed resample, the kernel's), and
+    # the fold z-score divides each fold's log-hazard by its spread over
+    # this 2-fold cohort, which one epoch can leave small: the limit is
+    # RISK_TOL on the log-hazard, carried through that z-score.
+    scorer = RiskScorer(name, ckpts, fold_calibration=stats, device=device)
+    rows = {r["patient_id"]: r for r in table}
+    rna = load_rnaseq_matrix(paths["rnaseq_csv"])
+    mask = arrays.arrays["mask"]
+    idx = np.nonzero(mask.sum(1) > 0)[0]
+    patients = []
+    for i in idx:
+        row = rows[pred["patient_id"][i]]
+        patient = {}
+        if mask[i, 0]:
+            patient["nifti_path"] = row["nifti_path"]
+        if mask[i, 1]:
+            patient["rnaseq"] = rna.row(row["patient_id"])
+        if mask[i, 2]:
+            patient["age"] = row["age"]
+        patients.append(patient)
+    scored = np.asarray([r["risk_score"] for r in scorer.score_many(patients)])
+    d_z = np.abs(scored - risk[idx])
+    sds = np.asarray([sd for _, sd in stats]) + 1e-8
+    per_raw = float(np.mean(1.0 / sds))  # d(z-scored risk) / d(log-hazard)
+    limit = RISK_TOL * per_raw
+    worst = int(np.argmax(d_z))
+    check(d_z[worst] <= limit,
+          f"{name}: RiskScorer {scored[worst]} vs predict_risk ensemble "
+          f"{risk[idx[worst]]} for {pred['patient_id'][idx[worst]]}: |d| "
+          f"{d_z[worst]} over the limit {limit} (RISK_TOL {RISK_TOL} on the "
+          f"log-hazard, fold sds {sds.tolist()})")
+    # the per-fold log-hazards themselves, without the z-score
+    raw_scorer = RiskScorer(name, ckpts[:1], device=device)
+    d_raw = np.abs(np.asarray([r["risk_score"] for r in
+                               raw_scorer.score_many(patients)])
+                   - raw[0][idx])
+    check(float(d_raw.max()) <= RISK_TOL,
+          f"{name}: RiskScorer's fold-1 log-hazards differ from "
+          f"predict_risk's by up to {d_raw.max()} (RISK_TOL {RISK_TOL})")
+    n_params = sum(p.numel() for p in scorer.models[0].parameters())
+
+    log(f"{name} (train/{entry}.py main, {smi}): {n_params} parameters; "
+        f"CLI wall {run['wall_s']:.2f} s, ingest {run['ingest_s']:.2f} s "
+        f"with {run['ingest_launches']} W-pass launches for {n_img} imaging "
+        f"patients of {arrays.n}; no fused launch")
+    for f, (c, best, pairs, fragile) in zip(per_fold, fold_c):
+        log(f"  fold {f['fold']} ({smi}): wall {f['wall_s']:.2f} s; epoch ms "
+            f"{f['epoch_ms']} (CUDA events{', stage 1 first' if stage1 else ''}"
+            f"); last epoch {f['steps']} steps, "
+            f"{f['ms_per_step_last_epoch']} ms/step; C-index from the "
+            f"checkpoint {c:.6f} vs best_c_index {best:.6f} ({pairs} "
+            f"comparable pairs, {fragile} within {CV_HAZARD_MARGIN})")
+    log(f"  RiskScorer on both folds, {len(idx)} patients one at a time "
+        f"({smi}): max |d| against the ensemble {d_z[worst]:.3e} z-scored "
+        f"({d_z[worst] / per_raw:.3e} on the log-hazard, "
+        f"{100 * d_z[worst] / limit:.1f} % of the limit {limit:.3e} = "
+        f"RISK_TOL {RISK_TOL} x mean(1/sd), fold sds "
+        f"{[round(float(v), 6) for v in sds]}); fold 1 alone, no z-score: "
+        f"max |d| {d_raw.max():.3e} (tol {RISK_TOL}); {len(none)} patients "
+        f"with no modality, risks {np.round(risk[none], 4).tolist()}")
+    return dict(n_params=n_params, wall_s=run["wall_s"],
+                ingest_s=run["ingest_s"], scorer_max_d=float(d_z[worst]),
+                scorer_max_d_logh=float(d_z[worst] / per_raw),
+                scorer_raw_max_d=float(d_raw.max()),
+                ingest_launches=run["ingest_launches"], folds=per_fold,
+                c_index_mean=payload["c_index_mean"])
 
 
 def main() -> int:
@@ -1359,6 +1638,7 @@ def main() -> int:
         fused_err, fused_timing = phase_fused_vs_plain()
         fused_launches, train = phase_train(table, paths, 5005)
         cv_run = phase_cv(work, table, paths, n_img, smi=smi)
+        families = phase_families(work, smi=smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1378,7 +1658,9 @@ def main() -> int:
         "launches_by_path": {
             "predict_risk": launches,
             "cv_ingest": cv_run["ingest_launches"],
-            "cv_predict_risk": cv_run["predict_launches"]},
+            "cv_predict_risk": cv_run["predict_launches"],
+            "families_ingest": {k: v["ingest_launches"]
+                                for k, v in families.items()}},
         "kernel_ms": timing["kernel_ms"],
         "call_ms": timing["call_ms"],
         "bound_us": timing["bound_ms"] * 1e3,

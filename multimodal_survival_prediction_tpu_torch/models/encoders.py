@@ -1,10 +1,11 @@
-"""Modality encoders of the gated model (port of
-``multimodal_survival_prediction_tpu/models/encoders.py``, the parts the
-``partial_modality`` family uses).
+"""Modality encoders shared by the model families (port of
+``multimodal_survival_prediction_tpu/models/encoders.py``).
 
 Each encoder is an ``nn.Sequential`` where the reference's torch model is
 one, so its state_dict keys (``rna_encoder.0.weight``, ``ct_encoder.3.bias``,
 ...) are the reference's:
+  * deep RNA: 5005 -> 1024 -> 512 (BN+ReLU+Drop0.3 each) -> 256, final ReLU,
+    no final BN (simple_fusion.py:167-179 / flexible_multimodal.py:190-202)
   * compact RNA: 5005 -> 512 (BN+ReLU+Drop0.3) -> 128, final ReLU
     (final_multimodal.py:94-101 / partial_modality_training.py:195-202)
   * clinical: Linear(1 -> 32) + ReLU (final_multimodal.py:104-107)
@@ -26,6 +27,20 @@ from .layers import (
     to_ncdhw,
     torch_linear,
 )
+
+
+class RNAEncoderDeep(nn.Sequential):
+    """rna_dim -> 1024 -> 512 (BN+ReLU+Dropout(0.3) each) -> 256, final
+    ReLU; keys ``0, 1, 4, 5, 8``."""
+
+    def __init__(self, rna_dim: int,
+                 generator: torch.Generator | None = None):
+        gen = default_generator(generator)
+        super().__init__(
+            *MLPBlock(rna_dim, 1024, dropout=0.3, generator=gen),
+            *MLPBlock(1024, 512, dropout=0.3, generator=gen),
+            torch_linear(512, 256, generator=gen),
+            nn.ReLU())
 
 
 class RNAEncoderCompact(nn.Sequential):

@@ -49,8 +49,6 @@ _NOT_PORTED = (
     ("--aot-cache", "aot_cache", None, "Queue 1 item 12 (io/aot_cache.py)"),
     ("--profile-dir", "profile_dir", None,
      "Queue 1 item 11 (utils/profiling.py)"),
-    ("--stage1-epochs", "stage1_epochs", None,
-     "Queue 1 item 8 (SimMLM's stage 1)"),
 )
 
 
@@ -89,6 +87,9 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                    help="checkpoint the full train state periodically and "
                         "resume an interrupted CV run")
     p.add_argument("--checkpoint-every", type=int, default=10)
+    p.add_argument("--stage1-epochs", type=int, default=None,
+                   help="SimMLM's expert-pretraining epochs (two-stage "
+                        "models only)")
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
     for flag, dest, unused, item in _NOT_PORTED:
@@ -108,12 +109,16 @@ def run_training(args, cfg):
         if getattr(args, dest) != unused:
             raise NotImplementedError(
                 f"{flag} is not ported yet: ROADMAP.md {item}")
+    if args.stage1_epochs is not None and not cfg.stage1_epochs:
+        raise SystemExit(
+            f"--stage1-epochs only applies to two-stage models (SimMLM); "
+            f"'{cfg.name}' has no stage 1")
     log.info(pin_fp32_policy())
 
     cfg = dataclasses.replace(cfg, **{k: v for k, v in dict(
         num_epochs=args.epochs, n_folds=args.n_folds,
         batch_size=args.batch_size, learning_rate=args.learning_rate,
-        seed=args.seed, ties=args.ties,
+        seed=args.seed, stage1_epochs=args.stage1_epochs, ties=args.ties,
         image_shape=(tuple(int(x) for x in args.image_shape.split(","))
                      if args.image_shape else None),
     ).items() if v is not None})
@@ -124,8 +129,15 @@ def run_training(args, cfg):
             root, SyntheticCohortSpec(n_patients=args.synthetic_patients))
         rnaseq_csv = paths["rnaseq_csv"]
     else:
-        table = load_matching_table(
-            root / "data" / "processed" / "full_matching_table.csv")
+        table_csv = root / "data" / "processed" / "full_matching_table.csv"
+        if cfg.name == "final":
+            # final_multimodal reads the 109-patient table while every other
+            # trainer reads the 608-patient one (reference
+            # final_multimodal.py:205, SURVEY §2.13)
+            mm = root / "data" / "processed" / "multimodal_matching_table.csv"
+            if mm.exists():
+                table_csv = mm
+        table = load_matching_table(table_csv)
         rnaseq_csv = root / "data" / "processed" / "rnaseq_normalized_mapped.csv"
         if not rnaseq_csv.exists():
             rnaseq_csv = None

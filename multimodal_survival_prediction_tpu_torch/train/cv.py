@@ -10,15 +10,21 @@ train set (reference partial_modality_training.py:502-515). Outputs: fold
 checkpoints ``<models_dir>/<model>/fold_K_best.pt`` with the ``.meta.json``
 that ``train/predict.py`` reads, and ``<results_dir>/<model>/cv_results.json``.
 
+SimMLM's two-stage schedule: with ``cfg.stage1_epochs``, each fold first
+trains ``stage1_epochs`` epochs with the stage-1 adapter (the experts' Cox
+losses alone) at the fixed ``cfg.learning_rate``, without model selection,
+on the same model and optimizer state (Adam's moments and count carry into
+stage 2), then runs the main loop.
+
 With ``resume``, every ``checkpoint_every`` epochs a fold saves its whole
 train state under ``fold_K_resume/`` (``io/checkpoint.py``) and a resumed
-run continues that fold's trajectory exactly; the torch dropout generator's
-state takes the place of the JAX driver's dropout key.
+run continues that fold's trajectory exactly (stage 1 is not run again);
+the torch dropout generator's state takes the place of the JAX driver's
+dropout key.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): ``dtype`` (bf16), ``streaming``, meshes / tensor parallelism / the
-sharded risk set, ``aot_cache_dir``, ``profile_dir``, SimMLM's stage 1 and
-``remat``.
+sharded risk set, ``aot_cache_dir``, ``profile_dir`` and ``remat``.
 """
 
 from __future__ import annotations
@@ -43,7 +49,11 @@ from ..io.checkpoint import (
 )
 from ..io.results import build_cv_payload, write_cv_results
 from ..utils.device import resolve_device
-from .adapters import make_adapters, make_model_and_adapters
+from .adapters import (
+    make_adapters,
+    make_model_and_adapters,
+    simmlm_stage1_adapter,
+)
 from .engine import (
     TrainConfig,
     Trainer,
@@ -68,8 +78,6 @@ _NOT_PORTED = {
                      "item 12",
     "profile_dir": "profile_dir needs utils/profiling.py, which is not "
                    "ported yet: ROADMAP.md Queue 1 item 11",
-    "stage1_epochs": "SimMLM's stage 1 needs simmlm_stage1_adapter, which is "
-                     "not ported yet: ROADMAP.md Queue 1 item 8",
     "remat": "remat is not ported yet: ROADMAP.md Queue 1 item 16 "
              "(recomputation would update BatchNorm running stats twice and "
              "draw a second dropout mask)",
@@ -135,14 +143,13 @@ def prepare_cv_data(cfg: ModelRunConfig, table, rnaseq_csv=None,
     return arrays, splits
 
 
-def _refuse_unported(cfg, *, dtype, streaming, mesh, tensor_parallel,
+def _refuse_unported(*, dtype, streaming, mesh, tensor_parallel,
                      sharded_risk_set, aot_cache_dir, profile_dir, remat):
     given = {"dtype": dtype is not None, "streaming": streaming,
              "mesh": (mesh is not None or tensor_parallel
                       or sharded_risk_set),
              "aot_cache_dir": bool(aot_cache_dir),
-             "profile_dir": bool(profile_dir),
-             "stage1_epochs": bool(cfg.stage1_epochs), "remat": remat}
+             "profile_dir": bool(profile_dir), "remat": remat}
     for option, on in given.items():
         if on:
             raise NotImplementedError(_NOT_PORTED[option])
@@ -183,7 +190,7 @@ def run_cross_validation(
     after each fold's ``init_state``; a returned TrainState replaces the
     fold's initial state (the tests start each fold from the JAX driver's
     initial weights through it)."""
-    _refuse_unported(cfg, dtype=dtype, streaming=streaming, mesh=mesh,
+    _refuse_unported(dtype=dtype, streaming=streaming, mesh=mesh,
                      tensor_parallel=tensor_parallel,
                      sharded_risk_set=sharded_risk_set,
                      aot_cache_dir=aot_cache_dir, profile_dir=profile_dir,
@@ -206,11 +213,16 @@ def run_cross_validation(
     data = arrays.to_device(dev)
 
     # ONE Trainer for all folds, as the JAX driver keeps one
-    trainer = Trainer(
-        lambda gen: make_model_and_adapters(cfg, rna_dim=rna_dim,
-                                            backbone=backbone,
-                                            generator=gen)[0],
-        batch_to_inputs, hazard_and_aux, tcfg, device=dev)
+    def model_fn(gen):
+        return make_model_and_adapters(cfg, rna_dim=rna_dim,
+                                       backbone=backbone, generator=gen)[0]
+
+    trainer = Trainer(model_fn, batch_to_inputs, hazard_and_aux, tcfg,
+                      device=dev)
+    # SimMLM's stage 1: the same batches and optimizer, another loss
+    stage1_trainer = (Trainer(model_fn, batch_to_inputs,
+                              simmlm_stage1_adapter(), tcfg, device=dev)
+                      if cfg.stage1_epochs else None)
 
     outcomes: list[FoldOutcome] = []
     t_start = time.monotonic()
@@ -249,6 +261,17 @@ def run_cross_validation(
                 best_params = load_checkpoint(resume_dir / "best.pt")
             log.info("[%s fold %d] resumed at epoch %d", name, fold,
                      start_epoch)
+
+        # stage 1: no model selection, fixed LR; skipped on resume (it ran
+        # before the first stage-2 checkpoint)
+        if stage1_trainer is not None and start_epoch == 1:
+            for epoch in range(1, cfg.stage1_epochs + 1):
+                state, s1_loss = stage1_trainer.train_epoch(
+                    state, data, train_rows, shuffle_rng, cfg.learning_rate)
+                if epoch % 10 == 0 or epoch == 1:
+                    log.info("[%s fold %d] stage1 epoch %d loss %.4f", name,
+                             fold, epoch, s1_loss)
+                total_steps += -(-len(train_rows) // cfg.batch_size)
 
         for epoch in range(start_epoch, num_epochs + 1):
             if cfg.scheduler == "cosine":

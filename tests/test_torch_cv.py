@@ -1,7 +1,7 @@
-"""The port's K-fold CV driver, its artifacts and its training CLI against
+"""The port's K-fold CV driver, its artifacts and its training CLIs against
 the JAX package, on the CPU (``train/kfold.py``, ``train/cv.py``,
-``train/cli.py``, ``io/results.py``, the resume state of
-``io/checkpoint.py``).
+``train/cli.py`` and every family's entry point, ``io/results.py``, the
+resume state of ``io/checkpoint.py``, SimMLM's adapters).
 
 Inputs come from numpy seeds and go to both sides. Tolerances:
   * KFold splits, cohort splits, payload files, schedules' LR histories,
@@ -12,11 +12,16 @@ Inputs come from numpy seeds and go to both sides. Tolerances:
     three epochs of Adam), val C-index 1e-6 unless a comparable pair whose
     two hazards differ by under 1e-5 explains the difference, C-index mean
     and std 1e-6;
-  * resume: bit-equal on the CPU.
+  * resume: bit-equal on the CPU;
+  * SimMLM's losses and gradients: 1e-5 relative; the rnaseq_only and
+    two-stage simmim driver runs: every epoch's train loss (stage 1's too)
+    rtol 1e-4, the rest as above; each family's CLI: C-index from its
+    checkpoints as above, RiskScorer vs the ensemble 1e-4.
 No test here launches a CUDA kernel: every launch counter stays 0.
 """
 
 import dataclasses
+import importlib
 import json
 
 import flax.linen as fnn
@@ -34,11 +39,15 @@ from multimodal_survival_prediction_tpu.data.synthetic import (
     generate_synthetic_cohort as jgen,
 )
 from multimodal_survival_prediction_tpu.io import results as jresults
+from multimodal_survival_prediction_tpu.ops import resample as jr
 from multimodal_survival_prediction_tpu.train import adapters as jadapters
 from multimodal_survival_prediction_tpu.train import cv as jcv
 from multimodal_survival_prediction_tpu.train import engine as jengine
 from multimodal_survival_prediction_tpu_torch import utils as tutils
-from multimodal_survival_prediction_tpu_torch.config import PARTIAL_MODALITY
+from multimodal_survival_prediction_tpu_torch.config import (
+    ALL_CONFIGS,
+    PARTIAL_MODALITY,
+)
 from multimodal_survival_prediction_tpu_torch.data.datasets import CohortArrays
 from multimodal_survival_prediction_tpu_torch.data.matching_table import (
     load_matching_table,
@@ -68,6 +77,20 @@ from multimodal_survival_prediction_tpu_torch.train.predict import (
     fold_checkpoints,
     predict_risk,
 )
+
+
+@pytest.fixture(autouse=True)
+def _no_cached_jax_tracers():
+    """The JAX package caches its interpolation matrices
+    (``ops/resample.py:_matrices``, an ``lru_cache``) and fills the cache
+    inside a jit trace, so it can hold tracers; a later trace of the same
+    shapes with another ``hu_window`` or dtype (in this file or in another
+    one that this worker runs next, e.g. tests/test_resample.py) would then
+    raise UnexpectedTracerError. Each test starts and ends with it empty."""
+    jr._matrices.cache_clear()
+    yield
+    jr._matrices.cache_clear()
+
 
 IMAGE_SHAPE = (16, 16, 8)
 SPEC = dict(n_patients=16, rna_dim=24, seed=0, p_imaging=0.6,
@@ -251,14 +274,17 @@ def test_std_is_population_std(tmp_path, writer):
 # The driver against the JAX driver
 # ---------------------------------------------------------------------------
 
-def _torch_sd(state):
+def _tree_sd(params, batch_stats, name):
     import jax
 
     tree = jax.tree_util.tree_map(np.asarray, {
-        "params": state.params, "batch_stats": state.batch_stats})
+        "params": params, "batch_stats": batch_stats})
     return {k: torch.from_numpy(np.array(v)) for k, v in
-            jax_import.export_torch_state_dict("partial_modality",
-                                               tree).items()}
+            jax_import.export_torch_state_dict(name, tree).items()}
+
+
+def _torch_sd(state, name="partial_modality"):
+    return _tree_sd(state.params, state.batch_stats, name)
 
 
 def _record_evaluations(monkeypatch, trainer_cls, out):
@@ -447,15 +473,11 @@ def test_resume_is_bit_equal(cohort, tmp_path, monkeypatch):
     (dict(aot_cache_dir="aot"), "Queue 1 item 12"),
     (dict(profile_dir="prof"), "Queue 1 item 11"),
     (dict(remat=True), "Queue 1 item 16"),
-    ("stage1_epochs", "Queue 1 item 8"),
-], ids=lambda v: v if isinstance(v, str) else None)
+])
 def test_driver_refuses_what_is_not_ported(tmp_path, option, item):
-    cfg, kw = CFG, option
-    if option == "stage1_epochs":
-        cfg, kw = dataclasses.replace(CFG, stage1_epochs=3), {}
     with pytest.raises(NotImplementedError, match=item):
-        cv.run_cross_validation(cfg, [], results_dir=tmp_path,
-                                models_dir=tmp_path, device="cpu", **kw)
+        cv.run_cross_validation(CFG, [], results_dir=tmp_path,
+                                models_dir=tmp_path, device="cpu", **option)
     assert not any(tmp_path.iterdir())
 
 
@@ -471,7 +493,6 @@ def test_driver_refuses_what_is_not_ported(tmp_path, option, item):
     (["--multihost"], "Queue 1 item 10"),
     (["--aot-cache", "aot"], "Queue 1 item 12"),
     (["--profile-dir", "prof"], "Queue 1 item 11"),
-    (["--stage1-epochs", "3"], "Queue 1 item 8"),
 ], ids=lambda v: v[0] if isinstance(v, list) else None)
 def test_cli_refuses_what_is_not_ported(tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -574,3 +595,376 @@ def test_clis_pin_fp32(monkeypatch, capsys, caplog, tmp_path, entry):
         assert want in caplog.text
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+# ---------------------------------------------------------------------------
+# The other families: SimMLM's losses, the driver for rnaseq_only and the
+# two-stage simmim, every family's CLI
+# ---------------------------------------------------------------------------
+
+FAMILY_SPEC = dict(n_patients=32, rna_dim=24, seed=5, p_imaging=0.6,
+                   image_shapes=((12, 20, 20), (10, 18, 16)))
+
+
+def _simmlm_batch(n=8, seed=9):
+    """Rows without CT, RNA or age, one with no modality, two unlabeled,
+    a tied time; the port's and JAX's batch layout."""
+    rng = np.random.default_rng(seed)
+    mask = np.ones((n, 3), np.float32)
+    mask[1, 0] = mask[2, 1] = mask[4, 2] = 0.0
+    mask[5] = 0.0
+    svalid = np.ones(n, np.float32)
+    svalid[[3, 7]] = 0.0
+    time = rng.integers(5, 60, n).astype(np.float32) * svalid
+    time[6] = time[0]
+    event = (rng.uniform(size=n) < 0.6).astype(np.float32) * svalid
+    event[0] = event[6] = 1.0
+    return {
+        "image": (rng.normal(size=(n, *IMAGE_SHAPE, 1))
+                  * mask[:, 0, None, None, None, None]).astype(np.float32),
+        "rnaseq": (rng.normal(size=(n, 24)) * mask[:, 1:2]).astype(
+            np.float32),
+        "clinical": (rng.uniform(0.3, 0.8, (n, 1)) * mask[:, 2:3]).astype(
+            np.float32),
+        "mask": mask, "time": time, "event": event, "svalid": svalid,
+        "valid": np.ones(n, np.float32),
+    }
+
+
+@pytest.mark.parametrize("stage", ["main", "stage1"])
+def test_simmlm_losses_and_grads_match_jax(stage, monkeypatch):
+    """SimMLM's MoFe loss (ensemble Cox + λ · the experts' mean Cox) and its
+    stage-1 loss (the experts alone, main_scale 0) and their gradients, from
+    the JAX init carried across, dropout off: 1e-5 relative (each gradient
+    to 1e-5 of its largest |value|, + 1e-7; the conv biases whose gradient
+    is 0 in exact arithmetic to 1e-6 of the model's largest gradient)."""
+    import jax
+
+    from multimodal_survival_prediction_tpu_torch.config import SIMMLM
+    from multimodal_survival_prediction_tpu_torch.models import (
+        SimMLMSurvivalNet,
+    )
+    from multimodal_survival_prediction_tpu_torch.train.adapters import (
+        simmlm_stage1_adapter,
+    )
+
+    monkeypatch.setattr(fnn, "Dropout", _NoDropout)
+    arrays = _simmlm_batch()
+    kw = dict(batch_size=8, learning_rate=SIMMLM.learning_rate)
+    jm, jb2i, jhaa = jadapters.make_model_and_adapters(
+        jconfig.SIMMLM, rna_dim=24, backbone="simple_cnn")
+    if stage == "stage1":
+        jhaa = jadapters.simmlm_stage1_adapter()
+    jtr = jengine.Trainer(jm, jb2i, jhaa, jengine.TrainConfig(**kw))
+    jdata = {k: jax.numpy.asarray(v) for k, v in arrays.items()}
+    jstate = jtr.init_state(jdata, fold=1)
+    (jloss, _), jgrads = jax.value_and_grad(jtr._loss_fn, has_aux=True)(
+        jstate.params, jstate.batch_stats, jdata, jax.random.PRNGKey(0))
+    jgrad_sd = _tree_sd(jgrads, jstate.batch_stats, "simmim")
+
+    b2i, haa = make_adapters(SIMMLM)
+    tr = engine.Trainer(
+        lambda g: SimMLMSurvivalNet(rna_dim=24, backbone="simple_cnn",
+                                    generator=g),
+        b2i, simmlm_stage1_adapter() if stage == "stage1" else haa,
+        engine.TrainConfig(**kw), device="cpu")
+    state = tr.init_state(fold=1)
+    state.model.load_state_dict(_torch_sd(jstate, "simmim"), strict=True)
+    for m in state.model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    loss, grads = tr.loss_and_grads(
+        state, {k: torch.from_numpy(v) for k, v in arrays.items()})
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    names = [n for n, _ in state.model.named_parameters()]
+    top = max(float(np.abs(jgrad_sd[n].numpy()).max()) for n in names)
+    # the CNN's conv biases feed a train-mode BatchNorm, which removes any
+    # shift: their gradient is 0 in exact arithmetic, rounding noise here
+    shifts = {f"expert_image.encoder.{i}.bias" for i in (0, 3, 6)}
+    for name, g in zip(names, grads):
+        want = jgrad_sd[name].numpy()
+        err = float(np.abs(g.numpy() - want).max())
+        if name in shifts:
+            assert err <= 1e-6 * top, (name, err)
+        else:
+            assert err <= 1e-5 * float(np.abs(want).max()) + 1e-7, (name, err)
+    heads = ("gating.", "ensemble_cox.")
+    if stage == "stage1":  # the ensemble's term is off: no gradient there
+        assert all(float(g.abs().max()) == 0.0 for n, g in zip(names, grads)
+                   if n.startswith(heads))
+    else:
+        assert any(float(g.abs().max()) > 0.0 for n, g in zip(names, grads)
+                   if n.startswith(heads))
+
+
+@pytest.fixture(scope="module")
+def family_cohort(tmp_path_factory):
+    root = tmp_path_factory.mktemp("family_cohort")
+    jtable, paths = jgen(root, JSpec(**FAMILY_SPEC))
+    return dict(jtable=jtable, paths=paths, root=root)
+
+
+def _record_train_losses(monkeypatch, trainer_cls, out):
+    train_epoch = trainer_cls.train_epoch
+
+    def recorded(self, *a, **k):
+        state, loss = train_epoch(self, *a, **k)
+        out.append(loss)
+        return state, loss
+
+    monkeypatch.setattr(trainer_cls, "train_epoch", recorded)
+
+
+def _record_adam_counts(monkeypatch, out):
+    """Per port epoch: Adam's count before and after it, and its steps."""
+    train_epoch = engine.Trainer.train_epoch
+
+    def recorded(self, state, data, indices, *a, **k):
+        before = state.opt_state.count
+        state, loss = train_epoch(self, state, data, indices, *a, **k)
+        out.append((before, state.opt_state.count,
+                    -(-len(indices) // self.cfg.batch_size)))
+        return state, loss
+
+    monkeypatch.setattr(engine.Trainer, "train_epoch", recorded)
+
+
+@pytest.mark.parametrize("name", ["rnaseq_only", "simmim"])
+def test_family_driver_matches_jax(name, family_cohort, tmp_path,
+                                   monkeypatch, caplog):
+    """Two folds of two epochs from the JAX driver's initial weights,
+    dropout off: rnaseq_only (AdamW, cosine, batch 16, no clip) and simmim
+    with one stage-1 epoch before them (Adam's moments and count carried
+    into stage 2 on both sides). Every epoch's train loss (stage 1's too)
+    to rtol 1e-4, LR histories and best epochs exact, C-index as in
+    test_driver_matches_jax; Adam's count runs on from fold start through
+    both stages."""
+    monkeypatch.setattr(fnn, "Dropout", _NoDropout)
+    over = dict(n_folds=2, num_epochs=2, image_shape=IMAGE_SHAPE)
+    if name == "simmim":
+        over["stage1_epochs"] = 1
+    jcfg = jconfig.ALL_CONFIGS[name].with_overrides(**over)
+    tcfg = dataclasses.replace(ALL_CONFIGS[name], **over)
+    jarr, splits = jcv.prepare_cv_data(
+        jcfg, family_cohort["jtable"],
+        rnaseq_csv=family_cohort["paths"]["rnaseq_csv"], resample="device")
+    inits, jevals, tevals, jlosses, tlosses = {}, [], [], [], []
+
+    def capture(fold, state):
+        inits[fold] = _torch_sd(state, name)
+
+    def start_from_jax(fold, state):
+        state.model.load_state_dict(inits[fold], strict=True)
+        for m in state.model.modules():
+            if isinstance(m, Dropout):
+                m.p = 0.0
+
+    _record_evaluations(monkeypatch, jengine.Trainer, jevals)
+    _record_evaluations(monkeypatch, engine.Trainer, tevals)
+    _record_train_losses(monkeypatch, jengine.Trainer, jlosses)
+    _record_train_losses(monkeypatch, engine.Trainer, tlosses)
+    counts = []
+    _record_adam_counts(monkeypatch, counts)
+    jpayload, jout = jcv.run_cross_validation(
+        jcfg, None, results_dir=tmp_path / "jax", models_dir=tmp_path / "jax",
+        backbone="simple_cnn", prepared=(jarr, splits), init_hook=capture)
+    tarr = CohortArrays(patient_ids=list(jarr.patient_ids),
+                        arrays={k: v.copy() for k, v in jarr.arrays.items()},
+                        ingest_mode=jarr.ingest_mode)
+    with caplog.at_level("INFO", logger=cv.__name__):
+        payload, out = cv.run_cross_validation(
+            tcfg, None, results_dir=tmp_path / "port",
+            models_dir=tmp_path / "port", backbone="simple_cnn",
+            prepared=(tarr, splits), init_hook=start_from_jax, device="cpu")
+
+    epochs_per_fold = 2 + over.get("stage1_epochs", 0)
+    assert len(tlosses) == len(jlosses) == 2 * epochs_per_fold
+    np.testing.assert_allclose(tlosses, jlosses, rtol=1e-4)
+    # one optimizer state per fold: stage 2 continues stage 1's moments and
+    # count (a fresh optimizer would restart the count at 0)
+    assert len(counts) == 2 * epochs_per_fold
+    for f in range(2):
+        fold = counts[f * epochs_per_fold:(f + 1) * epochs_per_fold]
+        assert fold[0][0] == 0
+        for (before, after, steps), nxt in zip(fold, fold[1:] + [None]):
+            assert after == before + steps
+            if nxt is not None:
+                assert nxt[0] == after
+    assert len(tevals) == len(jevals) == 4
+    for o, jo in zip(out, jout):
+        for field in ("fold", "best_epoch", "epochs_run", "train_size",
+                      "val_size", "train_survival_size"):
+            assert getattr(o, field) == getattr(jo, field), field
+        assert [h["lr"] for h in o.history] == [h["lr"] for h in jo.history]
+    for (c, _, rows), (jc, jhaz, _) in zip(tevals, jevals):
+        assert abs(c - jc) <= _c_index_tolerance(jarr.arrays, rows, jhaz)
+    assert payload["hyperparameters"] == jpayload["hyperparameters"]
+    if name == "simmim":
+        assert payload["hyperparameters"]["stage1_epochs"] == 1
+        text = caplog.text
+        for fold in (1, 2):
+            assert text.index(f"[simmim fold {fold}] stage1 epoch 1") < \
+                text.index(f"[simmim fold {fold}] epoch 1 ")
+
+
+def test_stage1_is_skipped_on_resume(family_cohort, tmp_path, monkeypatch):
+    """A simmim fold resumed after its epoch-2 save does not run stage 1
+    again, and ends where an uninterrupted run does, bit for bit."""
+    cfg = dataclasses.replace(ALL_CONFIGS["simmim"], n_folds=2,
+                              image_shape=IMAGE_SHAPE, stage1_epochs=1)
+    prepared = cv.prepare_cv_data(
+        cfg, load_matching_table(family_cohort["paths"]["matching_table"]),
+        rnaseq_csv=family_cohort["paths"]["rnaseq_csv"], device="cpu")
+    kw = dict(backbone="simple_cnn", prepared=prepared, resume=True,
+              checkpoint_every=2, num_epochs=3, device="cpu")
+    whole = cv.run_cross_validation(cfg, None, results_dir=tmp_path / "a",
+                                    models_dir=tmp_path / "a", **kw)
+    train_epoch, calls = engine.Trainer.train_epoch, []
+
+    def stop_in_fold_2(self, *a, **k):
+        calls.append(1)
+        if len(calls) == 6:  # fold 1: 1 + 3 epochs; fold 2: stage 1, epoch 1
+            raise KeyboardInterrupt("stopped")
+        return train_epoch(self, *a, **k)
+
+    monkeypatch.setattr(engine.Trainer, "train_epoch", stop_in_fold_2)
+    with pytest.raises(KeyboardInterrupt):
+        cv.run_cross_validation(cfg, None, results_dir=tmp_path / "b",
+                                models_dir=tmp_path / "b", **kw)
+    calls.clear()
+    monkeypatch.setattr(engine.Trainer, "train_epoch", lambda self, *a, **k:
+                        calls.append(1) or train_epoch(self, *a, **k))
+    resumed = cv.run_cross_validation(cfg, None, results_dir=tmp_path / "b",
+                                      models_dir=tmp_path / "b", **kw)
+    # fold 1 resumes at epoch 3 (no stage 1); fold 2 runs whole
+    assert len(calls) == 1 + 4
+    assert resumed[0] == whole[0]
+    for o, w in zip(resumed[1], whole[1]):
+        assert (o.history, o.best_epoch, o.best_c_index) == \
+            (w.history, w.best_epoch, w.best_c_index)
+
+
+FAMILY_ENTRIES = {
+    "rnaseq_only": "train_rnaseq_only", "image_only": "image_only",
+    "simple_fusion": "simple_fusion",
+    "flexible_multimodal": "flexible_multimodal",
+    "final": "final_multimodal", "simmim": "simmlm", "mmsurv": "mmsurv",
+}
+
+
+@pytest.mark.parametrize("name", list(FAMILY_ENTRIES))
+def test_family_cli_end_to_end_on_cpu(name, family_cohort, tmp_path):
+    """Each family's ``main`` on the cohort (simple CNN, 16x16x8, 2 folds x
+    2 epochs; simmim with one stage-1 epoch): cv_results.json in its
+    schema, both fold checkpoints with their .meta.json, each fold's
+    C-index reproduced by predict_risk from its checkpoint, and
+    RiskScorer on the fold checkpoints (calibrated by predict_risk's fold
+    stats) scoring one patient as the ensemble does, within 1e-4."""
+    from multimodal_survival_prediction_tpu_torch.data.datasets import (
+        load_rnaseq_matrix,
+    )
+    from multimodal_survival_prediction_tpu_torch.serving import RiskScorer
+
+    entry = importlib.import_module(
+        f"multimodal_survival_prediction_tpu_torch.train."
+        f"{FAMILY_ENTRIES[name]}")
+    cfg = ALL_CONFIGS[name]
+    paths = family_cohort["paths"]
+    results, models = tmp_path / "results", tmp_path / "models"
+    extra = ["--stage1-epochs", "1"] if name == "simmim" else []
+    before = _launches()
+    payload = entry.main([
+        "--data-root", str(paths["root"]), "--results-dir", str(results),
+        "--models-dir", str(models), "--backbone", "simple_cnn",
+        "--image-shape", "16,16,8", "--epochs", "2", "--n-folds", "2",
+        "--device", "cpu", *extra])
+    loaded = tresults.load_cv_results(results / name)
+    assert loaded["raw"] == payload and len(loaded["fold_scores"]) == 2
+    if name == "image_only":  # the reference's legacy schema
+        assert "model" not in payload and "hyperparameters" not in payload
+    else:
+        assert payload["model"] == cfg.display_name
+
+    table = load_matching_table(paths["matching_table"])
+    arrays, splits = cv.prepare_cv_data(
+        dataclasses.replace(cfg, n_folds=2, image_shape=IMAGE_SHAPE), table,
+        rnaseq_csv=paths["rnaseq_csv"], device="cpu")
+    ckpts = fold_checkpoints(models, name)
+    assert [p.name for p in ckpts] == ["fold_1_best.pt", "fold_2_best.pt"]
+    for path, (_, val_rows, _), fold in zip(ckpts, splits,
+                                            payload["fold_results"]):
+        assert load_fold_meta(path)["image_shape"] == list(IMAGE_SHAPE)
+        pred = predict_risk(cfg, path, table, rnaseq_csv=paths["rnaseq_csv"],
+                            labeled_only=False, device="cpu")
+        assert list(pred["patient_id"]) == list(arrays.patient_ids)
+        h = pred["risk_score"][val_rows]
+        c = float(concordance_index(
+            torch.from_numpy(h), arrays.arrays["time"][val_rows],
+            arrays.arrays["event"][val_rows],
+            valid=arrays.arrays["svalid"][val_rows]))
+        assert abs(c - fold["best_c_index"]) <= _c_index_tolerance(
+            arrays.arrays, val_rows, h.astype(np.float64))
+
+    pred, stats = predict_risk(cfg, ckpts, table,
+                               rnaseq_csv=paths["rnaseq_csv"],
+                               labeled_only=False, return_fold_stats=True,
+                               device="cpu")
+    assert np.all(np.isfinite(pred["risk_score"]))
+    scorer = RiskScorer(name, ckpts, fold_calibration=stats, device="cpu")
+    rna = load_rnaseq_matrix(paths["rnaseq_csv"])
+    rows = {r["patient_id"]: r for r in table}
+    i, row = next((i, rows[p]) for i, p in enumerate(pred["patient_id"])
+                  if rows[p]["has_imaging"] or "image" not in cfg.modalities)
+    patient = {}
+    if "image" in cfg.modalities and row["has_imaging"]:
+        patient["nifti_path"] = row["nifti_path"]
+    if "rnaseq" in cfg.modalities and row["patient_id"] in rna.index:
+        patient["rnaseq"] = rna.row(row["patient_id"])
+    if not np.isnan(row["age"]):
+        patient["age"] = row["age"]
+    got = scorer.score(**patient)["risk_score"]
+    assert abs(got - float(pred["risk_score"][i])) <= 1e-4
+    if "image" not in cfg.modalities:
+        img = next(r for r in table if r["has_imaging"])
+        with pytest.raises(ValueError, match="no image modality"):
+            scorer.score(nifti_path=img["nifti_path"], age=60.0)
+    assert _launches() == before
+
+
+def test_final_reads_the_multimodal_table(tmp_path, monkeypatch):
+    """``final`` trains on data/processed/multimodal_matching_table.csv
+    where it exists (the reference's 109-patient table); the others, and
+    ``final`` without it, on full_matching_table.csv."""
+    from multimodal_survival_prediction_tpu_torch.train import (
+        final_multimodal,
+        simple_fusion,
+    )
+
+    proc = tmp_path / "data" / "processed"
+    proc.mkdir(parents=True)
+    head = ("patient_id,has_imaging,has_rnaseq,has_clinical,has_survival,"
+            "age,survival_time,survival_status,nifti_path\n")
+    (proc / "full_matching_table.csv").write_text(
+        head + "TCGA-A,0,0,1,1,50,100,1,\n")
+    seen = []
+    monkeypatch.setattr(cli, "run_cross_validation", lambda cfg, table, **k: (
+        seen.append([r["patient_id"] for r in table]) or
+        ({"c_index_mean": 0.5, "c_index_std": 0.0}, [])))
+    argv = ["--data-root", str(tmp_path), "--device", "cpu"]
+    final_multimodal.main(argv)
+    (proc / "multimodal_matching_table.csv").write_text(
+        head + "TCGA-B,0,0,1,1,60,200,0,\n")
+    final_multimodal.main(argv)
+    simple_fusion.main(argv)
+    assert seen == [["TCGA-A"], ["TCGA-B"], ["TCGA-A"]]
+
+
+@pytest.mark.parametrize("entry", ["partial_modality_training", "mmsurv",
+                                   "train_rnaseq_only"])
+def test_stage1_epochs_refused_without_stage1(tmp_path, entry):
+    mod = importlib.import_module(
+        f"multimodal_survival_prediction_tpu_torch.train.{entry}")
+    with pytest.raises(SystemExit, match="no stage 1"):
+        mod.main(["--data-root", str(tmp_path), "--synthetic", "--device",
+                  "cpu", "--stage1-epochs", "3"])
+    assert not any(tmp_path.iterdir())

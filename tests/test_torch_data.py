@@ -16,6 +16,7 @@ from multimodal_survival_prediction_tpu import config as jcfg
 from multimodal_survival_prediction_tpu.data import datasets as jds
 from multimodal_survival_prediction_tpu.data import matching_table as jmt
 from multimodal_survival_prediction_tpu.data import nifti as jnifti
+from multimodal_survival_prediction_tpu.ops import resample as jr
 from multimodal_survival_prediction_tpu.data.synthetic import (
     SyntheticCohortSpec as JSpec,
 )
@@ -33,6 +34,20 @@ from multimodal_survival_prediction_tpu_torch.data.synthetic import (
     SyntheticCohortSpec,
     generate_synthetic_cohort,
 )
+
+
+@pytest.fixture(autouse=True)
+def _no_cached_jax_tracers():
+    """The JAX package caches its interpolation matrices
+    (``ops/resample.py:_matrices``, an ``lru_cache``) and fills the cache
+    inside a jit trace, so it can hold tracers; a later trace of the same
+    shapes with another ``hu_window`` or dtype (in this file or in another
+    one that this worker runs next, e.g. tests/test_resample.py) would then
+    raise UnexpectedTracerError. Each test starts and ends with it empty."""
+    jr._matrices.cache_clear()
+    yield
+    jr._matrices.cache_clear()
+
 
 SPEC = dict(n_patients=14, rna_dim=40, seed=6, p_imaging=0.7,
             image_shapes=((20, 24, 24), (18, 30, 26)))

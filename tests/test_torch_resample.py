@@ -16,6 +16,20 @@ import torch
 from multimodal_survival_prediction_tpu.ops import resample as jr
 from multimodal_survival_prediction_tpu_torch.ops import resample as tr
 
+
+@pytest.fixture(autouse=True)
+def _no_cached_jax_tracers():
+    """The JAX package caches its interpolation matrices
+    (``ops/resample.py:_matrices``, an ``lru_cache``) and fills the cache
+    inside a jit trace, so it can hold tracers; a later trace of the same
+    shapes with another ``hu_window`` or dtype (in this file or in another
+    one that this worker runs next, e.g. tests/test_resample.py) would then
+    raise UnexpectedTracerError. Each test starts and ends with it empty."""
+    jr._matrices.cache_clear()
+    yield
+    jr._matrices.cache_clear()
+
+
 ATOL = 1e-5
 
 

@@ -60,9 +60,9 @@ def test_full_width_export_matches_jax_and_loads_strictly(backbone):
             tree["params"]["ct_encoder"]["densenet"]) == (6, 12, 24, 16)
 
 
-def test_other_families_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        export_torch_state_dict("simple_fusion", {"params": {}})
+def test_unknown_family_is_refused():
+    with pytest.raises(ValueError, match="unknown model"):
+        export_torch_state_dict("resnet", {"params": {}})
 
 
 def test_checkpoint_and_meta_roundtrip(tmp_path):
