@@ -9,8 +9,10 @@ result then):
      (nvidia-smi) and turns TF32 off for matmul and cuDNN — the JAX
      reference contracts at precision="highest".
   2. build: compiles ops/csrc/resample_wpass.cu and ops/csrc/fused_dense.cu
-     from this checkout (one nvcc each, started together; sm_90a) and prints
-     the build times and ptxas reports.
+     (six times: the float32 and, with -DMSP_FUSED_BF16, the bf16 entry
+     points of each of its three parts, -DMSP_FUSED_FWD, _BWD_REDUCE and
+     _BWD_DX) from this checkout (one nvcc each, all seven started
+     together; sm_90a) and prints the build times and ptxas reports.
   3. kernel vs plain: the W-pass kernel against its plain torch version on
      CT-sized volumes (int16 128x512x512, ragged int16 97x500x500, float32,
      uint8, an HU-window case): max |d| <= 2e-6 on the normalized output,
@@ -48,7 +50,9 @@ result then):
      the phase-4 cohort (batch 8) and a pooled evaluation; each fused
      kernel's launch count, reset just before, must be 61 x the steps just
      after (none in evaluation). Then the same seeds with fused_bn1=False
-     (BatchNorm + cuDNN 1x1 conv), and the fused path once more: the first
+     (BatchNorm + cuDNN 1x1 conv), and the fused path once more; before the
+     first two, step 1's gradients on the first batch (printed, fused vs
+     unfused; phase 8b's yardstick): the first
      step's loss within 1e-5 relative, later steps within 2e-2 (Adam's
      drift, see LOSS_DRIFT_RTOL), hazards within a tenth of their range,
      C-index within the comparable pairs whose order that hazard difference
@@ -57,6 +61,29 @@ result then):
      device time and launches in that step.
      Part of phase 7: bwd_dx at N = 1, c1 and c2 from the bwd_reduce
      kernel, must cancel to max |dx| <= 1e-5 (the plain version's 0).
+  7b. bf16 fused kernels vs plain: the four bf16 kernels (x, W and g in
+     bf16) against their plain versions at phase 7's shapes, bf16 results
+     (out, dx) to one bf16 ulp (2^-7 of the value) and float32 ones
+     (moments, dW, dgamma, dbeta) to phase 7's limits, each with atol 1e-5
+     x the largest |value|; the autograd op against the same op on CPU
+     copies (its plain versions); no float32 kernel launches. Device times at
+     16,384x224->128 beside the bf16 bound (2-byte elements at 3.35 TB/s,
+     products at 989 TFLOP/s), the plain version and torch.matmul in bf16
+     (torch.var_mean for moments).
+  8b. bf16 training: phase 8 with dtype=torch.bfloat16 (fused, unfused,
+     fused again): each bf16 kernel 61 x the steps, no float32 fused
+     kernel; fused vs unfused loss within 1e-2 relative at step 1 and 5e-2
+     at step 2, after the first update (BF16_TRAIN_LIMITS); step 1's
+     gradients of the 61 fused stages' dW, dgamma and dbeta, from the same
+     weights, batch and masks as phase 8: each no further from phase 8's
+     float32 unfused gradient (||d|| / ||float32||) than twice the unfused
+     bf16 autograd's distance + half a bf16 ulp (BF16_GRAD_RATIO). The
+     later losses, hazards and C-index are printed beside the fused path's
+     own spread (fused again) and each path's gap to phase 8's float32
+     run, and not held: bf16 rounding moves step 1's gradients by up to
+     ~90 % on either path, and Adam's first steps (about lr x
+     sign(gradient)) carry that into every later step. The profile of one
+     step of fused and unfused.
   9. CV (the main path of the CV slice): the partial_modality training
      CLI's main(argv) in-process on the phase-4 cohort at full width with
      --pallas-resample --n-folds 2 --epochs 2: the W-pass launch count,
@@ -70,6 +97,13 @@ result then):
      differ by under 1e-5 may count either way), and the fold ensemble's
      risks are finite. Prints the phase's and each fold's wall, each
      epoch's ms by CUDA events and epoch 2's steps and ms/step.
+  9b. --bf16: the partial_modality and rnaseq_only training CLIs'
+     main([..., "--bf16", "--pallas-resample", "--n-folds", "2", "--epochs",
+     "1"]) on the phase-4 cohort: W-pass launches in the ingest as phase 9,
+     no fused launch of either dtype, float32 fold checkpoints whose
+     .meta.json names no dtype; predict_risk (float32) on each reproduces
+     the fold's best_c_index but for the pairs whose hazards lie within
+     twice the fold's bf16-vs-f32 hazard gap.
   10. families: one 32-patient cohort (seed 15; CTs 48-64x256x256 int16,
      p_imaging 0.75, p_rnaseq 0.9, p_dead 0.75, one labeled patient with no
      modality at all), then each of the seven other families' training CLI
@@ -82,8 +116,9 @@ result then):
      reference's legacy schema) and both fold checkpoints; each fold's
      C-index from predict_risk on its checkpoint equal to its best_c_index
      (pairs within 1e-5 may swap); RiskScorer on both fold checkpoints,
-     calibrated by predict_risk's fold stats, scoring every patient with a
-     modality one at a time: within 1e-4 of the ensemble on the
+     calibrated by predict_risk's fold stats, scoring one at a time up to
+     4 patients of each modality pattern (which of CT, RNA and age a
+     patient has) of the cohort: within 1e-4 of the ensemble on the
      log-hazard (the limit carried through the fold z-score), and fold 1's
      raw log-hazards within 1e-4 of predict_risk's; simmim's log holds a stage-1 epoch before each
      fold's main epoch; mmsurv's risks are finite on the patient with no
@@ -113,10 +148,10 @@ ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12  # fp32 outside the tensor cores
 H100_TF32_OPS_PER_S = 495e12  # TF32 on the tensor cores, dense
+H100_BF16_OPS_PER_S = 989e12  # bf16 on the tensor cores, dense
 RESAMPLE_TOL = 2e-6
 RISK_TOL = 1e-4
 OUT_W = 32
-SOURCES = ("resample_wpass.cu", "fused_dense.cu")
 FUSED_FWD_RTOL = 1e-5   # fused kernels: outputs and batch statistics
 FUSED_GRAD_RTOL = 1e-4  # ... gradients
 FUSED_ATOL = 1e-5       # times max(1, the tensor's largest |value|)
@@ -128,6 +163,24 @@ FUSED_ATOL = 1e-5       # times max(1, the tensor's largest |value|)
 FIRST_LOSS_RTOL = 1e-5
 LOSS_DRIFT_RTOL = 2e-2
 HAZARD_SPREAD_TOL = 0.1  # max |d hazard| over the hazards' range (max - min)
+# the same in bf16 (first step, later steps): the fused and unfused bf16
+# paths round the normalized trunk to bf16 at the same point, but their
+# float32 sums (the moments, the products) differ in order, and a
+# last-bit difference moves a bf16 rounding by a whole ulp (2^-8) wherever
+# it crosses a boundary
+BF16_TRAIN_LIMITS = (1e-2, 5e-2)
+# bf16 step 1, from the same weights, batch and dropout masks: each fused
+# stage's dW, dgamma and dbeta on the fused bf16 path lie no further from
+# the float32 gradient (phase 8's unfused autograd) than BF16_GRAD_RATIO x
+# the unfused bf16 autograd's own distance + half a bf16 ulp, each
+# distance ||d|| / ||float32||. Batch-statistics BatchNorm backward
+# cancels, so bf16 rounding moves these gradients by up to ~90 % on either
+# path at full width on an H100 (the JAX package's lie 19-33 % from its
+# float32 ones at block_config (2, 2), tests/test_torch_bf16_grads.py),
+# and fused and unfused bf16 differ by nearly as much; the fused kernels
+# skip one rounding (the conv's input gradient) and should sit no further
+# than the unfused path
+BF16_GRAD_RATIO = 2.0
 
 
 def check(cond, msg):
@@ -149,11 +202,10 @@ class _profiled:
     ``key_averages()``' device events without the sentinel, ``.prof`` the
     profiler."""
 
-    def __init__(self, cpu=False):
+    def __init__(self):
         from torch.profiler import ProfilerActivity, profile
 
-        self.prof = profile(activities=[ProfilerActivity.CUDA]
-                            + ([ProfilerActivity.CPU] if cpu else []))
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
 
     def __enter__(self):
         import torch
@@ -297,19 +349,23 @@ def phase_device():
 
 
 def phase_build():
-    """Build every kernel source, one nvcc each, all started together."""
+    """Build every kernel library, one nvcc each, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from multimodal_survival_prediction_tpu_torch.ops import _build
+    from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
 
+    # (source, -D macros): fused_dense.cu builds six times, three parts in
+    # f32 and in bf16
+    builds = (("resample_wpass.cu", ()), *fd.BUILDS)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        infos = list(pool.map(lambda src: _build.build(src)[1], SOURCES))
-    log(f"built {len(SOURCES)} kernel sources in "
+    with ThreadPoolExecutor(len(builds)) as pool:
+        infos = list(pool.map(lambda b: _build.build(*b)[1], builds))
+    log(f"built {len(builds)} kernel libraries in "
         f"{time.perf_counter() - t0:.2f} s")
-    for src, info in zip(SOURCES, infos):
-        log(f"  {src}: nvcc {info['build_sec']:.2f} s, "
-            f"fresh={info['built']}")
+    for (src, macros), info in zip(builds, infos):
+        log(f"  {src} {' '.join(f'-D{m}' for m in macros)}: nvcc "
+            f"{info['build_sec']:.2f} s, fresh={info['built']}")
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line or "entry" in line:
                 log(f"    ptxas: {line.strip()}")
@@ -653,9 +709,13 @@ FUSED_LIBRARY = {
 
 def fused_bound_ms(name, n, c, f):
     """``(bound ms, bound by, CUDA-core bound ms)``: the least time on an
-    H100 SXM for one call, from the JAX kernels' CostEstimate formulas
-    (ops/fused_dense.py:105-108, 137-142, 200-205, 242-247 of the JAX
-    package; f32, 4 bytes an element). The bound is the larger of bytes over
+    H100 SXM for one call: the operations of the JAX kernels' CostEstimate
+    formulas (ops/fused_dense.py:105-108, 137-142, 200-205, 242-247 of the
+    JAX package), the bytes of each input read once and each output written
+    once (f32, 4 bytes an element; bwd_reduce reads x, g, W and the
+    statistics and writes dW, dgamma, dbeta: 4(NC + NF + CF) + 4CF + 24C,
+    where CostEstimate's 5CF x 4 counts W and dW more than once). The bound
+    is the larger of bytes over
     the memory rate and operations over their unit's rate: the products run
     on the tensor cores as three TF32 products each (3 x their operations
     over the TF32 rate), the elementwise work at the fp32 rate. The last
@@ -666,7 +726,7 @@ def fused_bound_ms(name, n, c, f):
         "apply": (2 * n * c * f, 3 * n * c,
                   4 * (n * c + c * f + n * f) + 8 * c),
         "bwd_reduce": (4 * n * c * f, 8 * n * c,
-                       4 * (n * c + n * f) + 5 * c * f * 4 + 24 * c),
+                       4 * (n * c + n * f + c * f) + 4 * c * f + 24 * c),
         "bwd_dx": (2 * n * c * f, 10 * n * c,
                    4 * (2 * n * c + n * f + c * f) + 24 * c),
     }[name]
@@ -921,6 +981,207 @@ def _time_dx_split(fd, x, w, g, mul, add, mean, rstd, c1, c2, rounds=3):
 
 
 # --------------------------------------------------------------------------
+# 7b: the bf16 fused kernels vs plain
+# --------------------------------------------------------------------------
+
+# bf16 outputs (out, dx) round one float32 sum once: a kernel and its plain
+# version may land on neighbouring bf16 values where their sums differ in
+# the last bits, one ulp, at most 2^-7 of the value
+BF16_ULP = 2.0 ** -7
+# the bf16 kernels each wrapper launches, by a part of their names; the
+# fold kernels are the float32 path's fold_parts_kernel (moments,
+# bwd_reduce) and apply's fold_bf16_kernel
+FUSED_BF16_DEVICE_KERNELS = {
+    "moments": ("::moments_partial_bf16_kernel",),
+    "apply": ("::apply_bf16_kernel<",),
+    "bwd_reduce": ("::bwd_reduce_bf16_kernel<",),
+    "bwd_dx": ("::bwd_dx_bf16_kernel<",),
+}
+FUSED_BF16_FOLD_KERNELS = (FUSED_FOLD_KERNEL, "::fold_bf16_kernel")
+FUSED_BF16_LIBRARY = {
+    "moments": "torch.var_mean(x, 0, correction=0) on the bf16 x",
+    "apply": "torch.matmul(x, W) in bf16 (the contraction alone)",
+    "bwd_reduce": "torch.matmul(x.T, g) + torch.matmul(g, W.T) in bf16 "
+                  "(the two contractions alone)",
+    "bwd_dx": "torch.matmul(g, W.T) in bf16 (the contraction alone)",
+}
+
+
+def fused_bf16_bound_ms(name, n, c, f):
+    """``(bound ms, bound by)`` of one bf16 call on an H100 SXM, as
+    ``fused_bound_ms`` counts it with 2-byte x, g, W, out and dx (the
+    statistics, dW, dgamma and dbeta stay 4-byte; bwd_reduce moves
+    2(NC + NF + CF) + 4CF + 24C bytes): the larger of the
+    bytes over the memory rate and the operations over their unit's rate,
+    the products at the bf16 tensor rate, the elementwise work at the fp32
+    rate."""
+    product, elementwise, n_bytes = {
+        "moments": (0, 3 * n * c, 2 * n * c + 8 * c),
+        "apply": (2 * n * c * f, 3 * n * c,
+                  2 * (n * c + c * f + n * f) + 8 * c),
+        "bwd_reduce": (4 * n * c * f, 8 * n * c,
+                       2 * (n * c + n * f + c * f) + 4 * c * f + 24 * c),
+        "bwd_dx": (2 * n * c * f, 10 * n * c,
+                   2 * (2 * n * c + n * f + c * f) + 24 * c),
+    }[name]
+    t_bytes = n_bytes / H100_BYTES_PER_S
+    t_ops = (product / H100_BF16_OPS_PER_S
+             + elementwise / H100_F32_OPS_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _held_bf16(name, got, want, extra=0.0):
+    """max |got - want| for a bf16 result, raising if any element exceeds
+    one bf16 ulp (BF16_ULP·|want|) + FUSED_ATOL·max(1, max|want|), +
+    ``extra``."""
+    check(got.dtype == want.dtype, f"{name}: {got.dtype} vs {want.dtype}")
+    got, want = got.detach().double(), want.detach().double()
+    diff = (got - want).abs()
+    atol = FUSED_ATOL * max(1.0, float(want.abs().max()))
+    bad = diff > atol + BF16_ULP * want.abs() + extra
+    err = float(diff.max())
+    check(math.isfinite(err) and not bool(bad.any()),
+          f"{name}: {int(bad.sum())} elements beyond one bf16 ulp + atol "
+          f"{atol:.3e}; max |d| {err:.3e}")
+    return err
+
+
+def phase_fused_bf16_vs_plain(device="cuda", cases=None, timed=None):
+    """The four bf16 kernels against their plain versions at phase 7's
+    shapes (x, W and g of ``_fused_inputs`` rounded to bf16; N = 1 left
+    out: there dx cancels to rounding noise times rstd = 1/sqrt(eps)), then
+    the autograd op against the same op on CPU copies of its inputs (whose
+    ``out`` and dW may also differ by the products of the a = relu(z) that
+    the two sides' statistics round to neighbouring bf16 values). bf16
+    results (out, dx, the op's dW) to one bf16 ulp, float32 ones (the
+    moments, dW, dgamma, dbeta) to phase 7's limits; the launches counted in
+    the bf16 counts, none in the float32 ones. Device times at
+    ``FUSED_TIMED``. Returns (max |d| per kernel, timing per kernel)."""
+    import torch
+
+    from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
+
+    cases = FUSED_CASES if cases is None else cases
+    timed = FUSED_TIMED if timed is None else tuple(timed)
+    gen = torch.Generator(device=device).manual_seed(3)
+    bf16 = torch.bfloat16
+    worst = dict.fromkeys(FUSED_NAMES, 0.0)
+    timing = {}
+    before = [k.launches for k in fd.KERNELS]
+    for n, c, f in cases:
+        x, gamma, beta, w, g = _fused_inputs(n, c, f, device, gen)
+        x, w, g = x.to(bf16), w.to(bf16), g.to(bf16)
+        tag = f"{n}x{c}->{f} bf16"
+        s, sq = fd.moments(x)
+        ps, psq = fd.moments_plain(x)
+        err = {"moments": max(_held(f"moments sum {tag}", s, ps,
+                                    FUSED_FWD_RTOL),
+                              _held(f"moments sumsq {tag}", sq, psq,
+                                    FUSED_FWD_RTOL))}
+        mean, var, rstd, mul, add = fd._stats(x, gamma, beta, 1e-5)
+        err["apply"] = _held_bf16(f"apply {tag}", fd.apply(x, mul, add, w),
+                                  fd.apply_plain(x, mul, add, w))
+        got = fd.bwd_reduce(x, g, w, mul, add, mean, rstd)
+        want = fd.bwd_reduce_plain(x, g, w, mul, add, mean, rstd)
+        err["bwd_reduce"] = max(
+            _held(f"bwd_reduce {part} {tag}", a, b, FUSED_GRAD_RTOL)
+            for part, a, b in zip(("dW", "dgamma", "dbeta"), got, want))
+        c1, c2 = want[2] / n, want[1] / n
+        err["bwd_dx"] = _held_bf16(
+            f"bwd_dx {tag}", fd.bwd_dx(x, g, w, mul, add, mean, rstd, c1, c2),
+            fd.bwd_dx_plain(x, g, w, mul, add, mean, rstd, c1, c2))
+        # the op against itself on CPU copies (its plain versions there):
+        # autograd through the oracle is no yardstick in bf16, as its
+        # backward rounds da to bf16 at the cast where the op keeps it in
+        # float32 (so does the JAX op's VJP)
+        # The two sides' batch statistics differ in the last bits, so a =
+        # relu(z) may round to neighbouring bf16 values on the two sides
+        # before the products: out may also differ by Σ_c |Δa_c|·|W_cf|,
+        # dW by Σ_n |Δa_nc|·|g_nf|.
+        results, acts = [], []
+        for dev in (x.device, "cpu"):
+            args = [t.detach().to(dev, copy=True).requires_grad_(True)
+                    for t in (x, gamma, beta, w)]
+            out, mean_, var_ = fd.fused_bn_relu_conv1x1(*args)
+            grads = torch.autograd.grad(out, args, g.to(dev))
+            results.append([t.to(x.device) for t in
+                            (out, mean_, var_, *grads)])
+            _, _, _, mul_, add_ = fd._stats(*(t.detach() for t in args[:3]),
+                                           1e-5)
+            acts.append(torch.relu(args[0].detach().float() * mul_ + add_)
+                        .to(bf16).float().to(x.device))
+        flips = (acts[0] - acts[1]).abs()
+        slack = {"out": (flips @ w.float().abs()).double(),
+                 "dW": (flips.T @ g.float().abs()).double()}
+        op_err = 0.0
+        for part, a, b in zip(("out", "mean", "var", "dx", "dgamma", "dbeta",
+                               "dW"), *results):
+            if a.dtype == bf16:
+                op_err = max(op_err, _held_bf16(f"op {part} {tag}", a, b,
+                                                slack.get(part, 0.0)))
+            else:
+                op_err = max(op_err, _held(
+                    f"op {part} {tag}", a, b, FUSED_FWD_RTOL
+                    if part in ("mean", "var") else FUSED_GRAD_RTOL))
+        for k in FUSED_NAMES:
+            worst[k] = max(worst[k], err[k])
+        log(f"fused bf16 kernels vs plain {tag}: max|d| "
+            + ", ".join(f"{k} {err[k]:.3e}" for k in FUSED_NAMES)
+            + f"; op vs the op on CPU copies max|d| {op_err:.3e} ("
+            f"{int((flips > 0).sum())} of {flips.numel()} a = relu(z) "
+            "rounded to another bf16 value)")
+        if (n, c, f) == timed and device != "cpu":
+            timing = _time_fused_bf16(fd, x, w, g, mul, add, mean, rstd, c1,
+                                      c2)
+        del x, g, results
+    check([k.launches for k in fd.KERNELS] == before,
+          "a bf16 tensor launched a float32 fused kernel")
+    return worst, timing
+
+
+def _time_fused_bf16(fd, x, w, g, mul, add, mean, rstd, c1, c2):
+    import torch
+
+    n, c = x.shape
+    f = w.shape[1]
+    w_c = w.contiguous()
+    calls = {
+        "moments": (lambda: fd.moments(x), lambda: fd.moments_plain(x),
+                    lambda: torch.var_mean(x, 0, correction=0)),
+        "apply": (lambda: fd.apply(x, mul, add, w),
+                  lambda: fd.apply_plain(x, mul, add, w),
+                  lambda: torch.matmul(x, w_c)),
+        "bwd_reduce": (
+            lambda: fd.bwd_reduce(x, g, w, mul, add, mean, rstd),
+            lambda: fd.bwd_reduce_plain(x, g, w, mul, add, mean, rstd),
+            lambda: (torch.matmul(x.T, g), torch.matmul(g, w_c.T))),
+        "bwd_dx": (
+            lambda: fd.bwd_dx(x, g, w, mul, add, mean, rstd, c1, c2),
+            lambda: fd.bwd_dx_plain(x, g, w, mul, add, mean, rstd, c1, c2),
+            lambda: torch.matmul(g, w_c.T)),
+    }
+    timing = {}
+    for name, (kernel, plain, library) in calls.items():
+        kernel_ms = device_ms(kernel,
+                              kernels=FUSED_BF16_DEVICE_KERNELS[name])
+        call_ms = cuda_ms(kernel)
+        plain_ms = device_ms(plain)
+        library_ms = device_ms(library)
+        bound_ms, bound_by = fused_bf16_bound_ms(name, n, c, f)
+        timing[name] = dict(kernel_ms=kernel_ms, call_ms=call_ms,
+                            plain_ms=plain_ms, library_ms=library_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            shape=[n, c, f])
+        log(f"{name} bf16 device times {n}x{c}->{f}: kernel {kernel_ms:.4f} "
+            f"ms (per call by CUDA events {call_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, library {library_ms:.4f} ms "
+            f"({FUSED_BF16_LIBRARY[name]}), H100 bound {bound_ms:.4f} ms "
+            f"({bound_by}); kernel at {bound_ms / kernel_ms:.1%} of bound")
+    return timing
+
+
+# --------------------------------------------------------------------------
 # 8: training (the main path of the training slice)
 # --------------------------------------------------------------------------
 
@@ -937,7 +1198,8 @@ def _comparable_pairs(time_, event, valid, hazard, margin):
     return int(comp.sum()), int((comp & near).sum())
 
 
-def _profile_step(tr, state, data, rows, label, top=8, attempts=3):
+def _profile_step(tr, state, data, rows, label, top=8, attempts=3,
+                  bf16=False):
     """One more train step (lr 0) under torch.profiler: device time by
     kernel, and the fused kernels' sums and launch counts in the step
     (returned with the step's device-busy time and launch count). The
@@ -945,11 +1207,17 @@ def _profile_step(tr, state, data, rows, label, top=8, attempts=3):
     fewer of a fused wrapper's own kernels than the wrapper counted
     launches in the step has lost events (see ``device_ms``): the step is
     profiled again, up to ``attempts`` times. If no trace is whole, the
-    last is reported with ``whole`` false: its sums are short."""
+    last is reported with ``whole`` false: its sums are short. ``bf16``:
+    the bf16 kernels and counts."""
     import torch
     from torch.autograd import DeviceType
 
     from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
+
+    device_kernels = (FUSED_BF16_DEVICE_KERNELS if bf16
+                      else FUSED_DEVICE_KERNELS)
+    folds = FUSED_BF16_FOLD_KERNELS if bf16 else (FUSED_FOLD_KERNEL,)
+    count = "launches_bf16" if bf16 else "launches"
 
     idx, bvalid = tr._device_indices(*tr._pad_indices(rows, tr.cfg.batch_size,
                                                       None))
@@ -957,18 +1225,18 @@ def _profile_step(tr, state, data, rows, label, top=8, attempts=3):
     tr.train_step(state, batch, 0.0)  # warm, outside the window
     torch.cuda.synchronize()
     for attempt in range(attempts):
-        before = [k.launches for k in fd.KERNELS]
-        with _profiled(cpu=True) as window:
+        before = [getattr(k, count) for k in fd.KERNELS]
+        with _profiled() as window:
             t0 = time.perf_counter()
             tr.train_step(state, batch, 0.0)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         prof = window.prof
-        counted = {name: k.launches - b for name, k, b in
+        counted = {name: getattr(k, count) - b for name, k, b in
                    zip(FUSED_NAMES, fd.KERNELS, before)}
         traced = {name: sum(e.count for e in window.events
                             if any(part in e.key for part in parts))
-                  for name, parts in FUSED_DEVICE_KERNELS.items()}
+                  for name, parts in device_kernels.items()}
         whole = traced == counted
         if whole:
             break
@@ -989,17 +1257,17 @@ def _profile_step(tr, state, data, rows, label, top=8, attempts=3):
             f"{e.key[:90]}")
     # the fused kernels' sums, whatever the top holds. A fold launch counts
     # for the wrapper whose kernel ran last before it on the stream.
-    sums = {w: dict(device_ms=0.0, by_kernel={})
-            for w in FUSED_DEVICE_KERNELS}
+    sums = {w: dict(device_ms=0.0, by_kernel={}) for w in device_kernels}
     owner = None
     for e in sorted((e for e in prof.events()
                      if e.device_type == DeviceType.CUDA),
                     key=lambda e: e.time_range.start):
-        if FUSED_FOLD_KERNEL in e.name:
+        fold = next((k for k in folds if k in e.name), None)
+        if fold is not None:
             check(owner is not None, "a fold launch before any fused kernel")
-            hit = (owner, FUSED_FOLD_KERNEL)
+            hit = (owner, fold)
         else:
-            hit = next(((w, part) for w, parts in FUSED_DEVICE_KERNELS.items()
+            hit = next(((w, part) for w, parts in device_kernels.items()
                         for part in parts if part in e.name), None)
             if hit is None:
                 continue
@@ -1018,11 +1286,68 @@ def _profile_step(tr, state, data, rows, label, top=8, attempts=3):
                 whole=whole)
 
 
+def _fused_stage_param(name):
+    """Whether parameter ``name`` is one the fused op's gradients reach
+    directly: a dense layer's norm1 / conv1 or a transition's norm / conv
+    (dgamma, dbeta and dW of bwd_reduce)."""
+    return (("denselayer" in name and (".norm1." in name or ".conv1." in name))
+            or ("transition" in name and (".norm." in name
+                                          or ".conv." in name)))
+
+
+def _first_step_grads(tr, state, data, rows, seed, weights0):
+    """Step 1's train-mode loss and gradients (float32, by parameter name)
+    on the batch ``train_epoch`` draws first from a shuffle seeded
+    ``seed``. The weights, the BatchNorm buffers and the dropout generator
+    are put back after, so the training run that follows is unchanged."""
+    import numpy as np
+
+    idx, bvalid = tr._pad_indices(rows, tr.cfg.batch_size,
+                                  np.random.default_rng(seed))
+    idx, bvalid = tr._device_indices(idx[:1], bvalid[:1])
+    drop = state.dropout_generator.get_state()
+    loss, grads = tr.loss_and_grads(state,
+                                    tr._gather_batch(data, idx[0], bvalid[0]))
+    names = [n for n, _ in state.model.named_parameters()]
+    out = {n: g.detach().float().clone() for n, g in zip(names, grads)}
+    state.model.load_state_dict(weights0)
+    state.dropout_generator.set_state(drop)
+    return float(loss), out
+
+
+def _rel_gaps(a, b, names):
+    """``{name: ||a - b|| / ||b||}`` over the tensors ``names`` of two
+    gradients (by parameter name)."""
+    return {n: float((a[n] - b[n]).norm()) / max(float(b[n].norm()), 1e-30)
+            for n in names}
+
+
+def _grad_gap(a, b, names):
+    """``(worst, name)``: the largest ||a - b|| / ||b|| over ``names``."""
+    gaps = _rel_gaps(a, b, names)
+    where = max(gaps, key=gaps.get)
+    return gaps[where], where
+
+
+def _grad_gap_whole(a, b):
+    """||a - b|| / ||b|| over every parameter's gradient at once."""
+    num = sum(float((a[n] - b[n]).norm()) ** 2 for n in b)
+    return math.sqrt(num / max(sum(float(g.norm()) ** 2
+                                   for g in b.values()), 1e-60))
+
+
 def phase_train(table, paths, rna_dim, device="cuda", image_shape=(64, 64, 32),
-                block_config=None, epochs=2, expect_launches=True):
+                block_config=None, epochs=2, expect_launches=True,
+                dtype=None, f32=None):
     """Train full-width partial_modality with fused_bn1=True, then the same
-    seeds unfused. Returns the fused kernels' launch counts and the train
-    summary."""
+    seeds unfused, then fused again (its own spread). Before each of the
+    first two, step 1's loss and gradients on the first batch. ``dtype``:
+    the models' compute dtype (bf16: the bf16 kernels launch, no float32
+    one may; the limits are BF16_TRAIN_LIMITS on the losses of steps 1
+    and 2 and BF16_GRAD_RATIO on the fused stages' step-1 gradients
+    against ``f32``, the float32 run's summary; the later losses, hazards
+    and C-index are reported and not held). Returns the fused kernels'
+    launch counts and the train summary."""
     import numpy as np
     import torch
 
@@ -1056,20 +1381,36 @@ def phase_train(table, paths, rna_dim, device="cuda", image_shape=(64, 64, 32),
                       weight_decay=CFG.weight_decay, optimizer=CFG.optimizer,
                       grad_clip=CFG.grad_clip, ties=CFG.ties, seed=CFG.seed)
     kw = {} if block_config is None else {"block_config": block_config}
+    bf16 = dtype is not None
+    count, other = (("launches_bf16", "launches") if bf16
+                    else ("launches", "launches_bf16"))
+    first_tol, drift_tol = (BF16_TRAIN_LIMITS if bf16
+                            else (FIRST_LOSS_RTOL, LOSS_DRIFT_RTOL))
+    tag = " bf16" if bf16 else ""
     sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
     runs = {}
     for label, fused in (("fused", True), ("unfused", False),
                          ("fused again", True)):
+        t_run = time.perf_counter()
         tr = Trainer(lambda gen, fused=fused: PartialModalityNet(
-            rna_dim=rna_dim, fused_bn1=fused, generator=gen, **kw),
-            b2i, haa, cfg, device=device)
+            rna_dim=rna_dim, fused_bn1=fused, generator=gen, dtype=dtype,
+            **kw), b2i, haa, cfg, device=device)
         state = tr.init_state(fold=1)
         stages = sum(state.model.ct_encoder.block_config) + \
             len(state.model.ct_encoder.block_config) - 1
         weights0 = {k: v.clone() for k, v in state.model.state_dict().items()}
+        walls = {"init": time.perf_counter() - t_run}
+        probe = None
+        if label != "fused again":  # outside the counted window
+            t0 = time.perf_counter()
+            probe = _first_step_grads(tr, state, data, rows, CFG.seed + 1,
+                                      weights0)
+            sync()
+            walls["step-1 gradients"] = time.perf_counter() - t0
         shuffle = np.random.default_rng(CFG.seed + 1)
         losses, epoch_ms = [], []
         sync()
+        t0 = time.perf_counter()
         fd.reset_launches()  # the main path's counts start here
         for _ in range(epochs):
             if device != "cpu":
@@ -1083,19 +1424,23 @@ def phase_train(table, paths, rna_dim, device="cuda", image_shape=(64, 64, 32),
                 end.synchronize()
                 epoch_ms.append(start.elapsed_time(end))
             losses += tr.step_losses.tolist()
-        launches = {k: fd.KERNELS[i].launches
+        launches = {k: getattr(fd.KERNELS[i], count)
                     for i, k in enumerate(FUSED_NAMES)}  # ... and read here
+        others = [getattr(k, other) for k in fd.KERNELS]
+        walls["train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         cindex, eval_loss, hazards = tr.evaluate(state, data, rows)
         sync()
-        eval_launches = {k: fd.KERNELS[i].launches
+        walls["eval"] = time.perf_counter() - t0
+        eval_launches = {k: getattr(fd.KERNELS[i], count)
                          for i, k in enumerate(FUSED_NAMES)}
         steps = state.step
         runs[label] = dict(weights0=weights0, losses=losses, cindex=cindex,
                            eval_loss=eval_loss, hazards=hazards,
                            launches=launches, steps=steps, stages=stages,
-                           epoch_ms=epoch_ms)
+                           epoch_ms=epoch_ms, probe=probe)
         per_step = [round(ms / (steps // epochs), 3) for ms in epoch_ms]
-        log(f"train {label} (fused_bn1={fused}): {steps} steps over "
+        log(f"train{tag} {label} (fused_bn1={fused}): {steps} steps over "
             f"{epochs} epochs of {arrays.n} rows (batch {cfg.batch_size}); "
             f"ms/step by epoch {per_step or 'not measured (CPU)'}; losses "
             f"{[round(x, 7) for x in losses]}; eval C-index {cindex:.6f}, "
@@ -1108,55 +1453,128 @@ def phase_train(table, paths, rna_dim, device="cuda", image_shape=(64, 64, 32),
         check(all(v == want for v in launches.values()),
               f"fused kernel launches {launches} on the training path, "
               f"expected {want} each ({stages} fused stages x {steps} steps)")
+        check(others == [0] * len(others),
+              f"the{tag} training path launched the other dtype's fused "
+              f"kernels: {others}")
         check(eval_launches == launches,
               f"evaluation launched fused kernels: {eval_launches}")
-        if device != "cpu":
+        if device != "cpu" and label != "fused again":
+            t0 = time.perf_counter()
             runs[label]["profile"] = _profile_step(tr, state, data, rows,
-                                                   label)
+                                                   f"{label}{tag}", bf16=bf16)
+            walls["profile"] = time.perf_counter() - t0
+        log(f"  walls s {({k: round(v, 2) for k, v in walls.items()})}")
 
     def rel(x, y):
         return [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(x, y)]
 
     a, b, again = runs["fused"], runs["unfused"], runs["fused again"]
-    for other in (b, again):
+    for run in (b, again):
         for k, v in a["weights0"].items():
-            check(torch.equal(v, other["weights0"][k]),
+            check(torch.equal(v, run["weights0"][k]),
                   f"the training runs started from other weights ({k})")
     drift = rel(a["losses"], b["losses"])
     repeat = rel(a["losses"], again["losses"])
-    check(drift[0] <= FIRST_LOSS_RTOL,
+    check(drift[0] <= first_tol,
           f"first-step loss fused {a['losses'][0]} vs unfused "
-          f"{b['losses'][0]}: rel {drift[0]:.3e} > {FIRST_LOSS_RTOL}")
-    check(max(drift) <= LOSS_DRIFT_RTOL,
+          f"{b['losses'][0]}: rel {drift[0]:.3e} > {first_tol}")
+    held = drift[1:2] if bf16 else drift[1:]  # bf16: the loss after step 1
+    check(all(d <= drift_tol for d in held),
           f"per-step losses fused {a['losses']} vs unfused {b['losses']}: "
-          f"max rel {max(drift):.3e} > {LOSS_DRIFT_RTOL}")
+          f"rel {drift} > {drift_tol}")
+    # step 1's gradients, from the same weights, batch and dropout masks
+    ga, gb = a["probe"][1], b["probe"][1]
+    stage_names = [n for n in ga if _fused_stage_param(n)]
+    check(len(stage_names) == 3 * a["stages"],
+          f"{len(stage_names)} fused-stage parameters, expected "
+          f"3 x {a['stages']}")
+    grad_gap = _grad_gap(ga, gb, stage_names)
+    grad_gap_all = _grad_gap_whole(ga, gb)
+    ratio = None
+    if bf16:
+        for k, v in a["weights0"].items():
+            check(torch.equal(v, f32["weights0"][k]),
+                  f"the bf16 and float32 runs started from other weights "
+                  f"({k})")
+        ref = f32["grads"]["unfused"]
+        gf, gu = _rel_gaps(ga, ref, stage_names), _rel_gaps(gb, ref,
+                                                            stage_names)
+        over = {n: (gf[n] - BF16_ULP / 2) / gu[n] for n in stage_names}
+        worst = max(over, key=over.get)
+        ratio = dict(worst=over[worst], at=worst,
+                     median=float(np.median(list(over.values()))),
+                     fused_f32=max(gf.values()), unfused_f32=max(gu.values()))
+        check(gf[worst] <= BF16_GRAD_RATIO * gu[worst] + BF16_ULP / 2,
+              f"step-1 gradient of {worst}: the fused bf16 path lies "
+              f"{gf[worst]:.3e} from float32, the unfused bf16 autograd "
+              f"{gu[worst]:.3e} (limit {BF16_GRAD_RATIO} x that + "
+              f"{BF16_ULP / 2})")
     dh = float(np.abs(a["hazards"] - b["hazards"]).max())
     dh_repeat = float(np.abs(a["hazards"] - again["hazards"]).max())
     spread = float(b["hazards"].max() - b["hazards"].min())
-    check(dh <= HAZARD_SPREAD_TOL * spread,
-          f"hazards fused vs unfused max |d| {dh:.3e} > "
-          f"{HAZARD_SPREAD_TOL} x their range {spread:.3e}")
+    h_tol = HAZARD_SPREAD_TOL * spread
     pairs, fragile = _comparable_pairs(
         arrays.arrays["time"], arrays.arrays["event"],
         arrays.arrays["svalid"], b["hazards"], 2 * dh)
     c_tol = fragile / max(pairs, 1) + 1e-6
     dc = abs(a["cindex"] - b["cindex"])
-    check(dc <= c_tol, f"C-index fused {a['cindex']} vs unfused "
-          f"{b['cindex']}: |d| {dc:.3e} > {c_tol:.3e}")
-    log("fused vs unfused per-step loss rel "
-        f"{['%.2e' % x for x in drift]} (step 1 tol {FIRST_LOSS_RTOL}, later "
-        f"{LOSS_DRIFT_RTOL}); fused vs fused again "
-        f"{['%.2e' % x for x in repeat]}; hazards max |d| {dh:.3e} (tol "
-        f"{HAZARD_SPREAD_TOL} x range {spread:.3e}; fused vs fused again "
-        f"{dh_repeat:.3e}: the same path's own spread); C-index |d| {dc:.3e} "
-        f"(tol {c_tol:.3e}: {fragile} of {pairs} comparable pairs within "
-        "2 x max |d hazard|)")
+    if not bf16:
+        check(dh <= h_tol,
+              f"hazards fused vs unfused max |d| {dh:.3e} > {h_tol:.3e} "
+              f"({HAZARD_SPREAD_TOL} x their range {spread:.3e})")
+        check(dc <= c_tol, f"C-index fused {a['cindex']} vs unfused "
+              f"{b['cindex']}: |d| {dc:.3e} > {c_tol:.3e}")
+    log(f"fused vs unfused{tag} per-step loss rel "
+        f"{['%.2e' % x for x in drift]} (step 1 tol {first_tol}, "
+        + (f"step 2 {drift_tol}, later not held" if bf16
+           else f"later {drift_tol}")
+        + f"); fused vs fused again {['%.2e' % x for x in repeat]}; "
+        f"step-1 gradients ||d|| / ||unfused||: fused stages' dW, dgamma, "
+        f"dbeta at most {grad_gap[0]:.3e} ({grad_gap[1]}), the whole "
+        f"gradient {grad_gap_all:.3e} (not held)"
+        + (f"; each against float32 (phase 8's unfused): fused bf16 at most "
+           f"{ratio['fused_f32']:.3e}, unfused bf16 {ratio['unfused_f32']:.3e}"
+           f", (fused - ulp/2) / unfused at most {ratio['worst']:.3f} "
+           f"({ratio['at']}; median {ratio['median']:.3f}; limit "
+           f"{BF16_GRAD_RATIO})" if bf16 else "")
+        + "; "
+        f"hazards max |d| {dh:.3e} (fused vs fused again {dh_repeat:.3e}, "
+        f"range {spread:.3e}"
+        + (f"; not held in bf16)" if bf16 else
+           f"; tol {h_tol:.3e}: {HAZARD_SPREAD_TOL} x range)")
+        + f"; C-index |d| {dc:.3e} ({fragile} of {pairs} comparable pairs "
+        f"within 2 x max |d hazard|"
+        + ("; not held in bf16)" if bf16 else f"; tol {c_tol:.3e})"))
+    gaps16 = None
+    if bf16:
+        # the bf16 paths against phase 8's float32 ones, from the same
+        # weights, batches and dropout masks: each path's own rounding
+        gaps16 = {}
+        for k in ("fused", "unfused"):
+            gaps16[k] = dict(
+                loss=rel(runs[k]["losses"], f32["losses"][k]),
+                grad=_grad_gap(runs[k]["probe"][1], f32["grads"][k],
+                               stage_names),
+                grad_all=_grad_gap_whole(runs[k]["probe"][1],
+                                         f32["grads"][k]),
+                hazard=float(np.abs(runs[k]["hazards"]
+                                    - f32["hazards"][k]).max()))
+            g = gaps16[k]
+            log(f"  bf16 {k} vs float32 {k}: per-step loss rel "
+                f"{['%.2e' % x for x in g['loss']]}; step-1 gradients "
+                f"fused stages at most {g['grad'][0]:.3e} ({g['grad'][1]}), "
+                f"the whole gradient {g['grad_all']:.3e}; hazards max |d| "
+                f"{g['hazard']:.3e}")
     steady = {k: (r["epoch_ms"][-1] / (r["steps"] // epochs)
                   if r["epoch_ms"] else None) for k, r in runs.items()}
     return a["launches"], dict(
         steps=a["steps"], stages=a["stages"], loss_drift=drift,
         loss_repeat=repeat, hazard_diff=dh, hazard_repeat=dh_repeat,
-        cindex_diff=dc,
+        grad_gap=grad_gap, grad_gap_all=grad_gap_all, grad_ratio=ratio,
+        gaps_bf16_f32=gaps16, weights0=a["weights0"],
+        cindex_diff=dc, hazards={k: r["hazards"] for k, r in runs.items()},
+        losses={k: r["losses"] for k, r in runs.items()},
+        grads={k: runs[k]["probe"][1] for k in ("fused", "unfused")},
         ms_per_step_fused=steady["fused"],
         ms_per_step_unfused=steady["unfused"],
         profile_fused=a.get("profile"), profile_unfused=b.get("profile"))
@@ -1176,9 +1594,10 @@ def _drive_cli(main, argv, device):
     """Run a training CLI's ``main(argv)`` in-process. The W-pass and fused
     launch counts are reset just before it and read just after; the W-pass
     count is read again right after the ingest (``prepare_cv_data``).
-    Returns the payload, the walls, the counts, the driver's outcomes, the
-    prepared arrays and splits, each train epoch's (ms by CUDA events,
-    steps), and the messages the train package logged."""
+    Returns the payload, the walls, the counts (the fused kernels' per
+    dtype), the driver's outcomes, the prepared arrays and splits, each
+    train epoch's (ms by CUDA events, steps), each evaluation's (hazards,
+    rows), and the messages the train package logged."""
     import logging
 
     import torch
@@ -1188,9 +1607,9 @@ def _drive_cli(main, argv, device):
     from multimodal_survival_prediction_tpu_torch.train import cli, cv, engine
 
     sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
-    kept, epochs, messages = {}, [], []
+    kept, epochs, messages, evals = {}, [], [], []
     prepare, run = cv.prepare_cv_data, cli.run_cross_validation
-    train_epoch = engine.Trainer.train_epoch
+    train_epoch, evaluate = engine.Trainer.train_epoch, engine.Trainer.evaluate
 
     def prepare_and_keep(*a, **k):  # the ingest's wall and launches
         t = time.perf_counter()
@@ -1218,6 +1637,11 @@ def _drive_cli(main, argv, device):
         epochs.append((ms, len(self.step_losses)))
         return out
 
+    def kept_evaluation(self, state, data, indices):
+        out = evaluate(self, state, data, indices)
+        evals.append((out[2], list(indices)))
+        return out
+
     class _Keep(logging.Handler):
         def emit(self, record):
             messages.append(record.getMessage())
@@ -1229,6 +1653,7 @@ def _drive_cli(main, argv, device):
     cv.prepare_cv_data, cli.run_cross_validation = prepare_and_keep, \
         run_and_keep
     engine.Trainer.train_epoch = timed_epoch
+    engine.Trainer.evaluate = kept_evaluation
     try:
         rs.wpass.launches = 0  # the CLI's counts start here
         fd.reset_launches()
@@ -1237,13 +1662,16 @@ def _drive_cli(main, argv, device):
         sync()
         wall = time.perf_counter() - t0
         fused = [k.launches for k in fd.KERNELS]  # ... and are read here
+        fused_bf16 = [k.launches_bf16 for k in fd.KERNELS]
     finally:
         cv.prepare_cv_data, cli.run_cross_validation = prepare, run
         engine.Trainer.train_epoch = train_epoch
+        engine.Trainer.evaluate = evaluate
         logger.removeHandler(handler)
         logger.setLevel(level)
     return dict(kept, payload=payload, wall_s=wall, fused=fused,
-                epochs=epochs, messages=messages)
+                fused_bf16=fused_bf16, epochs=epochs, evals=evals,
+                messages=messages)
 
 
 def _per_fold(outcomes, epochs, stage1_epochs=0):
@@ -1395,6 +1823,134 @@ def phase_cv(work, table, paths, n_img, smi="", device="cuda", extra_argv=(),
 
 
 # --------------------------------------------------------------------------
+# 9b: the --bf16 training CLI (bf16 compute, float32 checkpoints)
+# --------------------------------------------------------------------------
+
+BF16_CLI_ENTRIES = (("partial_modality", "partial_modality_training"),
+                    ("rnaseq_only", "train_rnaseq_only"))
+
+
+def phase_cli_bf16(work, table, paths, n_img, smi="", device="cuda",
+                   extra_argv=(), expect_launches=True):
+    """``partial_modality_training --bf16`` and ``train_rnaseq_only --bf16``
+    in-process on the phase-4 cohort, ``--pallas-resample --n-folds 2
+    --epochs 1``: the W-pass kernel in the ingest (one launch per imaging
+    patient; none for rnaseq_only), no fused kernel of either dtype (the
+    driver trains unfused, as JAX's); cv_results.json and both fold
+    checkpoints, float32, whose .meta.json names no dtype. Then
+    ``predict_risk`` (float32, as JAX scores them) on each fold checkpoint:
+    its C-index on the fold's validation patients equals the fold's
+    best_c_index except for the comparable pairs whose float32 hazards lie
+    within twice the fold's bf16-vs-f32 hazard gap (the largest |d| between
+    the bf16 hazards the driver evaluated and predict_risk's, each side of
+    a pair moving by at most that gap). Returns each entry's numbers."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from multimodal_survival_prediction_tpu_torch.config import ALL_CONFIGS
+    from multimodal_survival_prediction_tpu_torch.io.checkpoint import (
+        load_checkpoint,
+        load_fold_meta,
+    )
+    from multimodal_survival_prediction_tpu_torch.io.results import (
+        load_cv_results,
+    )
+    from multimodal_survival_prediction_tpu_torch.ops import resample as rs
+    from multimodal_survival_prediction_tpu_torch.train.predict import (
+        fold_checkpoints,
+        predict_risk,
+    )
+
+    t_phase = time.perf_counter()
+    out = {}
+    for name, entry in BF16_CLI_ENTRIES:
+        cfg = ALL_CONFIGS[name]
+        main = importlib.import_module(
+            f"multimodal_survival_prediction_tpu_torch.train.{entry}").main
+        results, models = work / "bf16_results", work / "bf16_models"
+        argv = ["--data-root", str(paths["root"]), "--results-dir",
+                str(results), "--models-dir", str(models),
+                "--pallas-resample", "--n-folds", "2", "--epochs", "1",
+                "--bf16", "--device", device, *extra_argv]
+        run = _drive_cli(main, argv, device)
+        payload, arrays, splits = run["payload"], run["arrays"], run["splits"]
+        want_ingest = (n_img if "image" in cfg.modalities
+                       and expect_launches else 0)
+        tf32 = [m for m in run["messages"] if "allow_tf32" in m]
+        log(f"CLI {entry} --bf16 ({smi}): wall {run['wall_s']:.2f} s, "
+            f"ingest {run['ingest_s']:.2f} s with {run['ingest_launches']} "
+            f"W-pass launches; fused launches float32 {run['fused']}, bf16 "
+            f"{run['fused_bf16']}; epoch ms {[e[0] for e in run['epochs']]}")
+        check(run["ingest_launches"] == want_ingest,
+              f"{entry} --bf16: {run['ingest_launches']} W-pass launches in "
+              f"the ingest, expected {want_ingest}")
+        check(run["fused"] == [0] * 4 and run["fused_bf16"] == [0] * 4,
+              f"{entry} --bf16: the unfused driver launched fused kernels "
+              f"{run['fused']} / {run['fused_bf16']}")
+        check(len(tf32) == 1 and "matmul.allow_tf32=False" in tf32[0]
+              and "cudnn.allow_tf32=False" in tf32[0],
+              f"{entry} --bf16 did not log both TF32 flags off: {tf32}")
+        loaded = load_cv_results(results / name)
+        check(loaded["raw"] == payload and len(payload["fold_results"]) == 2
+              and all(math.isfinite(f["best_c_index"])
+                      for f in payload["fold_results"]),
+              f"{entry} --bf16: cv_results.json {loaded['raw']}")
+        ckpts = fold_checkpoints(models, name)
+        check([c.name for c in ckpts] == ["fold_1_best.pt", "fold_2_best.pt"],
+              f"{entry} --bf16: fold checkpoints {ckpts}")
+        check(len(run["evals"]) == 2, f"{entry} --bf16: evaluations "
+              f"{len(run['evals'])}, expected one per fold")
+        folds = []
+        for ckpt, fold, (_, val_rows, _), (h16, rows) in zip(
+                ckpts, payload["fold_results"], splits, run["evals"]):
+            weights = load_checkpoint(ckpt)
+            meta = load_fold_meta(ckpt)
+            check(all(t.dtype == torch.float32 for t in weights.values()
+                      if t.is_floating_point()) and "dtype" not in meta,
+                  f"{ckpt}: not a float32 checkpoint ({meta})")
+            rs.wpass.launches = 0
+            pred = predict_risk(cfg, ckpt, table,
+                                rnaseq_csv=paths["rnaseq_csv"],
+                                labeled_only=False, device=device)
+            check(rows == list(val_rows), f"{entry}: evaluated rows {rows}")
+            ids = list(arrays.patient_ids)
+            at = [list(pred["patient_id"]).index(ids[r]) for r in val_rows]
+            h32 = pred["risk_score"][at].astype(np.float64)
+            gap = float(np.abs(h32 - np.asarray(h16, np.float64)).max())
+            t = arrays.arrays["time"][val_rows]
+            e = arrays.arrays["event"][val_rows]
+            v = arrays.arrays["svalid"][val_rows]
+            from multimodal_survival_prediction_tpu_torch.ops.cindex import (
+                concordance_index,
+            )
+            c = float(concordance_index(torch.from_numpy(h32).float(), t, e,
+                                        valid=v))
+            pairs, fragile = _comparable_pairs(t, e, v, h32, 2 * gap)
+            tol = fragile / max(pairs, 1) + 1e-6
+            dc = abs(c - fold["best_c_index"])
+            log(f"  {entry} --bf16 {ckpt.name}: predict_risk (float32) "
+                f"C-index {c:.6f} vs best_c_index {fold['best_c_index']:.6f} "
+                f"(|d| {dc:.3e}, tol {tol:.3e}: {fragile} of {pairs} "
+                f"comparable pairs within 2 x the bf16-vs-f32 hazard gap "
+                f"{gap:.3e}); {rs.wpass.launches} W-pass launches")
+            check(dc <= tol, f"{entry} --bf16 {ckpt.name}: C-index {c} from "
+                  f"the checkpoint, best_c_index {fold['best_c_index']}")
+            folds.append(dict(fold=fold["fold"], c_index=c,
+                              best_c_index=fold["best_c_index"],
+                              hazard_gap=gap, pairs=pairs, fragile=fragile))
+        out[name] = dict(wall_s=run["wall_s"], ingest_s=run["ingest_s"],
+                         ingest_launches=run["ingest_launches"],
+                         fused_bf16=run["fused_bf16"],
+                         epoch_ms=[e[0] for e in run["epochs"]],
+                         folds=folds)
+    log(f"--bf16 CLIs ({smi}): the phase "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+# --------------------------------------------------------------------------
 # 10: the seven other families (training CLIs -> fold checkpoints ->
 #     predict_risk and RiskScorer)
 # --------------------------------------------------------------------------
@@ -1411,6 +1967,9 @@ FAMILY_ENTRIES = {
 FAMILY_COHORT = dict(n_patients=32, seed=15, p_imaging=0.75, p_rnaseq=0.9,
                      p_dead=0.75, image_dtype="int16", compress=False)
 FAMILY_CT_SHAPES = ((64, 256, 256), (48, 256, 256), (56, 256, 256))
+# RiskScorer scores, one at a time, the first patients of each modality
+# pattern (which of CT, RNA and age a patient has) in the family's cohort
+FAMILY_SCORED_PER_PATTERN = 4
 
 
 def phase_families(work, smi="", device="cuda", image_shapes=FAMILY_CT_SHAPES,
@@ -1514,6 +2073,8 @@ def _one_family(name, entry, main, work, table, paths, smi, device,
                   f"{name} fold {fold}: no stage-1 epoch logged before the "
                   f"main epoch: {msgs}")
 
+    walls = {}
+    t0 = time.perf_counter()
     fold_c, raw = [], []
     for ckpt, fold, (_, val_rows, _) in zip(ckpts, per_fold, splits):
         rs.wpass.launches = 0
@@ -1534,10 +2095,13 @@ def _one_family(name, entry, main, work, table, paths, smi, device,
         fold_c.append((c, fold["best_c_index"], pairs, fragile))
         raw.append(pred["risk_score"])
 
+    walls["predict_risk x2"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     pred, stats = predict_risk(cfg, ckpts, table,
                                rnaseq_csv=paths["rnaseq_csv"],
                                labeled_only=False, return_fold_stats=True,
                                device=device)
+    walls["ensemble"] = time.perf_counter() - t0
     risk = pred["risk_score"]
     check(np.all(np.isfinite(risk)), f"{name}: ensemble risks {risk}")
     none = np.nonzero(arrays.arrays["mask"].sum(1) == 0)[0]
@@ -1546,17 +2110,23 @@ def _one_family(name, entry, main, work, table, paths, smi, device,
               f"{name}: patients with no modality {none.tolist()}, risks "
               f"{risk[none].tolist()}")
 
-    # RiskScorer, one patient at a time, on every patient of the cohort
-    # with a modality, against the ensemble. The two ingests differ in the
+    # RiskScorer, one patient at a time, on up to FAMILY_SCORED_PER_PATTERN
+    # patients of each modality pattern of the cohort (every pattern with a
+    # modality), against the ensemble. The two ingests differ in the
     # last bits (the server's plain bucketed resample, the kernel's), and
     # the fold z-score divides each fold's log-hazard by its spread over
     # this 2-fold cohort, which one epoch can leave small: the limit is
     # RISK_TOL on the log-hazard, carried through that z-score.
+    t0 = time.perf_counter()
     scorer = RiskScorer(name, ckpts, fold_calibration=stats, device=device)
     rows = {r["patient_id"]: r for r in table}
     rna = load_rnaseq_matrix(paths["rnaseq_csv"])
     mask = arrays.arrays["mask"]
-    idx = np.nonzero(mask.sum(1) > 0)[0]
+    by_pattern = {}
+    for i in np.nonzero(mask.sum(1) > 0)[0]:
+        by_pattern.setdefault(tuple(mask[i] > 0), []).append(i)
+    idx = np.sort(np.concatenate([v[:FAMILY_SCORED_PER_PATTERN]
+                                  for v in by_pattern.values()]))
     patients = []
     for i in idx:
         row = rows[pred["patient_id"][i]]
@@ -1569,6 +2139,8 @@ def _one_family(name, entry, main, work, table, paths, smi, device,
             patient["age"] = row["age"]
         patients.append(patient)
     scored = np.asarray([r["risk_score"] for r in scorer.score_many(patients)])
+    walls["RiskScorer"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     d_z = np.abs(scored - risk[idx])
     sds = np.asarray([sd for _, sd in stats]) + 1e-8
     per_raw = float(np.mean(1.0 / sds))  # d(z-scored risk) / d(log-hazard)
@@ -1587,6 +2159,7 @@ def _one_family(name, entry, main, work, table, paths, smi, device,
     check(float(d_raw.max()) <= RISK_TOL,
           f"{name}: RiskScorer's fold-1 log-hazards differ from "
           f"predict_risk's by up to {d_raw.max()} (RISK_TOL {RISK_TOL})")
+    walls["RiskScorer fold 1"] = time.perf_counter() - t0
     n_params = sum(p.numel() for p in scorer.models[0].parameters())
 
     log(f"{name} (train/{entry}.py main, {smi}): {n_params} parameters; "
@@ -1601,13 +2174,18 @@ def _one_family(name, entry, main, work, table, paths, smi, device,
             f"checkpoint {c:.6f} vs best_c_index {best:.6f} ({pairs} "
             f"comparable pairs, {fragile} within {CV_HAZARD_MARGIN})")
     log(f"  RiskScorer on both folds, {len(idx)} patients one at a time "
-        f"({smi}): max |d| against the ensemble {d_z[worst]:.3e} z-scored "
+        f"(up to {FAMILY_SCORED_PER_PATTERN} of each of the "
+        f"{len(by_pattern)} modality patterns of "
+        f"{sum(len(v) for v in by_pattern.values())} patients with a "
+        f"modality) ({smi}): max |d| against the ensemble "
+        f"{d_z[worst]:.3e} z-scored "
         f"({d_z[worst] / per_raw:.3e} on the log-hazard, "
         f"{100 * d_z[worst] / limit:.1f} % of the limit {limit:.3e} = "
         f"RISK_TOL {RISK_TOL} x mean(1/sd), fold sds "
         f"{[round(float(v), 6) for v in sds]}); fold 1 alone, no z-score: "
         f"max |d| {d_raw.max():.3e} (tol {RISK_TOL}); {len(none)} patients "
-        f"with no modality, risks {np.round(risk[none], 4).tolist()}")
+        f"with no modality, risks {np.round(risk[none], 4).tolist()}; "
+        f"scoring walls s {({k: round(v, 2) for k, v in walls.items()})}")
     return dict(n_params=n_params, wall_s=run["wall_s"],
                 ingest_s=run["ingest_s"], scorer_max_d=float(d_z[worst]),
                 scorer_max_d_logh=float(d_z[worst] / per_raw),
@@ -1625,20 +2203,38 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     t_start = time.perf_counter()
-    smi = phase_device()
-    phase_build()
-    max_err, timing = phase_kernel_vs_plain()
+    walls = {}
+
+    def timed(label, fn, *a, **k):  # each phase's wall, logged at the end
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        walls[label] = round(time.perf_counter() - t0, 2)
+        return out
+
+    smi = timed("1 device", phase_device)
+    timed("2 build", phase_build)
+    max_err, timing = timed("3 kernel vs plain", phase_kernel_vs_plain)
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     try:
-        table, paths, ckpt, n_img = phase_cohort(
-            work, ((96, 512, 512), (128, 512, 512), (97, 500, 500)), 5005)
-        pred, launches = phase_predict(table, paths, ckpt, n_img)
-        phase_server(table, paths, ckpt, pred)
-        fused_err, fused_timing = phase_fused_vs_plain()
-        fused_launches, train = phase_train(table, paths, 5005)
-        cv_run = phase_cv(work, table, paths, n_img, smi=smi)
-        families = phase_families(work, smi=smi)
+        table, paths, ckpt, n_img = timed(
+            "4 cohort", phase_cohort, work,
+            ((96, 512, 512), (128, 512, 512), (97, 500, 500)), 5005)
+        pred, launches = timed("5 predict", phase_predict, table, paths,
+                               ckpt, n_img)
+        timed("6 server", phase_server, table, paths, ckpt, pred)
+        fused_err, fused_timing = timed("7 fused", phase_fused_vs_plain)
+        bf16_err, bf16_timing = timed("7b fused bf16",
+                                      phase_fused_bf16_vs_plain)
+        fused_launches, train = timed("8 train", phase_train, table, paths,
+                                      5005)
+        bf16_launches, train_bf16 = timed(
+            "8b train bf16", phase_train, table, paths, 5005,
+            dtype=torch.bfloat16, f32=train)
+        cv_run = timed("9 cv", phase_cv, work, table, paths, n_img, smi=smi)
+        cli_bf16 = timed("9b cli bf16", phase_cli_bf16, work, table, paths,
+                         n_img, smi=smi)
+        families = timed("10 families", phase_families, work, smi=smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1694,6 +2290,38 @@ def main() -> int:
             "train_step": dict(train["profile_fused"]["fused"][name],
                                whole_trace=train["profile_fused"]["whole"]),
         })
+    for name in FUSED_NAMES:
+        t = bf16_timing[name]
+        kernels.append({
+            "name": f"fused_dense_{name}_bf16",
+            "route": "cuda",
+            "source": "multimodal_survival_prediction_tpu_torch/ops/csrc/"
+                      "fused_dense.cu",
+            "replaces": FUSED_REPLACES[name],
+            "launches": bf16_launches[name],
+            "max_abs_err": bf16_err[name],
+            "ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library_call": FUSED_BF16_LIBRARY[name],
+            "launches_by_path": {
+                "train_bf16": bf16_launches[name],
+                "cli_bf16": sum(v["fused_bf16"][FUSED_NAMES.index(name)]
+                                for v in cli_bf16.values())},
+            "call_ms": t["call_ms"],
+            "timed_shape": t["shape"],
+            "train_step": dict(
+                train_bf16["profile_fused"]["fused"][name],
+                whole_trace=train_bf16["profile_fused"]["whole"]),
+        })
+    log(f"bf16 training: ms/step fused {train_bf16['ms_per_step_fused']}, "
+        f"unfused {train_bf16['ms_per_step_unfused']} (float32: "
+        f"{train['ms_per_step_fused']}, {train['ms_per_step_unfused']}); "
+        f"--bf16 CLI walls s "
+        f"{ {k: round(v['wall_s'], 2) for k, v in cli_bf16.items()} }")
+    log(f"phase walls s {walls}")
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

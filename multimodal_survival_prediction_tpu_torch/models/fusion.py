@@ -9,6 +9,8 @@ The features are concatenated in each reference's own order: [rna, img]
 for simple fusion, [img, rna] for the flexible model, [ct, rna, clin] for
 the final one. Keys are the reference's (``fusion.{0,1,4,7}`` for the
 three-layer head, ``fusion.{0,1,4}`` + ``cox_head`` for the final model).
+Each takes the compute ``dtype`` of its layers, as the JAX modules do; the
+flexible model's missing-modality blend promotes to float32 there too.
 """
 
 from __future__ import annotations
@@ -25,14 +27,16 @@ from .encoders import (
 from .layers import Dropout, MLPBlock, default_generator, torch_linear
 
 
-def fusion_head(in_features: int, *, generator: torch.Generator):
+def fusion_head(in_features: int, *, generator: torch.Generator,
+                dtype: torch.dtype | None = None):
     """Linear->BN->ReLU->Drop(0.3) -> Linear->ReLU->Drop(0.2) -> Linear(1)
     (reference simple_fusion.py:206-215), keys ``0, 1, 4, 7``."""
     return nn.Sequential(
-        *MLPBlock(in_features, 256, dropout=0.3, generator=generator),
-        torch_linear(256, 128, generator=generator), nn.ReLU(),
+        *MLPBlock(in_features, 256, dropout=0.3, generator=generator,
+                  dtype=dtype),
+        torch_linear(256, 128, generator=generator, dtype=dtype), nn.ReLU(),
         Dropout(0.2),
-        torch_linear(128, 1, generator=generator))
+        torch_linear(128, 1, generator=generator, dtype=dtype))
 
 
 class SimpleFusionModel(nn.Module):
@@ -41,14 +45,15 @@ class SimpleFusionModel(nn.Module):
 
     def __init__(self, rna_dim: int = 5005, backbone: str = "densenet121",
                  block_config: tuple | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         gen = default_generator(generator)
-        self.rna_encoder = RNAEncoderDeep(rna_dim, generator=gen)
+        self.rna_encoder = RNAEncoderDeep(rna_dim, generator=gen, dtype=dtype)
         self.image_encoder = image_encoder(128, backbone=backbone,
                                            block_config=block_config,
-                                           generator=gen)
-        self.fusion = fusion_head(256 + 128, generator=gen)
+                                           generator=gen, dtype=dtype)
+        self.fusion = fusion_head(256 + 128, generator=gen, dtype=dtype)
 
     def forward(self, image, rnaseq):
         fused = torch.cat([self.rna_encoder(rnaseq),
@@ -65,16 +70,17 @@ class FlexibleMultimodalModel(nn.Module):
 
     def __init__(self, rna_dim: int = 5005, backbone: str = "densenet121",
                  block_config: tuple | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         gen = default_generator(generator)
         self.image_encoder = image_encoder(128, backbone=backbone,
                                            block_config=block_config,
-                                           generator=gen)
-        self.rna_encoder = RNAEncoderDeep(rna_dim, generator=gen)
+                                           generator=gen, dtype=dtype)
+        self.rna_encoder = RNAEncoderDeep(rna_dim, generator=gen, dtype=dtype)
         self.missing_image_bias = nn.Parameter(torch.randn(128, generator=gen))
         self.missing_rna_bias = nn.Parameter(torch.randn(256, generator=gen))
-        self.fusion = fusion_head(128 + 256, generator=gen)
+        self.fusion = fusion_head(128 + 256, generator=gen, dtype=dtype)
 
     def forward(self, image, rnaseq, mask):
         img_m, rna_m = mask[:, 0:1], mask[:, 1:2]
@@ -92,18 +98,22 @@ class MultiModalSurvivalNet(nn.Module):
 
     def __init__(self, rna_dim: int = 5005, backbone: str = "densenet121",
                  block_config: tuple | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         gen = default_generator(generator)
         self.ct_encoder = image_encoder(128, backbone=backbone,
                                         block_config=block_config,
-                                        generator=gen)
-        self.rna_encoder = RNAEncoderCompact(rna_dim, 128, generator=gen)
-        self.clinical_encoder = ClinicalEncoder(1, 32, generator=gen)
+                                        generator=gen, dtype=dtype)
+        self.rna_encoder = RNAEncoderCompact(rna_dim, 128, generator=gen,
+                                             dtype=dtype)
+        self.clinical_encoder = ClinicalEncoder(1, 32, generator=gen,
+                                                dtype=dtype)
         self.fusion = nn.Sequential(
-            *MLPBlock(128 + 128 + 32, 256, dropout=0.3, generator=gen),
-            torch_linear(256, 128, generator=gen), nn.ReLU())
-        self.cox_head = torch_linear(128, 1, generator=gen)
+            *MLPBlock(128 + 128 + 32, 256, dropout=0.3, generator=gen,
+                      dtype=dtype),
+            torch_linear(256, 128, generator=gen, dtype=dtype), nn.ReLU())
+        self.cox_head = torch_linear(128, 1, generator=gen, dtype=dtype)
 
     def forward(self, ct, rna, clinical):
         fused = torch.cat([self.ct_encoder(ct), self.rna_encoder(rna),

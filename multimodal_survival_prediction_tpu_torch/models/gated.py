@@ -24,29 +24,34 @@ class PartialModalityNet(nn.Module):
     """``forward(ct (B,D,H,W,1), rna (B,rna_dim), clinical (B,1), mask (B,3))
     -> (hazard (B,), gate_weights (B,3))``. ``dropout`` is the rate of the
     RNA encoder's and the fusion block's dropout (0.3 in the reference),
-    whose masks come from ``layers.set_dropout_generator``."""
+    whose masks come from ``layers.set_dropout_generator``. ``dtype`` is
+    the compute dtype of every layer (JAX ``PartialModalityNet(dtype=)``);
+    the masked features promote to the mask's float32, as in JAX."""
 
     def __init__(self, rna_dim: int = 5005, backbone: str = "densenet121",
                  block_config: tuple | None = None, trunk: str = "concat",
                  fused_bn1: bool | int = False, dropout: float = 0.3,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         gen = default_generator(generator)
         self.ct_encoder = image_encoder(128, backbone=backbone,
                                         block_config=block_config,
                                         trunk=trunk, fused_bn1=fused_bn1,
-                                        generator=gen)
+                                        generator=gen, dtype=dtype)
         self.rna_encoder = RNAEncoderCompact(rna_dim, 128, dropout=dropout,
-                                             generator=gen)
-        self.clinical_encoder = ClinicalEncoder(1, 32, generator=gen)
+                                             generator=gen, dtype=dtype)
+        self.clinical_encoder = ClinicalEncoder(1, 32, generator=gen,
+                                                dtype=dtype)
         fused_dim = 128 + 128 + 32
         self.gate = nn.Sequential(
-            torch_linear(fused_dim + 3, 64, generator=gen), nn.ReLU(),
-            torch_linear(64, 3, generator=gen))
+            torch_linear(fused_dim + 3, 64, generator=gen, dtype=dtype),
+            nn.ReLU(), torch_linear(64, 3, generator=gen, dtype=dtype))
         self.fusion = nn.Sequential(
-            *MLPBlock(fused_dim, 256, dropout=dropout, generator=gen),
-            torch_linear(256, 128, generator=gen), nn.ReLU())
-        self.cox_head = torch_linear(128, 1, generator=gen)
+            *MLPBlock(fused_dim, 256, dropout=dropout, generator=gen,
+                      dtype=dtype),
+            torch_linear(256, 128, generator=gen, dtype=dtype), nn.ReLU())
+        self.cox_head = torch_linear(128, 1, generator=gen, dtype=dtype)
 
     def forward(self, ct, rna, clinical, mask):
         # Encoders run on the (possibly zero) inputs FIRST; masking is applied

@@ -17,16 +17,18 @@ from .layers import default_generator, torch_linear
 
 
 class ImageOnlyModel(nn.Module):
-    """``forward(image (B, D, H, W, 1)) -> log-hazard (B,)``."""
+    """``forward(image (B, D, H, W, 1)) -> log-hazard (B,)`` in compute
+    ``dtype`` (JAX ``ImageOnlyModel(dtype=)``)."""
 
-    def __init__(self, generator: torch.Generator | None = None):
+    def __init__(self, generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         gen = default_generator(generator)
         self.encoder = SimpleCNN3D(out_features=64, widths=(16, 32),
-                                   generator=gen)
-        self.fc = nn.Sequential(torch_linear(64, 32, generator=gen),
-                                nn.ReLU())
-        self.risk_head = torch_linear(32, 1, generator=gen)
+                                   generator=gen, dtype=dtype)
+        self.fc = nn.Sequential(
+            torch_linear(64, 32, generator=gen, dtype=dtype), nn.ReLU())
+        self.risk_head = torch_linear(32, 1, generator=gen, dtype=dtype)
 
     def forward(self, image):
         return self.risk_head(self.fc(self.encoder(image))).squeeze(-1)

@@ -17,6 +17,17 @@ variance (torch would use the unbiased one, which moves eval outputs).
 ``Dropout`` draws its masks from a generator the caller owns (the trainer
 owns one per fold), so two seeded runs draw the same masks whatever the
 global RNG holds.
+
+Compute dtype (flax's ``dtype`` of ``Dense``, ``Conv`` and ``BatchNorm``):
+the layers built here take ``dtype``. When it is set, input, weight and
+bias are cast to it at use and the result is in it (flax
+``promote_dtype``); when it is None the result type is the promotion of
+the input's and the parameters' (a bf16 input into a float32 layer gives
+float32, as in JAX). ``BatchNorm`` keeps its statistics and normalization
+in float32 and casts its output once. Parameters and buffers stay float32
+whatever ``dtype`` is, so state_dict keys and values are those of the
+float32 model. ``torch.autocast`` is not used: its op lists are not flax's
+casting points.
 """
 
 from __future__ import annotations
@@ -24,6 +35,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -33,13 +45,57 @@ def default_generator(generator: torch.Generator | None) -> torch.Generator:
     return generator if generator is not None else torch.Generator().manual_seed(0)
 
 
+def compute_dtype(dtype: torch.dtype | None, x: torch.Tensor,
+                  param: torch.Tensor) -> torch.dtype:
+    """``dtype``, or the promotion of the input's and the parameter's types
+    (flax ``canonicalize_dtype``)."""
+    return dtype or torch.promote_types(x.dtype, param.dtype)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in flax ``Dense``'s compute dtype (module docstring):
+    the product, rounded to the compute dtype, then the bias added in it,
+    as flax adds it (in bf16 that is two roundings, as in JAX)."""
+
+    dtype: torch.dtype | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = compute_dtype(self.dtype, x, self.weight)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` in flax ``Conv``'s compute dtype (module docstring),
+    the bias added after the convolution as :class:`Linear` adds it."""
+
+    dtype: torch.dtype | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = compute_dtype(self.dtype, x, self.weight)
+        x, w = x.to(dt), self.weight.to(dt)
+        if dt == torch.bfloat16 and x.device.type == "cpu":
+            # torch's CPU bf16 conv3d returned non-finite values at some
+            # shapes (batch 8, 64 -> 128 channels over 4x4x2); the float32
+            # convolution of the bf16 operands, rounded once, is the same
+            # function (bf16 products are exact in float32)
+            y = self._conv_forward(x.float(), w.float(), None).to(dt)
+        else:
+            y = self._conv_forward(x, w, None)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(dt).view(1, -1, *([1] * (y.dim() - 2)))
+
+
 def torch_linear(in_features: int, out_features: int, *,
                  generator: torch.Generator, bias: bool = True,
-                 zero_bias: bool = False) -> nn.Linear:
-    """``nn.Linear`` with torch's default init drawn from ``generator``
-    (``zero_bias``: MONAI's DenseNet head)."""
-    lin = nn.Linear(in_features, out_features, bias=bias,
-                    device="meta").to_empty(device="cpu")
+                 zero_bias: bool = False,
+                 dtype: torch.dtype | None = None) -> Linear:
+    """:class:`Linear` in compute ``dtype`` with torch's default init drawn
+    from ``generator`` (``zero_bias``: MONAI's DenseNet head)."""
+    lin = Linear(in_features, out_features, bias=bias,
+                 device="meta").to_empty(device="cpu")
+    lin.dtype = dtype
     bound = 1.0 / math.sqrt(in_features)
     with torch.no_grad():
         lin.weight.uniform_(-bound, bound, generator=generator)
@@ -52,13 +108,15 @@ def torch_linear(in_features: int, out_features: int, *,
 
 
 def conv3d(in_ch: int, out_ch: int, kernel: int, *, stride: int = 1,
-           bias: bool, kaiming: bool,
-           generator: torch.Generator) -> nn.Conv3d:
-    """``nn.Conv3d`` with padding ``(kernel-1)//2`` and either torch's
-    default uniform init or kaiming-normal (``kaiming``), from ``generator``."""
-    conv = nn.Conv3d(in_ch, out_ch, kernel, stride=stride,
-                     padding=(kernel - 1) // 2, bias=bias,
-                     device="meta").to_empty(device="cpu")
+           bias: bool, kaiming: bool, generator: torch.Generator,
+           dtype: torch.dtype | None = None) -> Conv3d:
+    """:class:`Conv3d` in compute ``dtype`` with padding ``(kernel-1)//2``
+    and either torch's default uniform init or kaiming-normal
+    (``kaiming``), from ``generator``."""
+    conv = Conv3d(in_ch, out_ch, kernel, stride=stride,
+                  padding=(kernel - 1) // 2, bias=bias,
+                  device="meta").to_empty(device="cpu")
+    conv.dtype = dtype
     fan_in = in_ch * kernel ** 3
     with torch.no_grad():
         if kaiming:
@@ -82,13 +140,17 @@ class BatchNorm(nn.Module):
     Train mode (``module.train()``): batch mean and fast variance
     ``max(E[x²]−E[x]², 0)``; running stats become ``0.9*ra + 0.1*batch``
     with the biased variance. Eval mode: ``(x−ra_mean)·rsqrt(ra_var+eps)·γ+β``.
+    Statistics and normalization run in float32 whatever x's type
+    (flax ``force_float32_reductions``); the output is cast once to
+    ``dtype``, or to the promotion of x's type and float32.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.9,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, dtype: torch.dtype | None = None):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -100,13 +162,15 @@ class BatchNorm(nn.Module):
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if self.training:
             axes = [0, *range(2, x.dim())]
-            mean = x.mean(axes)
-            var = ((x * x).mean(axes) - mean * mean).clamp_min(0.0)
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            mean = xf.mean(axes)
+            var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
             self.update_running_stats(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        y = (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(compute_dtype(self.dtype, x, self.weight))
 
     @torch.no_grad()
     def update_running_stats(self, mean: torch.Tensor, var: torch.Tensor):
@@ -142,8 +206,11 @@ class Dropout(nn.Module):
             raise RuntimeError(
                 "Dropout in train mode needs a generator: call "
                 "set_dropout_generator(model, generator)")
+        # the uniforms in float32 whatever x's type (flax draws its
+        # bernoulli mask in float32): bf16 uniforms take ~1,700 values and
+        # would move the keep rate
         u = torch.rand(x.shape, generator=self.generator, device=x.device,
-                       dtype=x.dtype)
+                       dtype=torch.float32)
         return torch.where(u >= self.p, x / (1 - self.p), 0.0)
 
     def extra_repr(self) -> str:
@@ -158,17 +225,27 @@ def set_dropout_generator(model: nn.Module, generator: torch.Generator):
 
 
 def MLPBlock(in_features: int, features: int, *, dropout: float = 0.3,
-             use_bn: bool = True, generator: torch.Generator) -> list:
-    """Linear -> BatchNorm1d -> ReLU -> Dropout, the reference's repeated
-    cell, as a module LIST to splice into the parent ``nn.Sequential``: the
-    reference's keys number the cell's modules in the parent (``fusion.0``,
-    ``fusion.1``, ...), so the cell must not nest."""
-    mods = [torch_linear(in_features, features, generator=generator)]
+             use_bn: bool = True, generator: torch.Generator,
+             dtype: torch.dtype | None = None) -> list:
+    """Linear -> BatchNorm1d -> ReLU -> Dropout in compute ``dtype``, the
+    reference's repeated cell, as a module LIST to splice into the parent
+    ``nn.Sequential``: the reference's keys number the cell's modules in
+    the parent (``fusion.0``, ``fusion.1``, ...), so the cell must not
+    nest."""
+    mods = [torch_linear(in_features, features, generator=generator,
+                         dtype=dtype)]
     if use_bn:
-        mods.append(BatchNorm(features))
+        mods.append(BatchNorm(features, dtype=dtype))
     mods.append(nn.ReLU())
     mods.append(Dropout(dropout))
     return mods
+
+
+def mean_f32(x: torch.Tensor, dims) -> torch.Tensor:
+    """Mean over ``dims`` accumulated in float32, returned in x's type (as
+    ``jnp.mean`` of a bf16 array)."""
+    return x.mean(dim=dims, dtype=torch.promote_types(x.dtype, torch.float32)
+                  ).to(x.dtype)
 
 
 def to_ncdhw(x: torch.Tensor) -> torch.Tensor:

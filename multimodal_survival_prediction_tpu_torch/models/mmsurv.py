@@ -18,6 +18,10 @@ softmax, not NaN; attention-weight dropout draws ONE keep mask of shape
 matrices are fixed numpy draws (seeds 1 and 2), registered as
 non-persistent buffers: they are not in a checkpoint. The reference has no
 torch layout for this model; the port's keys are in ``io/jax_import.py``.
+
+``dtype`` reaches the three encoders alone, as in JAX: the CBP casts to
+float32, ``cbp_proj``, the attention blocks and the head have no compute
+dtype, so the token stack promotes to float32 and stays there.
 """
 
 from __future__ import annotations
@@ -156,19 +160,21 @@ class MMsurvNet(nn.Module):
     128-wide tokens, a 256-wide CBP sketch, two transformer blocks
     (``layer0``, ``layer1``). ``dropout`` is the rate of the attention-weight,
     feed-forward and pooled dropouts (0.5, results/mmsurv); the RNA encoder
-    keeps its own 0.3."""
+    keeps its own 0.3. ``dtype``: the encoders' compute dtype."""
 
     def __init__(self, rna_dim: int = 5005, backbone: str = "densenet121",
                  block_config: tuple | None = None, dropout: float = 0.5,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         gen = default_generator(generator)
         self.image_encoder = image_encoder(TOKEN_DIM, backbone=backbone,
                                            block_config=block_config,
-                                           generator=gen)
+                                           generator=gen, dtype=dtype)
         self.rna_encoder = RNAEncoderCompact(rna_dim, TOKEN_DIM,
-                                             generator=gen)
-        self.clinical_encoder = ClinicalEncoder(1, TOKEN_DIM, generator=gen)
+                                             generator=gen, dtype=dtype)
+        self.clinical_encoder = ClinicalEncoder(1, TOKEN_DIM, generator=gen,
+                                                dtype=dtype)
         self.cbp = CompactBilinearPooling(TOKEN_DIM, TOKEN_DIM, CBP_DIM)
         self.cbp_proj = torch_linear(CBP_DIM, TOKEN_DIM, generator=gen)
         self.pos_embed = nn.Parameter(

@@ -10,7 +10,8 @@ feature is the gate-weighted sum, scored by the ensemble Cox head.
 ``forward`` returns ``(ensemble hazard (B,), expert hazards (B, 3) in
 [image, rnaseq, clinical] order, gates (B, 3))``. Keys are the reference's
 (``expert_image.encoder.*``, ``expert_rnaseq.cox_head.*``,
-``gating.gate.{0,3,5}``, ``ensemble_cox``).
+``gating.gate.{0,3,5}``, ``ensemble_cox``). Every layer takes the compute
+``dtype``, as in JAX; the masked features promote to the mask's float32.
 """
 
 from __future__ import annotations
@@ -28,10 +29,12 @@ class ModalityExpert(nn.Module):
     """``encoder`` (to 128 features) + ``cox_head``;
     ``forward(x) -> (feature, hazard)``."""
 
-    def __init__(self, encoder: nn.Module, *, generator: torch.Generator):
+    def __init__(self, encoder: nn.Module, *, generator: torch.Generator,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.encoder = encoder
-        self.cox_head = torch_linear(FEATURE_DIM, 1, generator=generator)
+        self.cox_head = torch_linear(FEATURE_DIM, 1, generator=generator,
+                                     dtype=dtype)
 
     def forward(self, x):
         feat = self.encoder(x)
@@ -42,13 +45,15 @@ class GatingNetwork(nn.Module):
     """MLP(3·128 + 3 -> 128 -> 64 -> 3), Dropout(0.2) after the first ReLU,
     softmax over the available modalities."""
 
-    def __init__(self, *, generator: torch.Generator):
+    def __init__(self, *, generator: torch.Generator,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.gate = nn.Sequential(
-            torch_linear(FEATURE_DIM * 3 + 3, 128, generator=generator),
+            torch_linear(FEATURE_DIM * 3 + 3, 128, generator=generator,
+                         dtype=dtype),
             nn.ReLU(), Dropout(0.2),
-            torch_linear(128, 64, generator=generator), nn.ReLU(),
-            torch_linear(64, 3, generator=generator))
+            torch_linear(128, 64, generator=generator, dtype=dtype),
+            nn.ReLU(), torch_linear(64, 3, generator=generator, dtype=dtype))
 
     def forward(self, concat, mask):
         logits = torch.where(mask == 0, -1e30, self.gate(concat))
@@ -63,23 +68,28 @@ class SimMLMSurvivalNet(nn.Module):
 
     def __init__(self, rna_dim: int = 5005, backbone: str = "densenet121",
                  block_config: tuple | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         gen = default_generator(generator)
         self.expert_image = ModalityExpert(
             image_encoder(FEATURE_DIM, backbone=backbone,
-                          block_config=block_config, generator=gen),
-            generator=gen)
+                          block_config=block_config, generator=gen,
+                          dtype=dtype),
+            generator=gen, dtype=dtype)
         self.expert_rnaseq = ModalityExpert(
-            RNAEncoderCompact(rna_dim, FEATURE_DIM, generator=gen),
-            generator=gen)
+            RNAEncoderCompact(rna_dim, FEATURE_DIM, generator=gen,
+                              dtype=dtype),
+            generator=gen, dtype=dtype)
         self.expert_clinical = ModalityExpert(
-            nn.Sequential(torch_linear(1, 64, generator=gen), nn.ReLU(),
-                          torch_linear(64, FEATURE_DIM, generator=gen),
-                          nn.ReLU()),
-            generator=gen)
-        self.gating = GatingNetwork(generator=gen)
-        self.ensemble_cox = torch_linear(FEATURE_DIM, 1, generator=gen)
+            nn.Sequential(
+                torch_linear(1, 64, generator=gen, dtype=dtype), nn.ReLU(),
+                torch_linear(64, FEATURE_DIM, generator=gen, dtype=dtype),
+                nn.ReLU()),
+            generator=gen, dtype=dtype)
+        self.gating = GatingNetwork(generator=gen, dtype=dtype)
+        self.ensemble_cox = torch_linear(FEATURE_DIM, 1, generator=gen,
+                                         dtype=dtype)
 
     def forward(self, image, rnaseq, clinical, mask):
         feat_img, h_img = self.expert_image(image)

@@ -16,17 +16,19 @@ from .layers import MLPBlock, default_generator, torch_linear
 
 
 class RNASeqSurvivalModel(nn.Module):
-    """``forward(rnaseq (B, rna_dim)) -> log-hazard (B,)``."""
+    """``forward(rnaseq (B, rna_dim)) -> log-hazard (B,)`` in compute
+    ``dtype`` (JAX ``RNASeqSurvivalModel(dtype=)``)."""
 
     def __init__(self, rna_dim: int = 5005,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         gen = default_generator(generator)
         self.mlp = nn.Sequential(
-            *MLPBlock(rna_dim, 1024, dropout=0.3, generator=gen),
-            *MLPBlock(1024, 512, dropout=0.3, generator=gen),
-            *MLPBlock(512, 256, dropout=0.3, generator=gen),
-            torch_linear(256, 1, generator=gen))
+            *MLPBlock(rna_dim, 1024, dropout=0.3, generator=gen, dtype=dtype),
+            *MLPBlock(1024, 512, dropout=0.3, generator=gen, dtype=dtype),
+            *MLPBlock(512, 256, dropout=0.3, generator=gen, dtype=dtype),
+            torch_linear(256, 1, generator=gen, dtype=dtype))
 
     def forward(self, rnaseq):
         return self.mlp(rnaseq).squeeze(-1)

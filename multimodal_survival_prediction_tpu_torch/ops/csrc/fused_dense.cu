@@ -1,4 +1,5 @@
-// Fused train-mode BatchNorm -> ReLU -> 1x1x1 conv, for Hopper (sm_90a), fp32.
+// Fused train-mode BatchNorm -> ReLU -> 1x1x1 conv, for Hopper (sm_90a), in
+// fp32 and in bf16 (the bf16 section below has its own design notes).
 //
 // Replaces the four Pallas kernels of
 // multimodal_survival_prediction_tpu/ops/fused_dense.py:
@@ -22,6 +23,9 @@
 // the moments pass is bound by bytes. The DenseNet's small stages (N = 2048,
 // 256, 32 rows) are bound by neither: they are a few microseconds of latency,
 // so what matters there is how many blocks share the walk over C.
+// In bf16 (989 TFLOP/s dense on the tensor cores) the bytes of x, g, the
+// output and dx halve and one product replaces three: every bf16 kernel is
+// bound by its bytes at the 16,384-row stages.
 //
 // Design:
 //   * One GEMM core (TileCopy, split_b, gemm_mainloop) serves the three
@@ -92,6 +96,7 @@
 //     instantiated for either axis of W being the contiguous one.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -515,18 +520,29 @@ __device__ __forceinline__ void stage_x_tile(float* x_tile,
 
 // ---------------------------------------------------------------- moments
 
+// An element of x as fp32: a float, or a bf16 held as its 16 bits.
+__device__ __forceinline__ float bf16_bits_to_f32(uint16_t b) {
+  return __uint_as_float(static_cast<uint32_t>(b) << 16);
+}
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f32(const uint16_t* p) {
+  return bf16_bits_to_f32(__ldg(p));
+}
+
 // Block (kMomCh channels x kMomLanes row lanes) sums one chunk of rows.
 // part is (chunks, 2C): sums at [chunk][c], sums of squares at [chunk][C+c].
-__global__ void __launch_bounds__(kMomCh * kMomLanes)
-moments_partial_kernel(const float* __restrict__ x, long long n, int c,
-                       long long rows_per_chunk, float* __restrict__ part) {
+template <class T>
+__device__ __forceinline__ void moments_partial(const T* __restrict__ x,
+                                                long long n, int c,
+                                                long long rows_per_chunk,
+                                                float* __restrict__ part) {
   const int ch = blockIdx.y * kMomCh + threadIdx.x;
   const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_chunk;
   const long long r1 = min(n, r0 + rows_per_chunk);
   float s = 0.f, q = 0.f;
   if (ch < c) {
     for (long long r = r0 + threadIdx.y; r < r1; r += kMomLanes) {
-      const float v = __ldg(x + r * c + ch);
+      const float v = load_f32(x + r * c + ch);
       s += v;
       q = fmaf(v, v, q);
     }
@@ -544,6 +560,20 @@ moments_partial_kernel(const float* __restrict__ x, long long n, int c,
     dst[ch] = s;
     dst[c + ch] = q;
   }
+}
+
+__global__ void __launch_bounds__(kMomCh * kMomLanes)
+moments_partial_kernel(const float* __restrict__ x, long long n, int c,
+                       long long rows_per_chunk, float* __restrict__ part) {
+  moments_partial(x, n, c, rows_per_chunk, part);
+}
+
+// The same sums over bf16 rows (sums in fp32; the fold is the f32 one's).
+__global__ void __launch_bounds__(kMomCh * kMomLanes)
+moments_partial_bf16_kernel(const uint16_t* __restrict__ x, long long n,
+                            int c, long long rows_per_chunk,
+                            float* __restrict__ part) {
+  moments_partial(x, n, c, rows_per_chunk, part);
 }
 
 // The fold of every kernel's per-block partials, two segments in one launch
@@ -1012,6 +1042,516 @@ bwd_reduce_kernel(const DwArgs dw, const DaArgs da, const Grid dw_grid,
   }
 }
 
+// ------------------------------------------------------------------- bf16
+//
+// The bf16 variants of apply, bwd_reduce and bwd_dx (the JAX kernels run in
+// the compute dtype: bf16 operands into the products, fp32 accumulation;
+// out and dx in bf16; dW, dgamma and dbeta in fp32). One GEMM core on
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: a product of two
+// bf16 values is exact in fp32, so one product a 16-deep slab replaces the
+// fp32 core's three TF32 ones, and mma.sync needs neither the TF32 split
+// nor wgmma's shared-memory layouts. Each warp owns 16 rows of the 64-row
+// tile (the fp32 core's Lane layout, so store_acc serves both), and the
+// tile is 64 or 128 columns wide as the launch plan says.
+//
+// Loads: a step is 32 deep (64 bytes of a row, the fp32 step's bytes). Each
+// thread loads its 8-element pieces of the next step into registers (one
+// 16-byte load a piece where the axis is contiguous and aligned, else one
+// element at a time, zero past the edge) while the tensor cores run the
+// current step, then writes them to shared memory as [outer][K] rows of
+// kBK2 + 8 elements (80 bytes: the fragment reads hit 32 banks). The BN +
+// ReLU prologue runs on that write: each element of x is converted to
+// fp32, normalized, ReLU'd and rounded to bf16 once, by the thread that
+// loaded it (the ReLU mask is the plain version's: the same two fp32
+// roundings). Split-K (apply over C, dW over rows) and bwd_reduce's split
+// of F write fp32 partials that the fp32 path's fold sums in a fixed order
+// (apply's partials fold straight to bf16); bwd_dx is one unsplit launch.
+
+constexpr int kBK2 = 32;         // bf16 K step: two 16-deep mma slabs
+constexpr int kLd2 = kBK2 + 8;   // shared-memory row of a bf16 tile
+template <int T>
+constexpr int kTile2 = T * kLd2;  // bf16 elements of a [T][kLd2] tile
+static_assert(kMaxK % kBK2 == 0, "apply's staged vectors hold whole steps");
+
+__device__ __forceinline__ uint16_t f32_to_bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return static_cast<uint32_t>(f32_to_bf16_bits(lo)) |
+         (static_cast<uint32_t>(f32_to_bf16_bits(hi)) << 16);
+}
+__device__ __forceinline__ void unpack8(const uint4& v, uint16_t (&e)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    e[q] = static_cast<uint16_t>(w[q / 2] >> (16 * (q % 2)));
+}
+__device__ __forceinline__ uint4 pack8(const uint16_t (&e)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    w[j] = static_cast<uint32_t>(e[2 * j]) |
+           (static_cast<uint32_t>(e[2 * j + 1]) << 16);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// One bf16 operand's tile loads, step after step along K. Element (o, k) of
+// the next step's tile is base[o*so + k*sk] for o < o_left and k < k_left,
+// else 0. kKC: the pieces run along K (K is the contiguous axis), else
+// along the outer axis. vec: the pieces' axis has stride 1, the other
+// stride is a multiple of 8 and the array 16-byte aligned.
+template <int T, bool kKC>
+struct TileLoad2 {
+  static constexpr int kPieces = T * kBK2 / 8 / kThreads;
+  static_assert(kPieces * 8 * kThreads == T * kBK2, "tile must split evenly");
+  const uint16_t* base;
+  long long so, sk;
+  int o_left, k_left;
+  bool vec;
+  uint4 r[kPieces];
+
+  __device__ __forceinline__ TileLoad2(const uint16_t* src, long long o0,
+                                       long long o_lim, long long so_,
+                                       long long k0, long long k_lim,
+                                       long long sk_, bool vec_)
+      : base(src + o0 * so_ + k0 * sk_), so(so_), sk(sk_),
+        o_left(static_cast<int>(min(max(o_lim - o0, 0LL), 1LL * T))),
+        k_left(static_cast<int>(min(max(k_lim - k0, 0LL), 1LL << 30))),
+        vec(vec_) {}
+
+  // The outer position and depth of this thread's piece i.
+  __device__ __forceinline__ static void piece(int i, int& o, int& k) {
+    const int u = threadIdx.x + i * kThreads;
+    if (kKC) {
+      o = u / (kBK2 / 8);
+      k = (u % (kBK2 / 8)) * 8;
+    } else {
+      o = (u % (T / 8)) * 8;
+      k = u / (T / 8);
+    }
+  }
+
+  // Loads the next step's pieces into registers.
+  __device__ __forceinline__ void load() {
+#pragma unroll
+    for (int i = 0; i < kPieces; ++i) {
+      int o, k;
+      piece(i, o, k);
+      const int along = kKC ? k_left - k : o_left - o;
+      const bool across = kKC ? o < o_left : k < k_left;
+      const int live = across ? min(max(along, 0), 8) : 0;
+      if (vec && live == 8) {
+        r[i] = __ldg(reinterpret_cast<const uint4*>(
+            base + (kKC ? o * so + k : o + k * sk)));
+      } else {
+        uint16_t e[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          e[q] = q < live ? __ldg(base + (kKC ? o * so + (k + q) * sk
+                                              : (o + q) * so + k * sk))
+                          : static_cast<uint16_t>(0);
+        r[i] = pack8(e);
+      }
+    }
+    base += kBK2 * sk;
+    k_left -= kBK2;
+  }
+
+  // Writes the pieces of step s into `tile` ([T][kLd2], K contiguous). Each
+  // element goes through op(v, o, s*kBK2 + k) in fp32 unless kRaw.
+  template <bool kRaw, class Op>
+  __device__ __forceinline__ void store(uint16_t* tile, int s, Op op) const {
+#pragma unroll
+    for (int i = 0; i < kPieces; ++i) {
+      int o, k;
+      piece(i, o, k);
+      uint16_t e[8];
+      unpack8(r[i], e);
+      if (!kRaw) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          e[q] = f32_to_bf16_bits(op(bf16_bits_to_f32(e[q]), kKC ? o : o + q,
+                                     s * kBK2 + (kKC ? k + q : k)));
+      }
+      if (kKC) {
+        *reinterpret_cast<uint4*>(tile + o * kLd2 + k) = pack8(e);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) tile[(o + q) * kLd2 + k] = e[q];
+      }
+    }
+  }
+};
+
+// d += a b: one 16 x 8 x 16 bf16 product of the warp, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t tile_word(const uint16_t* tile, int o,
+                                              int k) {
+  return *reinterpret_cast<const uint32_t*>(tile + o * kLd2 + k);
+}
+
+// One step's products: A (64 x kBK2) and B (32 NT x kBK2) from shared
+// memory, both [outer][K]; warp w's rows 16 w .. 16 w + 15.
+template <int NT>
+__device__ __forceinline__ void mma_step(const uint16_t* sa,
+                                         const uint16_t* sb,
+                                         float (&acc)[kNJ<NT>][4],
+                                         const Lane& ln) {
+#pragma unroll
+  for (int slab = 0; slab < kBK2 / 16; ++slab) {
+    const int k = 16 * slab + 2 * ln.t, r = 16 * ln.w + ln.g;
+    const uint32_t a[4] = {tile_word(sa, r, k), tile_word(sa, r + 8, k),
+                           tile_word(sa, r, k + 8),
+                           tile_word(sa, r + 8, k + 8)};
+#pragma unroll
+    for (int j = 0; j < kNJ<NT>; ++j) {
+      const int col = 8 * j + ln.g;
+      mma_bf16(acc[j], a, tile_word(sb, col, k), tile_word(sb, col, k + 8));
+    }
+  }
+}
+
+// The K loop: step s + 1's loads are in flight while step s's products run.
+// a_op(v, o, k) is A's prologue (kARaw: none). What the caller staged in
+// shared memory before the call is visible to a_op. On return every thread
+// is past its last read of sa and sb.
+template <int NT, bool kAKC, bool kBKC, bool kARaw, class AOp>
+__device__ __forceinline__ void mainloop_bf16(TileLoad2<kBM, kAKC>& a,
+                                              TileLoad2<32 * NT, kBKC>& b,
+                                              int steps, uint16_t* sa,
+                                              uint16_t* sb,
+                                              float (&acc)[kNJ<NT>][4],
+                                              const Lane& ln, AOp a_op) {
+  const auto raw = [](float v, int, int) { return v; };
+#pragma unroll
+  for (int j = 0; j < kNJ<NT>; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+  if (steps <= 0) return;
+  a.load();
+  b.load();
+  __syncthreads();  // the caller's staged vectors
+  a.template store<kARaw>(sa, 0, a_op);
+  b.template store<true>(sb, 0, raw);
+  __syncthreads();
+  for (int s = 0; s < steps; ++s) {
+    const bool more = s + 1 < steps;
+    if (more) {
+      a.load();
+      b.load();
+    }
+    mma_step<NT>(sa, sb, acc, ln);
+    __syncthreads();  // every warp is done with step s's tiles
+    if (more) {
+      a.template store<kARaw>(sa, s + 1, a_op);
+      b.template store<true>(sb, s + 1, raw);
+      __syncthreads();
+    }
+  }
+}
+
+// dst[(row0 + r)*ld + col0 + c] = bf16(acc(r, c)) for row0 + r < rows,
+// col0 + c < cols; pair: ld is even and dst 4-byte aligned.
+template <int NT>
+__device__ __forceinline__ void store_acc_bf16(
+    uint16_t* __restrict__ dst, long long ld, long long row0, long long rows,
+    int col0, int cols, const float (&acc)[kNJ<NT>][4], const Lane& ln,
+    bool pair) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long long row = row0 + 16 * ln.w + ln.g + 8 * h;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < kNJ<NT>; ++j) {
+      const int col = col0 + 8 * j + 2 * ln.t;
+      uint16_t* p = dst + row * ld + col;
+      if (pair && col + 1 < cols) {
+        *reinterpret_cast<uint32_t*>(p) =
+            pack_bf16x2(acc[j][2 * h], acc[j][2 * h + 1]);
+      } else {
+        if (col < cols) p[0] = f32_to_bf16_bits(acc[j][2 * h]);
+        if (col + 1 < cols) p[1] = f32_to_bf16_bits(acc[j][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// bf16 apply: out (N, F) = bf16(relu(x*mul + add) rounded to bf16 @ W),
+// or, with chunks of C (gridDim.z > 1), fp32 partials at part[blockIdx.z]
+// (N, F) for fold_bf16_kernel; grid (ceil(N/64), ceil(F/(32 NT)), chunks).
+template <int NT, bool kWKC>
+__global__ void __launch_bounds__(kThreads)
+apply_bf16_kernel(const uint16_t* __restrict__ x,
+                  const float* __restrict__ mul,
+                  const float* __restrict__ add,
+                  const uint16_t* __restrict__ w, long long w_sc,
+                  long long w_sf, long long n, int c, int f, int k_per_chunk,
+                  bool x_vec, bool w_vec, bool out_pair,
+                  uint16_t* __restrict__ out, float* __restrict__ part) {
+  __shared__ float smul[kMaxK], sadd[kMaxK];
+  __shared__ __align__(16) uint16_t sa[kTile2<kBM>];
+  __shared__ __align__(16) uint16_t sb[kTile2<32 * NT>];
+  const Lane ln;
+  const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
+  const int n0 = blockIdx.y * 32 * NT;
+  const int k_beg = blockIdx.z * k_per_chunk;
+  const int k_end = min(c, k_beg + k_per_chunk);
+
+  // A(m = row, k = channel) = x, B(k = channel, n = output) = W
+  TileLoad2<kBM, true> a(x, m0, n, c, k_beg, k_end, 1, x_vec);
+  TileLoad2<32 * NT, kWKC> b(w, n0, f, w_sf, k_beg, k_end, w_sc, w_vec);
+  stage_vector(smul, mul, k_beg, k_end, k_per_chunk);
+  stage_vector(sadd, add, k_beg, k_end, k_per_chunk);
+  float acc[kNJ<NT>][4];
+  mainloop_bf16<NT, true, kWKC, false>(
+      a, b, (k_end - k_beg + kBK2 - 1) / kBK2, sa, sb, acc, ln,
+      [&](float v, int, int k) {
+        return fmaxf(bn_z(v, smul[k], sadd[k]), 0.f);
+      });
+  if (gridDim.z == 1)
+    store_acc_bf16<NT>(out, f, m0, n, n0, f, acc, ln, out_pair);
+  else
+    store_acc<NT>(part + static_cast<long long>(blockIdx.z) * n * f, f, m0,
+                  n, n0, f, acc, ln, out_pair);
+}
+
+// out[j] = bf16(sum_k part[k*m + j]), k ascending: apply's channel chunks.
+__global__ void __launch_bounds__(kFoldThreads)
+fold_bf16_kernel(const float* __restrict__ part, int chunks, long long m,
+                 uint16_t* __restrict__ out) {
+  const long long j =
+      static_cast<long long>(blockIdx.x) * kFoldThreads + threadIdx.x;
+  if (j >= m) return;
+  float s = 0.f;
+  for (int k = 0; k < chunks; ++k) s += part[k * m + j];
+  out[j] = f32_to_bf16_bits(s);
+}
+
+struct DwArgs2 {
+  const uint16_t *x, *g;
+  const float *mul, *add;
+  long long n;
+  int c, f;
+  long long rows_per_chunk;
+  bool x_vec, g_vec, out_vec;
+  float* part;
+};
+
+// bf16 partial dW over one chunk of rows: part[b.z] (C, F) = bf16(a)^T g
+// in fp32; grid (ceil(C/64), ceil(F/(32 NT)), chunks).
+template <int NT>
+__device__ __forceinline__ void dw_block_bf16(const DwArgs2& p, const Block& b,
+                                              unsigned char* smem) {
+  float* smul = reinterpret_cast<float*>(smem);
+  float* sadd = smul + kBM;
+  uint16_t* sa = reinterpret_cast<uint16_t*>(sadd + kBM);
+  uint16_t* sb = sa + kTile2<kBM>;
+  const Lane ln;
+  const int c0 = b.x * kBM;
+  const int f0 = b.y * 32 * NT;
+  const long long r0 = static_cast<long long>(b.z) * p.rows_per_chunk;
+  const long long r1 = min(p.n, r0 + p.rows_per_chunk);
+
+  // A(m = channel, k = row) = x[row, channel], B(k = row, n = output) = g
+  TileLoad2<kBM, false> a(p.x, c0, p.c, 1, r0, r1, p.c, p.x_vec);
+  TileLoad2<32 * NT, false> bl(p.g, f0, p.f, 1, r0, r1, p.f, p.g_vec);
+  stage_vector(smul, p.mul, c0, p.c, kBM);
+  stage_vector(sadd, p.add, c0, p.c, kBM);
+  float acc[kNJ<NT>][4];
+  mainloop_bf16<NT, false, false, false>(
+      a, bl, static_cast<int>((r1 - r0 + kBK2 - 1) / kBK2), sa, sb, acc, ln,
+      [&](float v, int ch, int) {
+        // rows past r1 become relu(add) here, against g rows that are 0
+        return fmaxf(bn_z(v, smul[ch], sadd[ch]), 0.f);
+      });
+  store_acc<NT>(p.part + static_cast<long long>(b.z) * p.c * p.f, p.f, c0,
+                p.c, f0, p.f, acc, ln, p.out_vec);
+}
+
+// The bf16 da = g W^T product and its epilogue, as DaArgs / da_block for
+// fp32: kDx = false writes the dbeta/dgamma partials of the block's 64
+// rows (F chunk b.z); kDx = true writes dx in bf16 (one chunk).
+struct DaArgs2 {
+  const uint16_t *g, *w;
+  long long w_sc, w_sf;
+  const uint16_t* x;
+  const float *mul, *add, *mean, *rstd, *c1, *c2;
+  long long n;
+  int c, f, k_per_chunk;
+  bool g_vec, w_vec, x_pair, dx_pair;
+  uint16_t* dx;
+  float* part;
+};
+
+// x[row, ch] and x[row, ch + 1] as fp32, 0 past N or C.
+__device__ __forceinline__ float2 x_pair_of(const DaArgs2& p, long long row,
+                                            int ch) {
+  if (row >= p.n) return make_float2(0.f, 0.f);
+  const uint16_t* at = p.x + row * p.c + ch;
+  if (p.x_pair && ch + 1 < p.c) {
+    const uint32_t v = __ldg(reinterpret_cast<const unsigned int*>(at));
+    return make_float2(bf16_bits_to_f32(static_cast<uint16_t>(v)),
+                       bf16_bits_to_f32(static_cast<uint16_t>(v >> 16)));
+  }
+  return make_float2(ch < p.c ? load_f32(at) : 0.f,
+                     ch + 1 < p.c ? load_f32(at + 1) : 0.f);
+}
+
+// v[ch] and v[ch + 1], 0 past C.
+__device__ __forceinline__ float2 vec_pair_of(const float* v, int ch, int c) {
+  return make_float2(ch < c ? __ldg(v + ch) : 0.f,
+                     ch + 1 < c ? __ldg(v + ch + 1) : 0.f);
+}
+
+template <bool kDx, int NT, bool kWKC>
+__device__ __forceinline__ void da_block_bf16(const DaArgs2& p,
+                                              const Block& b,
+                                              unsigned char* smem) {
+  constexpr int kBN = 32 * NT;
+  uint16_t* sa = reinterpret_cast<uint16_t*>(smem);
+  uint16_t* sb = sa + kTile2<kBM>;
+  const int c = p.c;
+  const Lane ln;
+  const long long m0 = static_cast<long long>(b.x) * kBM;
+  const int n0 = b.y * kBN;
+  const int k_beg = b.z * p.k_per_chunk;
+  const int k_end = min(p.f, k_beg + p.k_per_chunk);
+  // A(m = row, k = f) = g[row, f], B(k = f, n = channel) = W[channel, f]
+  TileLoad2<kBM, true> a(p.g, m0, p.n, p.f, k_beg, k_end, 1, p.g_vec);
+  TileLoad2<kBN, kWKC> bl(p.w, n0, c, p.w_sc, k_beg, k_end, p.w_sf, p.w_vec);
+  float acc[kNJ<NT>][4];
+  mainloop_bf16<NT, true, kWKC, true>(
+      a, bl, (k_end - k_beg + kBK2 - 1) / kBK2, sa, sb, acc, ln,
+      [](float v, int, int) { return v; });
+
+  float s_db[kNJ<NT>][2], s_dg[kNJ<NT>][2];
+#pragma unroll
+  for (int j = 0; j < kNJ<NT>; ++j) {
+    // two neighbouring channels a thread; channels past C read zeros and
+    // are not stored
+    const int ch = n0 + 8 * j + 2 * ln.t;
+    const float2 mu = vec_pair_of(p.mul, ch, c), ad = vec_pair_of(p.add, ch, c);
+    const float2 me = vec_pair_of(p.mean, ch, c);
+    const float2 rs = vec_pair_of(p.rstd, ch, c);
+    s_db[j][0] = s_db[j][1] = s_dg[j][0] = s_dg[j][1] = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = m0 + 16 * ln.w + ln.g + 8 * h;
+      const float2 xv = x_pair_of(p, row, ch);
+      if constexpr (kDx) {
+        if (row >= p.n) continue;
+        const float2 k1 = vec_pair_of(p.c1, ch, c);
+        const float2 k2 = vec_pair_of(p.c2, ch, c);
+        const float d0 =
+            dx_of(xv.x, acc[j][2 * h], mu.x, ad.x, me.x, rs.x, k1.x, k2.x);
+        const float d1 = dx_of(xv.y, acc[j][2 * h + 1], mu.y, ad.y, me.y,
+                               rs.y, k1.y, k2.y);
+        uint16_t* dst = p.dx + row * c + ch;
+        if (p.dx_pair && ch + 1 < c) {
+          *reinterpret_cast<uint32_t*>(dst) = pack_bf16x2(d0, d1);
+        } else {
+          if (ch < c) dst[0] = f32_to_bf16_bits(d0);
+          if (ch + 1 < c) dst[1] = f32_to_bf16_bits(d1);
+        }
+      } else {
+        // rows past N add 0: their da is 0 (g is zero-filled)
+        const float dz0 = bn_z(xv.x, mu.x, ad.x) > 0.f ? acc[j][2 * h] : 0.f;
+        const float dz1 =
+            bn_z(xv.y, mu.y, ad.y) > 0.f ? acc[j][2 * h + 1] : 0.f;
+        s_db[j][0] += dz0;
+        s_db[j][1] += dz1;
+        s_dg[j][0] += dz0 * ((xv.x - me.x) * rs.x);
+        s_dg[j][1] += dz1 * ((xv.y - me.y) * rs.y);
+      }
+    }
+  }
+
+  if constexpr (!kDx) {
+    // column sums over the block's 64 rows in a fixed order, as da_block
+    constexpr int kWarps = kThreads / 32;
+    float* red = reinterpret_cast<float*>(smem);  // [2][kWarps][kBN]
+    static_assert(2 * kWarps * kBN * 4 <= kTile2<kBM> * 2, "red fits in sa");
+#pragma unroll
+    for (int j = 0; j < kNJ<NT>; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float db = s_db[j][e], dg = s_dg[j][e];
+#pragma unroll
+        for (int mask = 4; mask < 32; mask <<= 1) {
+          db += __shfl_xor_sync(0xffffffffu, db, mask);
+          dg += __shfl_xor_sync(0xffffffffu, dg, mask);
+        }
+        if (ln.g == 0) {
+          const int col = 8 * j + 2 * ln.t + e;
+          red[ln.w * kBN + col] = db;
+          red[(kWarps + ln.w) * kBN + col] = dg;
+        }
+      }
+    __syncthreads();
+    if (threadIdx.x < kBN) {
+      const int col = threadIdx.x, ch = n0 + col;
+      if (ch < c) {
+        float db = 0.f, dg = 0.f;
+        for (int r = 0; r < kWarps; ++r) {
+          db += red[r * kBN + col];
+          dg += red[(kWarps + r) * kBN + col];
+        }
+        float* dst =
+            p.part + (static_cast<long long>(b.z) * b.nx + b.x) * 2 * c;
+        dst[ch] = db;
+        dst[c + ch] = dg;
+      }
+    }
+  }
+}
+
+template <int NT>
+constexpr int kDwSmem2 = 2 * kBM * 4 + (kTile2<kBM> + kTile2<32 * NT>) * 2;
+template <int NT>
+constexpr int kDaSmem2 = (kTile2<kBM> + kTile2<32 * NT>) * 2;
+
+// bf16 bwd_dx: the da product with the BN backward as its epilogue; grid
+// (ceil(N/64), ceil(C/(32 NT))).
+template <int NT, bool kWKC>
+__global__ void __launch_bounds__(kThreads)
+bwd_dx_bf16_kernel(const DaArgs2 p) {
+  __shared__ __align__(16) unsigned char smem[kDaSmem2<NT>];
+  da_block_bf16<true, NT, kWKC>(
+      p, Block{static_cast<int>(blockIdx.x), static_cast<int>(blockIdx.y), 0,
+               static_cast<int>(gridDim.x)},
+      smem);
+}
+
+// bf16 bwd_reduce's two products in one launch, as bwd_reduce_kernel.
+template <int kDwNT, bool kWKC>
+__global__ void __launch_bounds__(kThreads)
+bwd_reduce_bf16_kernel(const DwArgs2 dw, const DaArgs2 da, const Grid dw_grid,
+                       const Grid da_grid) {
+  constexpr int kBytes =
+      kDwSmem2<kDwNT> > kDaSmem2<2> ? kDwSmem2<kDwNT> : kDaSmem2<2>;
+  __shared__ __align__(16) unsigned char smem[kBytes];
+  int id = blockIdx.x;
+  if (id < dw_grid.n) {
+    dw_block_bf16<kDwNT>(dw, Block{id % dw_grid.x, id / dw_grid.x % dw_grid.y,
+                                   id / (dw_grid.x * dw_grid.y), dw_grid.x},
+                         smem);
+  } else {
+    id -= dw_grid.n;
+    da_block_bf16<false, 2, kWKC>(
+        da, Block{id % da_grid.x, id / da_grid.x % da_grid.y,
+                  id / (da_grid.x * da_grid.y), da_grid.x},
+        smem);
+  }
+}
+
 // --------------------------------------------------------- host launchers
 
 int ceil_div(long long a, long long b) {
@@ -1080,13 +1620,15 @@ cudaError_t launch_apply(const float* x, const float* mul, const float* add,
   return cudaGetLastError();
 }
 
-Grid dw_grid_of(const DwArgs& dw, int tile_cols) {
+template <class Dw>  // DwArgs or DwArgs2
+Grid dw_grid_of(const Dw& dw, int tile_cols) {
   Grid grid{ceil_div(dw.c, kBM), ceil_div(dw.f, tile_cols), 0};
   grid.n = grid.x * grid.y * ceil_div(dw.n, dw.rows_per_chunk);
   return grid;
 }
 
-Grid da_grid_of(const DaArgs& da) {
+template <class Da>  // DaArgs or DaArgs2
+Grid da_grid_of(const Da& da) {
   Grid grid{ceil_div(da.n, kBM), ceil_div(da.c, 64), 0};
   grid.n = grid.x * grid.y * ceil_div(da.f, da.k_per_chunk);
   return grid;
@@ -1181,9 +1723,84 @@ DaArgs da_args(const float* g, const float* w, long long w_sc, long long w_sf,
 
 bool tile_cols_ok(int tile_cols) { return tile_cols == 64 || tile_cols == 128; }
 
+// ---------------------------------------------------- bf16 host launchers
+
+// True when 8-element bf16 pieces along a unit-stride axis are 16-byte
+// aligned: `contiguous` is that axis's stride, `ld` the other axis's.
+bool vec8_ok(const void* p, long long contiguous, long long ld) {
+  return contiguous == 1 && ld % 8 == 0 &&
+         reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// Pairs of bf16 along rows of `ld` elements take 4-byte accesses.
+bool pair_ok(const void* p, long long ld) {
+  return ld % 2 == 0 && reinterpret_cast<uintptr_t>(p) % 4 == 0;
+}
+
+bool k_chunk_ok(long long k) { return k > 0 && k % kBK2 == 0; }
+
+template <int NT, bool kWKC>
+cudaError_t launch_apply_bf16(const uint16_t* x, const float* mul,
+                              const float* add, const uint16_t* w,
+                              long long w_sc, long long w_sf, long long n,
+                              int c, int f, int chunks, int k_per_chunk,
+                              uint16_t* out, float* part, cudaStream_t s) {
+  dim3 grid(ceil_div(n, kBM), ceil_div(f, 32 * NT), chunks);
+  const bool w_vec = kWKC ? vec8_ok(w, w_sc, w_sf) : vec8_ok(w, w_sf, w_sc);
+  // bf16 pairs into out, or float2 pairs into every chunk's (n, f) slab
+  const bool out_pair = chunks == 1
+                            ? pair_ok(out, f)
+                            : vec2_ok(part, f) && (n * f) % 2 == 0;
+  apply_bf16_kernel<NT, kWKC><<<grid, kThreads, 0, s>>>(
+      x, mul, add, w, w_sc, w_sf, n, c, f, k_per_chunk, vec8_ok(x, 1, c),
+      w_vec, out_pair, out, part);
+  return cudaGetLastError();
+}
+
+DaArgs2 da_args_bf16(const uint16_t* g, const uint16_t* w, long long w_sc,
+                     long long w_sf, const uint16_t* x, const float* mul,
+                     const float* add, const float* mean, const float* rstd,
+                     long long n, int c, int f) {
+  DaArgs2 da{};
+  da.g = g, da.w = w, da.w_sc = w_sc, da.w_sf = w_sf, da.x = x;
+  da.mul = mul, da.add = add, da.mean = mean, da.rstd = rstd;
+  da.n = n, da.c = c, da.f = f;
+  da.g_vec = vec8_ok(g, 1, f), da.x_pair = pair_ok(x, c);
+  // W[channel, f]: the tile's K axis (f) is contiguous when w_sf == 1
+  da.w_vec = w_sf == 1 ? vec8_ok(w, w_sf, w_sc) : vec8_ok(w, w_sc, w_sf);
+  return da;
+}
+
+template <int kDwNT, bool kWKC>
+cudaError_t launch_bwd_reduce_bf16(const DwArgs2& dw, const DaArgs2& da,
+                                   cudaStream_t s) {
+  const Grid dw_grid = dw_grid_of(dw, 32 * kDwNT);
+  const Grid da_grid = da_grid_of(da);
+  bwd_reduce_bf16_kernel<kDwNT, kWKC>
+      <<<dw_grid.n + da_grid.n, kThreads, 0, s>>>(dw, da, dw_grid, da_grid);
+  return cudaGetLastError();
+}
+
+template <int NT, bool kWKC>
+cudaError_t launch_bwd_dx_bf16(const DaArgs2& da, cudaStream_t s) {
+  bwd_dx_bf16_kernel<NT, kWKC>
+      <<<dim3(ceil_div(da.n, kBM), ceil_div(da.c, 32 * NT)), kThreads, 0,
+         s>>>(da);
+  return cudaGetLastError();
+}
+
+
 }  // namespace
 
 extern "C" {
+
+// This source builds into six libraries, one nvcc each, side by side: the
+// float32 entry points, and with -DMSP_FUSED_BF16 the bf16 ones, of one of
+// three parts, -DMSP_FUSED_FWD (moments, apply), -DMSP_FUSED_BWD_REDUCE or
+// -DMSP_FUSED_BWD_DX. Only the entry points differ; the kernel templates a
+// library's entry points do not reach are not instantiated, so no build
+// compiles another's kernels.
+#ifndef MSP_FUSED_BF16
 
 // All pointers are device pointers to float32; x is (n, c) and g (n, f),
 // both C-contiguous; W is read as W[c*w_sc + f*w_sf]; vectors are (c,).
@@ -1193,6 +1810,7 @@ extern "C" {
 // (`part`) is allocated by the caller with the sizes noted; the launch plan
 // (tile_cols 64 or 128, chunk sizes as multiples of 16) is the caller's.
 
+#ifdef MSP_FUSED_FWD
 // out (2c): sums then sums of squares. part: chunks * 2c floats, with
 // chunks = ceil(n / rows_per_chunk).
 int msp_fused_moments(const float* x, long long n, int c,
@@ -1235,6 +1853,9 @@ int msp_fused_apply(const float* x, const float* mul, const float* add,
   return launch_fold_parts(part, chunks, n * f, 0, 0, out, true, s);
 }
 
+#endif  // MSP_FUSED_FWD
+
+#ifdef MSP_FUSED_BWD_REDUCE
 // out (c*f + 2c): dW (c, f), then dbeta (c), then dgamma (c). part:
 // dw_chunks * c * f floats, dw_chunks = ceil(n / rows_per_chunk)
 // (rows_per_chunk a multiple of 16), then ceil(n / 64) * da_chunks * 2c
@@ -1273,6 +1894,9 @@ int msp_fused_bwd_reduce(const float* x, const float* g, const float* w,
                            s);
 }
 
+#endif  // MSP_FUSED_BWD_REDUCE
+
+#ifdef MSP_FUSED_BWD_DX
 // dx (n, c) = mul*(dz - c1 - xhat*c2). F is contracted in chunks of
 // k_per_chunk (a multiple of 16): one chunk is the unsplit launch (tile_cols
 // 64 or 128); 2 to 8 chunks the cluster launch (tile_cols 64), which a card
@@ -1315,6 +1939,121 @@ int msp_fused_bwd_dx_max_clusters(long long n, int c, int f, int k_per_chunk,
   return w_kc ? dx_max_clusters<true>(n, c, chunks, clusters)
               : dx_max_clusters<false>(n, c, chunks, clusters);
 }
+
+#endif  // MSP_FUSED_BWD_DX
+
+#else  // MSP_FUSED_BF16
+
+// The bf16 entry points: x, g and W are bf16 (as their 16 bits), the
+// vectors fp32; dW, dgamma, dbeta and the moments fp32, out and dx bf16.
+// Chunk sizes are multiples of 32 (the bf16 K step).
+
+#ifdef MSP_FUSED_FWD
+int msp_fused_moments_bf16(const uint16_t* x, long long n, int c,
+                           long long rows_per_chunk, float* part, float* out,
+                           void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const int chunks = ceil_div(n, rows_per_chunk);
+  dim3 grid(chunks, ceil_div(c, kMomCh));
+  moments_partial_bf16_kernel<<<grid, dim3(kMomCh, kMomLanes), 0, s>>>(
+      x, n, c, rows_per_chunk, part);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_fold_parts(part, chunks, 2LL * c, 0, 0, out, false, s);
+}
+
+// out (n, f) bf16. With more than one chunk of C, part holds chunks * n * f
+// floats folded into out in ascending order.
+int msp_fused_apply_bf16(const uint16_t* x, const float* mul,
+                         const float* add, const uint16_t* w, long long w_sc,
+                         long long w_sf, long long n, int c, int f,
+                         int tile_cols, int k_per_chunk, float* part,
+                         uint16_t* out, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (!tile_cols_ok(tile_cols) || !k_chunk_ok(k_per_chunk) ||
+      k_per_chunk > kMaxK)
+    return cudaErrorInvalidValue;
+  const int chunks = ceil_div(c, k_per_chunk);
+  const bool wide = tile_cols == 128, kc = w_sc == 1;
+#define MSP_APPLY(NT, KC)                                                  \
+  launch_apply_bf16<NT, KC>(x, mul, add, w, w_sc, w_sf, n, c, f, chunks,   \
+                            k_per_chunk, out, part, s)
+  cudaError_t e = wide ? (kc ? MSP_APPLY(4, true) : MSP_APPLY(4, false))
+                       : (kc ? MSP_APPLY(2, true) : MSP_APPLY(2, false));
+#undef MSP_APPLY
+  if (e != cudaSuccess || chunks == 1) return e;
+  fold_bf16_kernel<<<ceil_div(n * f, kFoldThreads), kFoldThreads, 0, s>>>(
+      part, chunks, n * f, out);
+  return cudaGetLastError();
+}
+
+#endif  // MSP_FUSED_FWD
+
+#ifdef MSP_FUSED_BWD_REDUCE
+// out and part as msp_fused_bwd_reduce (fp32), from bf16 x, g and W.
+int msp_fused_bwd_reduce_bf16(const uint16_t* x, const uint16_t* g,
+                              const uint16_t* w, long long w_sc,
+                              long long w_sf, const float* mul,
+                              const float* add, const float* mean,
+                              const float* rstd, long long n, int c, int f,
+                              int dw_tile_cols, long long rows_per_chunk,
+                              int da_k_per_chunk, float* part, float* out,
+                              void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (!tile_cols_ok(dw_tile_cols) || !k_chunk_ok(rows_per_chunk) ||
+      !k_chunk_ok(da_k_per_chunk))
+    return cudaErrorInvalidValue;
+  const int dw_chunks = ceil_div(n, rows_per_chunk);
+  const long long m_dw = static_cast<long long>(c) * f;
+  DwArgs2 dw{x, g, mul, add, n, c, f, rows_per_chunk, vec8_ok(x, 1, c),
+             vec8_ok(g, 1, f),
+             vec2_ok(part, f) && (dw_chunks == 1 || m_dw % 2 == 0), part};
+  DaArgs2 da = da_args_bf16(g, w, w_sc, w_sf, x, mul, add, mean, rstd, n, c,
+                            f);
+  da.k_per_chunk = da_k_per_chunk;
+  da.part = part + dw_chunks * m_dw;
+  const bool dw_wide = dw_tile_cols == 128, kc = w_sf == 1;
+  cudaError_t e;
+  if (dw_wide) {
+    e = kc ? launch_bwd_reduce_bf16<4, true>(dw, da, s)
+           : launch_bwd_reduce_bf16<4, false>(dw, da, s);
+  } else {
+    e = kc ? launch_bwd_reduce_bf16<2, true>(dw, da, s)
+           : launch_bwd_reduce_bf16<2, false>(dw, da, s);
+  }
+  if (e != cudaSuccess) return e;
+  const int bg_parts = ceil_div(n, kBM) * ceil_div(f, da_k_per_chunk);
+  return launch_fold_parts(part, dw_chunks, m_dw, bg_parts, 2LL * c, out, true,
+                           s);
+}
+
+#endif  // MSP_FUSED_BWD_REDUCE
+
+#ifdef MSP_FUSED_BWD_DX
+// dx (n, c) bf16 = mul*(dz - c1 - xhat*c2), F unsplit (tile_cols 64 or 128).
+int msp_fused_bwd_dx_bf16(const uint16_t* x, const uint16_t* g,
+                          const uint16_t* w, long long w_sc, long long w_sf,
+                          const float* mul, const float* add,
+                          const float* mean, const float* rstd,
+                          const float* c1, const float* c2, long long n, int c,
+                          int f, int tile_cols, uint16_t* dx, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (!tile_cols_ok(tile_cols)) return cudaErrorInvalidValue;
+  DaArgs2 da = da_args_bf16(g, w, w_sc, w_sf, x, mul, add, mean, rstd, n, c,
+                            f);
+  da.c1 = c1, da.c2 = c2, da.dx = dx, da.dx_pair = pair_ok(dx, c);
+  da.k_per_chunk = ceil_div(f, kBK2) * kBK2;
+  const bool kc = w_sf == 1;
+  if (tile_cols == 128)
+    return kc ? launch_bwd_dx_bf16<4, true>(da, s)
+              : launch_bwd_dx_bf16<4, false>(da, s);
+  return kc ? launch_bwd_dx_bf16<2, true>(da, s)
+            : launch_bwd_dx_bf16<2, false>(da, s);
+}
+
+#endif  // MSP_FUSED_BWD_DX
+
+#endif  // MSP_FUSED_BF16
 
 const char* msp_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -12,18 +12,25 @@ device memory:
             ``bwd_dx``      dx = mul*(dz - dbeta/N - xhat*dgamma/N)
 
 Each of the four is a hand-written CUDA kernel (``csrc/fused_dense.cu``,
-built on first use) behind a wrapper that counts its launches in
-``<wrapper>.launches``. A CUDA tensor launches the kernel or raises; a CPU
-tensor takes the plain torch version beside it (``moments_plain``, ...); no
-build or launch is wrapped in a fallback. The kernels are float32; other
-dtypes raise on the card (the bf16 variant is ROADMAP Queue 2 item 7).
+built on first use into six libraries, the float32 and the bf16 kernels of
+three parts, ``BUILDS``) behind a wrapper that counts its launches, float32
+ones in ``<wrapper>.launches`` and bfloat16 ones in
+``<wrapper>.launches_bf16``.
+A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
+torch version beside it (``moments_plain``, ...); no build or launch is
+wrapped in a fallback. x, g and W share one compute dtype, float32 or
+bfloat16, with a kernel of each; any other dtype raises on the card. In
+bfloat16 the products take bf16 operands with float32 accumulation, ``out``
+and ``dx`` come back in bf16, the statistics, dW, dgamma and dbeta in
+float32 (the op casts dW to W's dtype, as JAX does).
 
 The three products (``apply``, and the two of the backward) run on the
-tensor cores as 3xTF32 splits, which keep fp32 accuracy
-(:func:`matmul_3xtf32_plain` emulates the split in plain torch). Their
-launch plan — 64x128 or 64x64 block tiles, how many K chunks share a
-contraction — is plain Python, :func:`launch_plan`, a function of
-``(n, c, f)`` and the card's SM count only.
+tensor cores: in float32 as 3xTF32 splits, which keep fp32 accuracy
+(:func:`matmul_3xtf32_plain` emulates the split in plain torch), in bf16 as
+one bf16 product (exact in fp32). Their launch plan — 64x128 or 64x64 block
+tiles, how many K chunks share a contraction — is plain Python,
+:func:`launch_plan`, a function of ``(n, c, f)``, the card's SM count and
+the element size only.
 
 Semantics are flax's ``BatchNorm(momentum=0.9, epsilon=1e-5,
 use_fast_variance=True)`` in train mode followed by ReLU and a bias-free
@@ -51,15 +58,23 @@ import torch
 from . import _build
 
 _SOURCE = "fused_dense.cu"
+# its six libraries, one nvcc each (built side by side, so the longest
+# sets the build's time): each wrapper's part, float32 then bf16
+_PARTS = {"moments": "MSP_FUSED_FWD", "apply": "MSP_FUSED_FWD",
+          "bwd_reduce": "MSP_FUSED_BWD_REDUCE", "bwd_dx": "MSP_FUSED_BWD_DX"}
+BUILDS = tuple((_SOURCE, (part, *(("MSP_FUSED_BF16",) if bf16 else ())))
+               for bf16 in (False, True)
+               for part in dict.fromkeys(_PARTS.values()))
 _TILE_ROWS = 64   # kBM in the source: rows of a GEMM block tile
 _TILE_COLS = (128, 64)  # 32 NT in the source: the wide and the narrow tile
-_K_STEP = 16      # kBK in the source
+_STEP_BYTES = 64  # a K step is 64 bytes of a row: kBK (16) fp32, kBK2 (32) bf16
 _MAX_K = 1024     # kMaxK in the source: most channels one apply block takes
+_DTYPES = (torch.float32, torch.bfloat16)  # the kernels' compute dtypes
 _MOMENT_ROWS = 256  # rows per moments block
 _MAX_CLUSTER = 8  # kMaxCluster in the source: bwd_dx's most F chunks
 
 _lock = threading.Lock()
-_argtypes_set = False
+_typed: set = set()  # the (part, bf16) libraries whose argtypes are set
 
 
 # ---------------------------------------------------------------------------
@@ -73,9 +88,11 @@ def moments_plain(x2d: torch.Tensor):
 
 
 def apply_plain(x2d, mul, add, w2d):
-    """``relu(x*mul + add)`` cast to W's dtype, ``@ W`` -> (N, F) x.dtype."""
+    """``relu(x*mul + add)`` cast to W's dtype, ``@ W`` with float32
+    accumulation -> (N, F) x.dtype (rounded once)."""
     a = torch.relu(x2d.to(torch.float32) * mul + add)
-    return (a.to(w2d.dtype) @ w2d).to(x2d.dtype)
+    return (a.to(w2d.dtype).to(torch.float32)
+            @ w2d.to(torch.float32)).to(x2d.dtype)
 
 
 def bwd_reduce_plain(x2d, g, w2d, mul, add, mean, rstd):
@@ -112,7 +129,8 @@ def bn_relu_conv1x1_reference(x2d, scale, bias, w2d, eps: float = 1e-5):
     rstd = torch.rsqrt(var + eps)
     mul = rstd * scale.to(torch.float32)
     a = torch.relu(xf * mul + (bias.to(torch.float32) - mean * mul))
-    out = (a.to(x2d.dtype) @ w2d).to(x2d.dtype)
+    out = (a.to(x2d.dtype).to(torch.float32)
+           @ w2d.to(torch.float32)).to(x2d.dtype)
     return out, mean, var
 
 
@@ -190,10 +208,16 @@ def _split(steps: int, tiles: int, sm_count: int, max_steps=None,
 
 
 @functools.lru_cache(maxsize=None)
-def launch_plan(n: int, c: int, f: int, sm_count: int) -> LaunchPlan:
+def launch_plan(n: int, c: int, f: int, sm_count: int,
+                elem_bytes: int = 4) -> LaunchPlan:
     """The launch plan of a stage with ``n`` rows, ``c`` channels in and
-    ``f`` out on a card with ``sm_count`` SMs. A product takes the wide
-    64x128 tile (one column tile at F = 128) when that alone puts a block
+    ``f`` out on a card with ``sm_count`` SMs, for elements of
+    ``elem_bytes`` (4: float32, 2: bfloat16). A K step is 64 bytes of a
+    row: 16 fp32 or 32 bf16 elements, so chunks are multiples of that. The
+    bf16 ``bwd_dx`` kernel has no cluster split: F is one chunk there.
+
+    A product takes the wide 64x128 tile (one column tile at F = 128) when
+    that alone puts a block
     on every SM; otherwise the narrow 64x64 tile, and if that still leaves
     SMs idle its contraction is split into chunks of whole K steps until
     there are about two blocks per SM (``apply`` over the channels, dW over
@@ -203,16 +227,19 @@ def launch_plan(n: int, c: int, f: int, sm_count: int) -> LaunchPlan:
     clusters must sit whole inside one group of SMs, so fewer of them than
     two blocks per SM would suggest are resident at once, and a launch of
     two blocks per SM ran part of its clusters in a second wave."""
+    if elem_bytes not in (2, 4):
+        raise ValueError(f"no kernels for {elem_bytes}-byte elements")
+    k_step = _STEP_BYTES // elem_bytes
     wide, narrow = _TILE_COLS
     row_tiles = math.ceil(n / _TILE_ROWS)
-    c_steps, n_steps = math.ceil(c / _K_STEP), math.ceil(n / _K_STEP)
+    c_steps, n_steps = math.ceil(c / k_step), math.ceil(n / k_step)
 
     tiles = row_tiles * math.ceil(f / wide)
     apply_cols = wide
     if tiles < sm_count:
         apply_cols, tiles = narrow, row_tiles * math.ceil(f / narrow)
     apply_chunks, k_steps = _split(c_steps, tiles, sm_count,
-                                   _MAX_K // _K_STEP)
+                                   _MAX_K // k_step)
 
     tiles = math.ceil(c / _TILE_ROWS) * math.ceil(f / wide)
     dw_cols = wide
@@ -222,19 +249,20 @@ def launch_plan(n: int, c: int, f: int, sm_count: int) -> LaunchPlan:
     dw_chunks, row_steps = _split(n_steps, tiles, sm_count)
 
     dx_cols = wide if row_tiles * math.ceil(c / wide) >= sm_count else narrow
-    dx_chunks, dx_steps = _split(math.ceil(f / _K_STEP),
+    dx_chunks, dx_steps = _split(math.ceil(f / k_step),
                                  row_tiles * math.ceil(c / dx_cols), sm_count,
-                                 max_chunks=_MAX_CLUSTER, blocks_per_sm=1)
-    da_chunks, f_steps = _split(math.ceil(f / _K_STEP),
+                                 max_chunks=_MAX_CLUSTER if elem_bytes == 4
+                                 else 1, blocks_per_sm=1)
+    da_chunks, f_steps = _split(math.ceil(f / k_step),
                                 row_tiles * math.ceil(c / narrow), sm_count)
     return LaunchPlan(
         apply_tile_cols=apply_cols, apply_chunks=apply_chunks,
-        apply_k_per_chunk=k_steps * _K_STEP,
+        apply_k_per_chunk=k_steps * k_step,
         apply_scratch=apply_chunks * n * f if apply_chunks > 1 else 0,
         dw_tile_cols=dw_cols, dw_chunks=dw_chunks,
-        dw_rows_per_chunk=row_steps * _K_STEP, dx_tile_cols=dx_cols,
-        dx_chunks=dx_chunks, dx_k_per_chunk=dx_steps * _K_STEP,
-        da_chunks=da_chunks, da_k_per_chunk=f_steps * _K_STEP,
+        dw_rows_per_chunk=row_steps * k_step, dx_tile_cols=dx_cols,
+        dx_chunks=dx_chunks, dx_k_per_chunk=dx_steps * k_step,
+        da_chunks=da_chunks, da_k_per_chunk=f_steps * k_step,
         reduce_scratch=(dw_chunks * c * f
                         + row_tiles * da_chunks * 2 * c))
 
@@ -245,12 +273,15 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _plan_for(x2d: torch.Tensor, f: int) -> LaunchPlan:
-    return launch_plan(x2d.shape[0], x2d.shape[1], f, _sm_count(x2d.device))
+    return launch_plan(x2d.shape[0], x2d.shape[1], f, _sm_count(x2d.device),
+                       x2d.element_size())
 
 
-def _apply_buffers(plan: LaunchPlan, n: int, f: int, device):
-    """``(out (n, f), scratch)`` for one ``apply`` launch."""
-    out = torch.empty((n, f), dtype=torch.float32, device=device)
+def _apply_buffers(plan: LaunchPlan, n: int, f: int, device,
+                   dtype=torch.float32):
+    """``(out (n, f) in dtype, float32 scratch)`` for one ``apply``
+    launch."""
+    out = torch.empty((n, f), dtype=dtype, device=device)
     part = torch.empty(plan.apply_scratch, dtype=torch.float32, device=device)
     return out, part
 
@@ -268,34 +299,43 @@ def _reduce_buffers(plan: LaunchPlan, c: int, f: int, device):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _lib():
-    global _argtypes_set
-    lib, _ = _build.build(_SOURCE)
+def _lib(wrapper: str, bf16: bool = False):
+    """The library of ``wrapper``'s part, float32 or (``bf16``) bf16, built
+    on first use."""
+    part = _PARTS[wrapper]
+    lib, _ = _build.build(_SOURCE,
+                          (part, *(("MSP_FUSED_BF16",) if bf16 else ())))
     with _lock:
-        if not _argtypes_set:
+        if (part, bf16) not in _typed:
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.msp_fused_moments.argtypes = [p, ll, i, ll, p, p, p]
-            lib.msp_fused_apply.argtypes = [
-                p, p, p, p, ll, ll, ll, i, i, i, i, p, p, p]
-            lib.msp_fused_bwd_reduce.argtypes = [
-                p, p, p, ll, ll, p, p, p, p, ll, i, i, i, ll, i, p, p, p]
-            lib.msp_fused_bwd_dx.argtypes = [
-                p, p, p, ll, ll, p, p, p, p, p, p, ll, i, i, i, i, p, p]
-            lib.msp_fused_bwd_dx_max_clusters.argtypes = [
-                ll, i, i, i, i, ctypes.POINTER(i)]
-            for fn in (lib.msp_fused_moments, lib.msp_fused_apply,
-                       lib.msp_fused_bwd_reduce, lib.msp_fused_bwd_dx,
-                       lib.msp_fused_bwd_dx_max_clusters):
-                fn.restype = i
+            sfx = "_bf16" if bf16 else ""
+            dx = [p, p, p, ll, ll, p, p, p, p, p, p, ll, i, i, i]
+            entries = {
+                "MSP_FUSED_FWD": {
+                    "moments": [p, ll, i, ll, p, p, p],
+                    "apply": [p, p, p, p, ll, ll, ll, i, i, i, i, p, p, p]},
+                "MSP_FUSED_BWD_REDUCE": {
+                    "bwd_reduce": [p, p, p, ll, ll, p, p, p, p, ll, i, i, i,
+                                   ll, i, p, p, p]},
+                "MSP_FUSED_BWD_DX": (
+                    {"bwd_dx": dx + [p, p]} if bf16 else
+                    {"bwd_dx": dx + [i, p, p],
+                     "bwd_dx_max_clusters": [ll, i, i, i, i,
+                                             ctypes.POINTER(i)]}),
+            }[part]
+            for name, types in entries.items():
+                fn = getattr(lib, f"msp_fused_{name}{sfx}")
+                fn.argtypes, fn.restype = types, i
             lib.msp_cuda_error_string.argtypes = [i]
             lib.msp_cuda_error_string.restype = ctypes.c_char_p
-            _argtypes_set = True
+            _typed.add((part, bf16))
     return lib
 
 
-def _on_card(name: str, x2d: torch.Tensor, *others) -> bool:
+def _on_card(name: str, x2d: torch.Tensor, operands=(), vecs=()) -> bool:
     """True for CUDA tensors the kernels take, False for CPU tensors (the
-    plain path); raises for anything else."""
+    plain path); raises for anything else. ``x2d`` and ``operands`` (g, W)
+    share one compute dtype, float32 or bfloat16; ``vecs`` are float32."""
     if x2d.device.type == "cpu":
         return False
     if x2d.device.type != "cuda":
@@ -303,16 +343,28 @@ def _on_card(name: str, x2d: torch.Tensor, *others) -> bool:
     if x2d.dim() != 2 or x2d.shape[0] == 0 or x2d.shape[1] == 0:
         raise ValueError(f"{name}: expected non-empty (N, C), got "
                          f"{tuple(x2d.shape)}")
-    for t in (x2d, *others):
+    for t in (x2d, *operands, *vecs):
         if t.device != x2d.device:
             raise ValueError(f"{name}: tensors on {t.device} and {x2d.device}")
+    if x2d.dtype not in _DTYPES:
+        raise TypeError(f"{name}: the CUDA kernels take float32 or bfloat16, "
+                        f"got {x2d.dtype}")
+    for t in operands:
+        if t.dtype != x2d.dtype:
+            raise TypeError(f"{name}: operands in {t.dtype} and {x2d.dtype}; "
+                            "the kernels take one compute dtype")
+    for t in vecs:
         if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the CUDA kernels are float32, got "
-                            f"{t.dtype} (bf16: ROADMAP Queue 2 item 7)")
+            raise TypeError(f"{name}: per-channel vectors must be float32, "
+                            f"got {t.dtype}")
     if not x2d.is_contiguous():
         raise ValueError(f"{name}: x must be row-major (N, C) with C "
                          f"contiguous, got strides {x2d.stride()}")
     return True
+
+
+def _bf16(t: torch.Tensor) -> bool:
+    return t.dtype == torch.bfloat16
 
 
 def _check_operands(name, x2d, g, w2d):
@@ -338,9 +390,12 @@ def _check(lib, rc: int, what: str):
         raise RuntimeError(f"fused_dense {what} launch failed: {msg} ({rc})")
 
 
-def _count(wrapper):
+def _count(wrapper, bf16: bool):
     with _lock:
-        wrapper.launches += 1
+        if bf16:
+            wrapper.launches_bf16 += 1
+        else:
+            wrapper.launches += 1
 
 
 def _stream(dev: torch.device) -> int:
@@ -355,109 +410,120 @@ def moments(x2d: torch.Tensor):
     if not _on_card("moments", x2d):
         return moments_plain(x2d)
     n, c = x2d.shape
+    bf16 = _bf16(x2d)
     chunks = math.ceil(n / _MOMENT_ROWS)
     part = torch.empty((chunks, 2 * c), dtype=torch.float32,
                        device=x2d.device)
     out = torch.empty(2 * c, dtype=torch.float32, device=x2d.device)
-    lib = _lib()
+    lib = _lib("moments", bf16)
+    fn = lib.msp_fused_moments_bf16 if bf16 else lib.msp_fused_moments
     with torch.cuda.device(x2d.device):
-        rc = lib.msp_fused_moments(x2d.data_ptr(), n, c, _MOMENT_ROWS,
-                                   part.data_ptr(), out.data_ptr(),
-                                   _stream(x2d.device))
+        rc = fn(x2d.data_ptr(), n, c, _MOMENT_ROWS, part.data_ptr(),
+                out.data_ptr(), _stream(x2d.device))
     _check(lib, rc, "moments")
-    _count(moments)
+    _count(moments, bf16)
     return out[:c], out[c:]
 
 
 def apply(x2d, mul, add, w2d):
-    """``relu(x*mul + add) @ W`` -> (N, F) — see :func:`apply_plain`.
-    ``w2d`` (C, F) may be any strided view (the conv kernel's transpose).
-    Kernel: a pipelined 3xTF32 tensor-core product with the BN + ReLU as
-    its prologue; a small grid splits the channels into chunks whose partial
+    """``relu(x*mul + add) @ W`` -> (N, F) in x's dtype — see
+    :func:`apply_plain`. ``w2d`` (C, F) may be any strided view (the conv
+    kernel's transpose). Kernel: a tensor-core product with the BN + ReLU
+    as its prologue (pipelined 3xTF32 in float32, one bf16 product in
+    bfloat16); a small grid splits the channels into chunks whose partial
     outputs a second kernel folds in ascending order (no atomics)."""
-    if not _on_card("apply", x2d, mul, add, w2d):
+    if not _on_card("apply", x2d, (w2d,), (mul, add)):
         return apply_plain(x2d, mul, add, w2d)
     _check_operands("apply", x2d, None, w2d)
     n, c = x2d.shape
     f = w2d.shape[1]
+    bf16 = _bf16(x2d)
     mul, add = _vec(mul, c), _vec(add, c)
     dev = x2d.device
     plan = _plan_for(x2d, f)
-    out, part = _apply_buffers(plan, n, f, dev)
-    lib = _lib()
+    out, part = _apply_buffers(plan, n, f, dev, x2d.dtype)
+    lib = _lib("apply", bf16)
+    fn = lib.msp_fused_apply_bf16 if bf16 else lib.msp_fused_apply
     with torch.cuda.device(dev):
-        rc = lib.msp_fused_apply(
-            x2d.data_ptr(), mul.data_ptr(), add.data_ptr(), w2d.data_ptr(),
-            w2d.stride(0), w2d.stride(1), n, c, f, plan.apply_tile_cols,
-            plan.apply_k_per_chunk, part.data_ptr(), out.data_ptr(),
-            _stream(dev))
+        rc = fn(x2d.data_ptr(), mul.data_ptr(), add.data_ptr(),
+                w2d.data_ptr(), w2d.stride(0), w2d.stride(1), n, c, f,
+                plan.apply_tile_cols, plan.apply_k_per_chunk,
+                part.data_ptr(), out.data_ptr(), _stream(dev))
     _check(lib, rc, "apply")
-    _count(apply)
+    _count(apply, bf16)
     return out
 
 
 def bwd_reduce(x2d, g, w2d, mul, add, mean, rstd):
-    """``(dW (C, F), dgamma (C,), dbeta (C,))`` — see
+    """``(dW (C, F), dgamma (C,), dbeta (C,))``, all float32 — see
     :func:`bwd_reduce_plain`. Kernels: one launch writes dW partials per
     row chunk and dbeta / dgamma partials per 64-row tile from the product
     g Wᵀ into one scratch buffer, a second folds it in a fixed order (no
     atomics)."""
-    if not _on_card("bwd_reduce", x2d, g, w2d, mul, add, mean, rstd):
+    if not _on_card("bwd_reduce", x2d, (g, w2d), (mul, add, mean, rstd)):
         return bwd_reduce_plain(x2d, g, w2d, mul, add, mean, rstd)
     _check_operands("bwd_reduce", x2d, g, w2d)
     n, c = x2d.shape
     f = w2d.shape[1]
+    bf16 = _bf16(x2d)
     g = g.contiguous()
     mul, add, mean, rstd = (_vec(t, c) for t in (mul, add, mean, rstd))
     dev = x2d.device
     plan = _plan_for(x2d, f)
     out, part = _reduce_buffers(plan, c, f, dev)
-    lib = _lib()
+    lib = _lib("bwd_reduce", bf16)
+    fn = lib.msp_fused_bwd_reduce_bf16 if bf16 else lib.msp_fused_bwd_reduce
     with torch.cuda.device(dev):
-        rc = lib.msp_fused_bwd_reduce(
-            x2d.data_ptr(), g.data_ptr(), w2d.data_ptr(), w2d.stride(0),
-            w2d.stride(1), mul.data_ptr(), add.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), n, c, f, plan.dw_tile_cols,
-            plan.dw_rows_per_chunk, plan.da_k_per_chunk, part.data_ptr(),
-            out.data_ptr(), _stream(dev))
+        rc = fn(x2d.data_ptr(), g.data_ptr(), w2d.data_ptr(), w2d.stride(0),
+                w2d.stride(1), mul.data_ptr(), add.data_ptr(),
+                mean.data_ptr(), rstd.data_ptr(), n, c, f,
+                plan.dw_tile_cols, plan.dw_rows_per_chunk,
+                plan.da_k_per_chunk, part.data_ptr(), out.data_ptr(),
+                _stream(dev))
     _check(lib, rc, "bwd_reduce")
-    _count(bwd_reduce)
+    _count(bwd_reduce, bf16)
     dbeta, dgamma = out[c * f:c * f + c], out[c * f + c:]
     return out[:c * f].view(c, f), dgamma, dbeta
 
 
 def bwd_dx(x2d, g, w2d, mul, add, mean, rstd, c1, c2):
-    """``dx (N, C) = mul·(dz − c1 − xhat·c2)`` — see :func:`bwd_dx_plain`.
-    Kernel: the product g Wᵀ (the mainloop it shares with ``bwd_reduce``)
-    with the BN backward as its epilogue, one launch; where the grid leaves
-    SMs idle, F is split across the blocks of a thread-block cluster whose
-    partial products are summed in a fixed order in shared memory."""
-    if not _on_card("bwd_dx", x2d, g, w2d, mul, add, mean, rstd, c1, c2):
+    """``dx (N, C) = mul·(dz − c1 − xhat·c2)`` in x's dtype — see
+    :func:`bwd_dx_plain`. Kernel: the product g Wᵀ (the mainloop it shares
+    with ``bwd_reduce``) with the BN backward as its epilogue, one launch;
+    in float32, where the grid leaves SMs idle, F is split across the
+    blocks of a thread-block cluster whose partial products are summed in a
+    fixed order in shared memory (the bf16 kernel does not split F)."""
+    if not _on_card("bwd_dx", x2d, (g, w2d),
+                    (mul, add, mean, rstd, c1, c2)):
         return bwd_dx_plain(x2d, g, w2d, mul, add, mean, rstd, c1, c2)
     _check_operands("bwd_dx", x2d, g, w2d)
     plan = _plan_for(x2d, w2d.shape[1])
     dx = _launch_bwd_dx(x2d, g, w2d, (mul, add, mean, rstd, c1, c2),
                         plan.dx_tile_cols, plan.dx_k_per_chunk)
-    _count(bwd_dx)
+    _count(bwd_dx, _bf16(x2d))
     return dx
 
 
 def _launch_bwd_dx(x2d, g, w2d, vecs, tile_cols: int, k_per_chunk: int):
     """One launch of the ``bwd_dx`` kernel on CUDA tensors at the given tile
-    width and F chunk (``k_per_chunk`` >= F: the unsplit launch), without
-    counting it; :func:`bwd_dx` passes its plan's. ``vecs`` is ``(mul, add,
-    mean, rstd, c1, c2)``."""
+    width and F chunk (``k_per_chunk`` >= F: the unsplit launch; bf16
+    always launches unsplit), without counting it; :func:`bwd_dx` passes
+    its plan's. ``vecs`` is ``(mul, add, mean, rstd, c1, c2)``."""
     n, c = x2d.shape
     f = w2d.shape[1]
     g = g.contiguous()
     vecs = [_vec(t, c) for t in vecs]
-    dx = torch.empty((n, c), dtype=torch.float32, device=x2d.device)
-    lib = _lib()
+    dx = torch.empty((n, c), dtype=x2d.dtype, device=x2d.device)
+    lib = _lib("bwd_dx", _bf16(x2d))
+    head = (x2d.data_ptr(), g.data_ptr(), w2d.data_ptr(), w2d.stride(0),
+            w2d.stride(1), *(v.data_ptr() for v in vecs), n, c, f, tile_cols)
     with torch.cuda.device(x2d.device):
-        rc = lib.msp_fused_bwd_dx(
-            x2d.data_ptr(), g.data_ptr(), w2d.data_ptr(), w2d.stride(0),
-            w2d.stride(1), *(v.data_ptr() for v in vecs), n, c, f, tile_cols,
-            k_per_chunk, dx.data_ptr(), _stream(x2d.device))
+        if _bf16(x2d):
+            rc = lib.msp_fused_bwd_dx_bf16(*head, dx.data_ptr(),
+                                           _stream(x2d.device))
+        else:
+            rc = lib.msp_fused_bwd_dx(*head, k_per_chunk, dx.data_ptr(),
+                                      _stream(x2d.device))
     _check(lib, rc, "bwd_dx")
     return dx
 
@@ -470,7 +536,7 @@ def bwd_dx_max_clusters(x2d: torch.Tensor, w2d: torch.Tensor):
     plan = _plan_for(x2d, w2d.shape[1])
     if plan.dx_chunks == 1:
         return None
-    lib = _lib()
+    lib = _lib("bwd_dx")
     out = ctypes.c_int(0)
     with torch.cuda.device(x2d.device):
         rc = lib.msp_fused_bwd_dx_max_clusters(
@@ -480,18 +546,19 @@ def bwd_dx_max_clusters(x2d: torch.Tensor, w2d: torch.Tensor):
     return out.value
 
 
-moments.launches = 0
-apply.launches = 0
-bwd_reduce.launches = 0
+moments.launches = apply.launches = bwd_reduce.launches = 0  # float32
 bwd_dx.launches = 0
+moments.launches_bf16 = apply.launches_bf16 = 0  # bfloat16
+bwd_reduce.launches_bf16 = bwd_dx.launches_bf16 = 0
 KERNELS = (moments, apply, bwd_reduce, bwd_dx)
 
 
 def reset_launches():
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch counts (both dtypes) to 0."""
     with _lock:
         for k in KERNELS:
             k.launches = 0
+            k.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------

@@ -102,27 +102,31 @@ _IMAGE_MODELS = {
 }
 
 
-def _build_model(name, rna_dim, backbone, generator):
+def _build_model(name, rna_dim, backbone, generator, dtype):
     if name == "rnaseq_only":
-        return RNASeqSurvivalModel(rna_dim=rna_dim, generator=generator)
+        return RNASeqSurvivalModel(rna_dim=rna_dim, generator=generator,
+                                   dtype=dtype)
     if name == "image_only":  # its own small CNN, no backbone choice
-        return ImageOnlyModel(generator=generator)
+        return ImageOnlyModel(generator=generator, dtype=dtype)
     return _IMAGE_MODELS[name](rna_dim=rna_dim, backbone=backbone,
-                               generator=generator)
+                               generator=generator, dtype=dtype)
 
 
 def make_model_and_adapters(cfg: ModelRunConfig, rna_dim: int | None = None,
                             backbone: str = "densenet121",
                             generator: torch.Generator | None = None,
-                            dropout_generator: torch.Generator | None = None):
+                            dropout_generator: torch.Generator | None = None,
+                            dtype: torch.dtype | None = None):
     """Returns ``(model, batch_to_inputs, hazard_and_aux)``; the model is
     built on the CPU (move it with ``.to(device)``), its weights drawn from
     ``generator`` and its dropout masks from ``dropout_generator`` (which
-    must live on the device the model trains on)."""
+    must live on the device the model trains on). ``dtype`` is the compute
+    dtype every family takes (None: float32; the JAX ``dtype``), the
+    parameters stay float32."""
     batch_to_inputs, hazard_and_aux = make_adapters(cfg)
     model = _build_model(cfg.name,
                          rna_dim if rna_dim is not None else cfg.rna_dim,
-                         backbone, generator)
+                         backbone, generator, dtype)
     if dropout_generator is not None:
         set_dropout_generator(model, dropout_generator)
     return model, batch_to_inputs, hazard_and_aux

@@ -23,6 +23,8 @@ import dataclasses
 import logging
 from pathlib import Path
 
+import torch
+
 from ..data.matching_table import load_matching_table
 from ..data.synthetic import SyntheticCohortSpec, generate_synthetic_cohort
 from ..utils import parse_hu_window
@@ -39,7 +41,6 @@ _NOT_PORTED = (
     ("--fold-dp", "fold_dp", 1, "Queue 1 item 9 (fold-parallel CV)"),
     ("--tp", "tp", 1, "Queue 1 item 10 (multi-device paths)"),
     ("--remat", "remat", False, "Queue 1 item 16 (remat)"),
-    ("--bf16", "bf16", False, "Queue 2 item 7 (the bf16 fused kernels)"),
     ("--streaming", "streaming", False,
      "Queue 1 item 11 (streaming epochs)"),
     ("--sharded-risk-set", "sharded_risk_set", False,
@@ -90,6 +91,10 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--stage1-epochs", type=int, default=None,
                    help="SimMLM's expert-pretraining epochs (two-stage "
                         "models only)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 compute dtype for every layer of the model "
+                        "(parameters, optimizer state and checkpoints stay "
+                        "float32)")
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
     for flag, dest, unused, item in _NOT_PORTED:
@@ -145,6 +150,7 @@ def run_training(args, cfg):
     payload, outcomes = run_cross_validation(
         cfg, table, rnaseq_csv=rnaseq_csv, results_dir=args.results_dir,
         models_dir=args.models_dir, backbone=args.backbone,
+        dtype=torch.bfloat16 if args.bf16 else None,
         use_pallas_resample=args.pallas_resample,
         hu_window=parse_hu_window(args.hu_window), resume=args.resume,
         checkpoint_every=args.checkpoint_every, device=args.device)

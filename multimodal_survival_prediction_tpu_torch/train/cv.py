@@ -22,9 +22,14 @@ run continues that fold's trajectory exactly (stage 1 is not run again);
 the torch dropout generator's state takes the place of the JAX driver's
 dropout key.
 
+``dtype`` (None or ``torch.bfloat16``) is every family's compute
+dtype, as the JAX driver's ``dtype``: parameters, optimizer state and fold
+checkpoints stay float32, and the checkpoints' ``.meta.json`` records no
+dtype (``predict_risk`` scores them in float32, as JAX does).
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``dtype`` (bf16), ``streaming``, meshes / tensor parallelism / the
-sharded risk set, ``aot_cache_dir``, ``profile_dir`` and ``remat``.
+item): ``streaming``, meshes / tensor parallelism / the sharded risk set,
+``aot_cache_dir``, ``profile_dir`` and ``remat``.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ..config import ModelRunConfig
 from ..data.datasets import build_cohort_arrays, load_rnaseq_matrix, select_cohort
@@ -68,8 +74,6 @@ log = logging.getLogger(__name__)
 
 # option -> the ROADMAP.md item that brings it
 _NOT_PORTED = {
-    "dtype": "bf16 compute is not ported yet: ROADMAP.md Queue 2 item 7 "
-             "(the bf16 fused kernels)",
     "streaming": "streaming epochs are not ported yet: ROADMAP.md Queue 1 "
                  "item 11",
     "mesh": "meshes, tensor parallelism and the sharded risk set are not "
@@ -143,9 +147,19 @@ def prepare_cv_data(cfg: ModelRunConfig, table, rnaseq_csv=None,
     return arrays, splits
 
 
-def _refuse_unported(*, dtype, streaming, mesh, tensor_parallel,
-                     sharded_risk_set, aot_cache_dir, profile_dir, remat):
-    given = {"dtype": dtype is not None, "streaming": streaming,
+def _compute_dtype(dtype) -> torch.dtype | None:
+    """The models' compute dtype from ``run_cross_validation``'s ``dtype``:
+    None (float32) or ``torch.bfloat16`` (the JAX driver's
+    ``jnp.bfloat16``)."""
+    if dtype is None or dtype is torch.bfloat16:
+        return dtype
+    raise ValueError(f"unsupported compute dtype {dtype!r}: None (float32) "
+                     "or torch.bfloat16")
+
+
+def _refuse_unported(*, streaming, mesh, tensor_parallel, sharded_risk_set,
+                     aot_cache_dir, profile_dir, remat):
+    given = {"streaming": streaming,
              "mesh": (mesh is not None or tensor_parallel
                       or sharded_risk_set),
              "aot_cache_dir": bool(aot_cache_dir),
@@ -190,7 +204,7 @@ def run_cross_validation(
     after each fold's ``init_state``; a returned TrainState replaces the
     fold's initial state (the tests start each fold from the JAX driver's
     initial weights through it)."""
-    _refuse_unported(dtype=dtype, streaming=streaming, mesh=mesh,
+    _refuse_unported(streaming=streaming, mesh=mesh,
                      tensor_parallel=tensor_parallel,
                      sharded_risk_set=sharded_risk_set,
                      aot_cache_dir=aot_cache_dir, profile_dir=profile_dir,
@@ -198,6 +212,7 @@ def run_cross_validation(
     name = cfg.name
     num_epochs = num_epochs or cfg.num_epochs
     dev = resolve_device(device)
+    dtype = _compute_dtype(dtype)
 
     arrays, splits = prepared if prepared is not None else prepare_cv_data(
         cfg, table, rnaseq_csv=rnaseq_csv,
@@ -215,7 +230,8 @@ def run_cross_validation(
     # ONE Trainer for all folds, as the JAX driver keeps one
     def model_fn(gen):
         return make_model_and_adapters(cfg, rna_dim=rna_dim,
-                                       backbone=backbone, generator=gen)[0]
+                                       backbone=backbone, generator=gen,
+                                       dtype=dtype)[0]
 
     trainer = Trainer(model_fn, batch_to_inputs, hazard_and_aux, tcfg,
                       device=dev)

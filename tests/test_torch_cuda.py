@@ -12,7 +12,11 @@ Tolerances: min/max exact; the W-pass rows to 2e-7 of the largest |voxel|
 BN->ReLU->1x1-conv kernels: fp32 products summed in another order than
 cuBLAS, so outputs to rtol 1e-5 and gradients to rtol 1e-4, each with an
 atol of 1e-5 times the largest |value| of the tensor (the CPU tests'
-tolerances, scaled to the size of the sums).
+tolerances, scaled to the size of the sums). Their bf16 variants: the
+same for float32 results (moments, dW, dgamma, dbeta), one bf16 ulp
+(2^-7 of the value) + that atol for bf16 ones (out, dx). The families'
+bf16 forward on the card: within twice the CPU's own bf16-vs-f32 gap + one
+bf16 ulp of the CPU's bf16 value.
 """
 
 import numpy as np
@@ -325,3 +329,116 @@ def test_family_forward_on_card_matches_cpu(cuda_device, name):
     for cpu, card in zip(*outs):
         assert torch.all(torch.isfinite(card))
         torch.testing.assert_close(card, cpu, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# bf16: the four kernels in bfloat16, and the families' bf16 forward
+# ---------------------------------------------------------------------------
+
+BF16_ULP = 2.0 ** -7  # one bf16 ulp of v is at most 2^-7 |v|
+
+
+def _close_bf16(got, want):
+    """bf16 results: one bf16 ulp of the plain value + 1e-5 x its largest
+    |value| (both round one float32 sum once, whose last bits differ with
+    the order of the sums)."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    got, want = got.double(), want.double()
+    lim = (BF16_ULP * want.abs()
+           + 1e-5 * max(1.0, float(want.abs().max())))
+    assert bool(((got - want).abs() <= lim).all()), \
+        float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,f", [(97, 40, 24), (300, 200, 72),
+                                   (2048, 160, 128), (32, 992, 128),
+                                   (256, 1024, 512), (33, 1000, 130)])
+def test_fused_bf16_kernels_match_plain_on_card(cuda_device, n, c, f):
+    """Each bf16 kernel against its plain version on the same bf16 inputs,
+    both W layouts; out and dx come back in bf16, the rest in float32;
+    the launches are counted as bf16 ones, none as float32."""
+    x, gamma, beta, w, g = _fused_inputs(n, c, f, cuda_device)
+    x, w, g = (t.to(torch.bfloat16) for t in (x, w, g))
+    assert fd._plan_for(x, f).dx_chunks == 1
+    before = [k.launches for k in fd.KERNELS]
+    before16 = [k.launches_bf16 for k in fd.KERNELS]
+    s, sq = fd.moments(x)
+    ps, psq = fd.moments_plain(x)
+    _close(s, ps, 1e-5)
+    _close(sq, psq, 1e-5)
+    mean, var, rstd, mul, add = fd._stats(x, gamma, beta, 1e-5)
+    w_t = w.t().contiguous().t()  # the conv-kernel layout: strides (1, C)
+    for wv in (w, w_t):
+        _close_bf16(fd.apply(x, mul, add, wv), fd.apply_plain(x, mul, add, w))
+        got = fd.bwd_reduce(x, g, wv, mul, add, mean, rstd)
+        want = fd.bwd_reduce_plain(x, g, w, mul, add, mean, rstd)
+        for a, b in zip(got, want):
+            assert a.dtype == torch.float32
+            _close(a, b, 1e-4)
+        c1, c2 = want[2] / n, want[1] / n
+        _close_bf16(fd.bwd_dx(x, g, wv, mul, add, mean, rstd, c1, c2),
+                    fd.bwd_dx_plain(x, g, w, mul, add, mean, rstd, c1, c2))
+    torch.cuda.synchronize()
+    assert [k.launches_bf16 - b for k, b in zip(fd.KERNELS, before16)] == \
+        [1 + 1, 2, 2, 2]  # moments: once directly, once inside _stats
+    assert [k.launches for k in fd.KERNELS] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "rnaseq_only", "image_only", "simple_fusion", "flexible_multimodal",
+    "final", "partial_modality", "simmim", "mmsurv"])
+def test_family_bf16_forward_on_card_matches_cpu(cuda_device, name):
+    """Each family at full width in bf16, eval mode: the card's outputs
+    against the CPU's bf16 ones, within twice the CPU's own bf16-vs-f32
+    gap on the same weights and rows + one bf16 ulp of a bf16 output (the
+    two devices sum in other orders and round to bf16 on either side of a
+    boundary)."""
+    from multimodal_survival_prediction_tpu_torch.config import ALL_CONFIGS
+    from multimodal_survival_prediction_tpu_torch.models.layers import (
+        BatchNorm,
+    )
+    from multimodal_survival_prediction_tpu_torch.train.adapters import (
+        make_model_and_adapters,
+    )
+
+    models = {}
+    for dtype in (None, torch.bfloat16):
+        gen = torch.Generator().manual_seed(3)
+        model, b2i, _ = make_model_and_adapters(
+            ALL_CONFIGS[name], rna_dim=5005, generator=gen, dtype=dtype)
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, BatchNorm):
+                    m.running_mean.normal_(0.0, 0.1, generator=gen)
+                    m.running_var.uniform_(0.5, 1.5, generator=gen)
+        models[dtype] = model.eval()
+    rng = np.random.default_rng(4)
+    mask = np.ones((5, 3), np.float32)
+    mask[0, 0] = mask[1, 1] = mask[2, 2] = 0.0
+    mask[3] = 0.0
+    batch = {
+        "image": rng.normal(size=(5, 64, 64, 32, 1)).astype(np.float32)
+        * mask[:, 0, None, None, None, None],
+        "rnaseq": rng.normal(size=(5, 5005)).astype(np.float32) * mask[:, 1:2],
+        "clinical": rng.uniform(0.3, 0.8, (5, 1)).astype(np.float32)
+        * mask[:, 2:3],
+        "mask": mask}
+    outs = {}
+    for key, dtype, dev in (("f32", None, "cpu"), ("cpu", torch.bfloat16,
+                                                   "cpu"),
+                            ("card", torch.bfloat16, cuda_device)):
+        m = models[dtype].to(dev)
+        with torch.inference_mode():
+            out = m(*b2i({k: torch.from_numpy(v).to(dev)
+                          for k, v in batch.items()}))
+        outs[key] = [o.cpu() for o in
+                     (out if isinstance(out, tuple) else (out,))]
+    for f32, cpu, card in zip(outs["f32"], outs["cpu"], outs["card"]):
+        assert card.dtype == cpu.dtype and torch.all(torch.isfinite(card))
+        gap = float((cpu.float() - f32).abs().max())
+        ulp = (BF16_ULP * cpu.float().abs() if cpu.dtype == torch.bfloat16
+               else 0.0)
+        excess = float(((card.float() - cpu.float()).abs() - ulp).max())
+        assert excess <= 2 * gap, (excess, gap)

@@ -465,7 +465,6 @@ def test_resume_is_bit_equal(cohort, tmp_path, monkeypatch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("option,item", [
-    (dict(dtype="bfloat16"), "Queue 2 item 7"),
     (dict(streaming=True), "Queue 1 item 11"),
     (dict(mesh=object()), "Queue 1 item 10"),
     (dict(tensor_parallel=True), "Queue 1 item 10"),
@@ -487,7 +486,6 @@ def test_driver_refuses_what_is_not_ported(tmp_path, option, item):
     (["--fold-dp", "2"], "Queue 1 item 9"),
     (["--tp", "2"], "Queue 1 item 10"),
     (["--remat"], "Queue 1 item 16"),
-    (["--bf16"], "Queue 2 item 7"),
     (["--streaming"], "Queue 1 item 11"),
     (["--sharded-risk-set"], "Queue 1 item 10"),
     (["--multihost"], "Queue 1 item 10"),
