@@ -66,10 +66,14 @@ result then):
      (out, dx) to one bf16 ulp (2^-7 of the value) and float32 ones
      (moments, dW, dgamma, dbeta) to phase 7's limits, each with atol 1e-5
      x the largest |value|; the autograd op against the same op on CPU
-     copies (its plain versions); no float32 kernel launches. Device times at
-     16,384x224->128 beside the bf16 bound (2-byte elements at 3.35 TB/s,
-     products at 989 TFLOP/s), the plain version and torch.matmul in bf16
-     (torch.var_mean for moments).
+     copies (its plain versions); no float32 kernel launches. bwd_reduce's
+     dW, dgamma and dbeta also against float64 over the same bf16 operands
+     (relative error at most 2 x the float32 plain version's + 1e-6; both
+     printed). The bf16 plans of bwd_reduce (dW row chunks, their clusters,
+     the scratch) and bwd_dx (F chunks, clusters resident). Device times of
+     all four at phase 7's five timed shapes beside the bf16 bound (2-byte
+     elements at 3.35 TB/s, products at 989 TFLOP/s), the plain version and
+     torch.matmul in bf16 (torch.var_mean for moments).
   8b. bf16 training: phase 8 with dtype=torch.bfloat16 (fused, unfused,
      fused again): each bf16 kernel 61 x the steps, no float32 fused
      kernel; fused vs unfused loss within 1e-2 relative at step 1 and 5e-2
@@ -995,7 +999,7 @@ FUSED_BF16_DEVICE_KERNELS = {
     "moments": ("::moments_partial_bf16_kernel",),
     "apply": ("::apply_bf16_kernel<",),
     "bwd_reduce": ("::bwd_reduce_bf16_kernel<",),
-    "bwd_dx": ("::bwd_dx_bf16_kernel<",),
+    "bwd_dx": ("::bwd_dx_bf16_kernel<", "::bwd_dx_cluster_bf16_kernel<"),
 }
 FUSED_BF16_FOLD_KERNELS = (FUSED_FOLD_KERNEL, "::fold_bf16_kernel")
 FUSED_BF16_LIBRARY = {
@@ -1047,6 +1051,46 @@ def _held_bf16(name, got, want, extra=0.0):
     return err
 
 
+# the kernel-level float64 yardstick of bwd_reduce's bf16 kernel: its
+# relative error (||d|| / ||float64||) in dW, dgamma and dbeta at most
+# F64_RATIO x the float32 plain version's on the same bf16 operands +
+# F64_SLACK
+F64_RATIO, F64_SLACK = 2.0, 1e-6
+
+
+def bwd_reduce_f64(x, g, w, mul, add, mean, rstd):
+    """``(dW, dgamma, dbeta)`` in float64 over the kernels' own bf16
+    operands: z = x·mul + add in float32 (the kernels' two roundings, so
+    the same ReLU mask), a = relu(z) rounded to x's dtype, then dW = aᵀg,
+    dz = [z > 0]·(g Wᵀ), xhat = (x − mean)·rstd and the sums in float64."""
+    import torch
+
+    z = x.float() * mul + add
+    a = torch.relu(z).to(x.dtype).double()
+    gd = g.double()
+    dz = torch.where(z > 0, gd @ w.double().T, 0.0)
+    xhat = (x.double() - mean.double()) * rstd.double()
+    return a.T @ gd, (dz * xhat).sum(0), dz.sum(0)
+
+
+def f64_yardstick(tag, got, plain, exact):
+    """Holds each of bwd_reduce's results (dW, dgamma, dbeta) to
+    F64_RATIO x the plain version's relative error + F64_SLACK, both
+    against float64 (``bwd_reduce_f64``); returns (kernel, plain) relative
+    errors, the largest of the three."""
+    errs = []
+    for part, a, b, e in zip(("dW", "dgamma", "dbeta"), got, plain, exact):
+        norm = max(float(e.norm()), 1e-30)
+        kernel = float((a.double() - e).norm()) / norm
+        ref = float((b.double() - e).norm()) / norm
+        check(math.isfinite(kernel) and kernel <= F64_RATIO * ref + F64_SLACK,
+              f"bwd_reduce {part} {tag}: relative error {kernel:.3e} against "
+              f"float64 > {F64_RATIO} x the float32 plain version's "
+              f"{ref:.3e} + {F64_SLACK}")
+        errs.append((kernel, ref))
+    return max(k for k, _ in errs), max(r for _, r in errs)
+
+
 def phase_fused_bf16_vs_plain(device="cuda", cases=None, timed=None):
     """The four bf16 kernels against their plain versions at phase 7's
     shapes (x, W and g of ``_fused_inputs`` rounded to bf16; N = 1 left
@@ -1055,19 +1099,22 @@ def phase_fused_bf16_vs_plain(device="cuda", cases=None, timed=None):
     ``out`` and dW may also differ by the products of the a = relu(z) that
     the two sides' statistics round to neighbouring bf16 values). bf16
     results (out, dx, the op's dW) to one bf16 ulp, float32 ones (the
-    moments, dW, dgamma, dbeta) to phase 7's limits; the launches counted in
-    the bf16 counts, none in the float32 ones. Device times at
-    ``FUSED_TIMED``. Returns (max |d| per kernel, timing per kernel)."""
+    moments, dW, dgamma, dbeta) to phase 7's limits; bwd_reduce's also to
+    the float64 yardstick (``f64_yardstick``); the launches counted in the
+    bf16 counts, none in the float32 ones. Device times at every shape of
+    ``timed`` (``FUSED_TIMED_SHAPES``). Returns (max |d| per kernel, timing
+    per kernel: the first timed shape's, every timed shape under
+    ``by_shape``)."""
     import torch
 
     from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
 
     cases = FUSED_CASES if cases is None else cases
-    timed = FUSED_TIMED if timed is None else tuple(timed)
+    timed = FUSED_TIMED_SHAPES if timed is None else [tuple(t) for t in timed]
     gen = torch.Generator(device=device).manual_seed(3)
     bf16 = torch.bfloat16
     worst = dict.fromkeys(FUSED_NAMES, 0.0)
-    timing = {}
+    by_shape = {}
     before = [k.launches for k in fd.KERNELS]
     for n, c, f in cases:
         x, gamma, beta, w, g = _fused_inputs(n, c, f, device, gen)
@@ -1087,7 +1134,12 @@ def phase_fused_bf16_vs_plain(device="cuda", cases=None, timed=None):
         err["bwd_reduce"] = max(
             _held(f"bwd_reduce {part} {tag}", a, b, FUSED_GRAD_RTOL)
             for part, a, b in zip(("dW", "dgamma", "dbeta"), got, want))
+        f64 = f64_yardstick(tag, got, want,
+                            bwd_reduce_f64(x, g, w, mul, add, mean, rstd))
         c1, c2 = want[2] / n, want[1] / n
+        if device != "cpu":
+            _log_reduce_plan(fd, x, w, tag)
+            _log_dx_plan(fd, x, w, tag)
         err["bwd_dx"] = _held_bf16(
             f"bwd_dx {tag}", fd.bwd_dx(x, g, w, mul, add, mean, rstd, c1, c2),
             fd.bwd_dx_plain(x, g, w, mul, add, mean, rstd, c1, c2))
@@ -1130,14 +1182,39 @@ def phase_fused_bf16_vs_plain(device="cuda", cases=None, timed=None):
             + ", ".join(f"{k} {err[k]:.3e}" for k in FUSED_NAMES)
             + f"; op vs the op on CPU copies max|d| {op_err:.3e} ("
             f"{int((flips > 0).sum())} of {flips.numel()} a = relu(z) "
-            "rounded to another bf16 value)")
-        if (n, c, f) == timed and device != "cpu":
-            timing = _time_fused_bf16(fd, x, w, g, mul, add, mean, rstd, c1,
-                                      c2)
+            "rounded to another bf16 value); bwd_reduce vs float64: "
+            f"relative error {f64[0]:.3e} (float32 plain {f64[1]:.3e}; limit "
+            f"{F64_RATIO} x plain + {F64_SLACK})")
+        if (n, c, f) in timed and device != "cpu":
+            by_shape[(n, c, f)] = _time_fused_bf16(fd, x, w, g, mul, add,
+                                                   mean, rstd, c1, c2)
         del x, g, results
     check([k.launches for k in fd.KERNELS] == before,
           "a bf16 tensor launched a float32 fused kernel")
+    check(device == "cpu" or set(by_shape) == set(timed),
+          f"timed shapes {timed} are not all among the cases")
+    timing = {}
+    if by_shape:
+        for name in FUSED_NAMES:
+            timing[name] = dict(by_shape[timed[0]][name], by_shape=[
+                by_shape[shape][name] for shape in timed])
     return worst, timing
+
+
+def _log_reduce_plan(fd, x, w, tag):
+    """Prints bwd_reduce's bf16 plan for x and W: dW's row chunks and their
+    clusters, and the scratch against x's bytes."""
+    n, c = x.shape
+    f = w.shape[1]
+    plan = fd._plan_for(x, f)
+    partials = fd._dw_partials(plan.dw_chunks, plan.dw_cluster,
+                               x.element_size())
+    log(f"bwd_reduce plan {tag}: dW in {plan.dw_chunks} row chunk(s) of "
+        f"{plan.dw_rows_per_chunk}, clusters of {plan.dw_cluster}, "
+        f"{partials} partial(s) in scratch ({partials * c * f * 4} bytes; "
+        f"x {x.numel() * x.element_size()}); g W^T in {plan.da_chunks} F "
+        f"chunk(s) of {plan.da_k_per_chunk}; scratch "
+        f"{plan.reduce_scratch * 4} bytes")
 
 
 def _time_fused_bf16(fd, x, w, g, mul, add, mean, rstd, c1, c2):
@@ -2312,6 +2389,7 @@ def main() -> int:
                                 for v in cli_bf16.values())},
             "call_ms": t["call_ms"],
             "timed_shape": t["shape"],
+            "by_shape": t["by_shape"],
             "train_step": dict(
                 train_bf16["profile_fused"]["fused"][name],
                 whole_trace=train_bf16["profile_fused"]["whole"]),

@@ -1046,26 +1046,26 @@ bwd_reduce_kernel(const DwArgs dw, const DaArgs da, const Grid dw_grid,
 //
 // The bf16 variants of apply, bwd_reduce and bwd_dx (the JAX kernels run in
 // the compute dtype: bf16 operands into the products, fp32 accumulation;
-// out and dx in bf16; dW, dgamma and dbeta in fp32). One GEMM core on
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: a product of two
-// bf16 values is exact in fp32, so one product a 16-deep slab replaces the
-// fp32 core's three TF32 ones, and mma.sync needs neither the TF32 split
-// nor wgmma's shared-memory layouts. Each warp owns 16 rows of the 64-row
-// tile (the fp32 core's Lane layout, so store_acc serves both), and the
-// tile is 64 or 128 columns wide as the launch plan says.
+// out and dx in bf16; dW, dgamma and dbeta in fp32). A product of two bf16
+// values is exact in fp32, so one bf16 product replaces the fp32 core's
+// three TF32 ones. bwd_reduce and bwd_dx run on the wgmma core further
+// below (its own design notes). apply runs on a simple core of
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, which needs neither
+// the TF32 split nor wgmma's shared-memory layouts: each warp owns 16 rows
+// of the 64-row tile (the fp32 core's Lane layout, so store_acc serves
+// both), and the tile is 64 or 128 columns wide as the launch plan says.
 //
-// Loads: a step is 32 deep (64 bytes of a row, the fp32 step's bytes). Each
-// thread loads its 8-element pieces of the next step into registers (one
-// 16-byte load a piece where the axis is contiguous and aligned, else one
-// element at a time, zero past the edge) while the tensor cores run the
-// current step, then writes them to shared memory as [outer][K] rows of
-// kBK2 + 8 elements (80 bytes: the fragment reads hit 32 banks). The BN +
-// ReLU prologue runs on that write: each element of x is converted to
-// fp32, normalized, ReLU'd and rounded to bf16 once, by the thread that
-// loaded it (the ReLU mask is the plain version's: the same two fp32
-// roundings). Split-K (apply over C, dW over rows) and bwd_reduce's split
-// of F write fp32 partials that the fp32 path's fold sums in a fixed order
-// (apply's partials fold straight to bf16); bwd_dx is one unsplit launch.
+// apply's loads: a step is 32 deep (64 bytes of a row, the fp32 step's
+// bytes). Each thread loads its 8-element pieces of the next step into
+// registers (one 16-byte load a piece where the axis is contiguous and
+// aligned, else one element at a time, zero past the edge) while the tensor
+// cores run the current step, then writes them to shared memory as
+// [outer][K] rows of kBK2 + 8 elements (80 bytes: the fragment reads hit 32
+// banks). The BN + ReLU prologue runs on that write: each element of x is
+// converted to fp32, normalized, ReLU'd and rounded to bf16 once, by the
+// thread that loaded it (the ReLU mask is the plain version's: the same two
+// fp32 roundings). Split-K over C writes fp32 partials that
+// fold_bf16_kernel sums in a fixed order, straight to bf16.
 
 constexpr int kBK2 = 32;         // bf16 K step: two 16-deep mma slabs
 constexpr int kLd2 = kBK2 + 8;   // shared-memory row of a bf16 tile
@@ -1335,50 +1335,488 @@ fold_bf16_kernel(const float* __restrict__ part, int chunks, long long m,
   out[j] = f32_to_bf16_bits(s);
 }
 
+// ------------------------------------------- the bf16 wgmma core (backward)
+//
+// bwd_reduce and bwd_dx in bf16 run on one Hopper GEMM core: wgmma
+// (wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16), B always and A
+// mostly read from shared memory through descriptors, fed by a ring of
+// cp.async stages. A block is one warpgroup and its tile 64 x 64.
+//   * A step is kBKW (64) deep: 128 bytes of every K row, the width of the
+//     128-byte swizzle. Each operand tile lands as it lies in memory, by
+//     16-byte cp.async into the swizzled layout its descriptor names:
+//     K-major ([outer][K], as g, and W where its F axis is contiguous) or
+//     MN-major ([K][outer], as x read as x^T, g as dW's B, and the conv
+//     kernel's W), which wgmma reads through its transpose bits (bf16 takes
+//     either major): no transposing pass. A row that is not 16-byte
+//     aligned is loaded element by element and stored by the thread (a
+//     generic write, which that thread fences into the async proxy); the
+//     ragged edge is zero-filled by the copy's source size, never read.
+//   * The ring has kStagesW = 2 stages: the next step's copies run while
+//     this step's products do. On an H100 a third stage cost bwd_dx a
+//     block a SM (3 instead of 4) and bought bwd_reduce nothing, not even
+//     for its long dW blocks alone (ops/bf16_bwd_sweep.py times the
+//     depths; PERF.md has the numbers). Code size mattered more: with the
+//     unaligned fallback inlined at every copy site, each extra stage (one
+//     more inlined load) made every step slower; out of line
+//     (copy_piece_slow) it made every stage of bwd_reduce faster.
+//   * bwd_dx copies its tile of x and the six per-channel vectors behind
+//     the first operand copies, so the epilogue reads shared memory only;
+//     dx is written over x in shared memory and leaves as 16-byte stores,
+//     whole rows. Where the grid leaves SMs idle F is split over the
+//     blocks of a thread-block cluster (bwd_dx_cluster_bf16_kernel, as the
+//     fp32 bwd_dx_cluster_kernel), folded in rank order through distributed
+//     shared memory. Four blocks a SM.
+//   * bwd_reduce keeps its one launch of dW blocks and da blocks. dW's A
+//     operand a = bf16(relu(x*mul + add)) is made from the raw x tile on
+//     its way into registers (ldmatrix.trans, then the same two fp32
+//     roundings as the plain version, so the same ReLU mask) and wgmma
+//     reads A from registers: no generic write to fence (an in-place pass
+//     over the stage would need fence.proxy.async, which also waits for
+//     the copies in flight). dW's fp32 partials hold at most a quarter of
+//     x's bytes, so its row chunks are few and long; where that leaves dW
+//     blocks the long pole (few tiles), the chunks are 4 steps and the Q
+//     blocks of one thread-block cluster sum their partials in rank order
+//     through distributed shared memory before one partial is written.
+//     Each step's four products are chained from zero and added to the
+//     fp32 accumulators by the CUDA cores: the tensor core truncates its
+//     sums, and one chain over 1,024 rows would drift (the fp32 core's
+//     finding).
+//   * What bounds them: at the 16,384-row stages the 64 x 64 tiles read g,
+//     x and W from L2 several times over (bwd_reduce moves ~72 MB between
+//     L2 and the SMs for 11.7 MB of its own bytes), and each dW block's
+//     steps wait on their copies in turn; the small stages are a few
+//     microseconds of latency a launch.
+
+constexpr int kBKW = 64;       // depth of a step: 128 bytes of a bf16 K row
+constexpr int kStagesW = 2;    // ring depth (see above)
+constexpr int kAtomBytes = 1024;         // 8 rows of 128 bytes, swizzled
+constexpr int kMnChunkBytes = kBKW * 128;  // an MN-major tile's 64-wide chunk
+static_assert(kBKW == 64, "a step is one 128-byte swizzle row");
+
+template <int T>
+constexpr int kTileBytesW = T * kBKW * 2;
+constexpr int kBNW = 64;        // a tile's width: the N of one wgmma
+constexpr int kNJW = kBNW / 8;  // its 8-column groups: acc[kNJW][4]
+constexpr int kStageBytesW = kTileBytesW<kBM> + kTileBytesW<kBNW>;
+constexpr int kRingBytesW = kStagesW * kStageBytesW;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// The ring's base: the first 1024-byte boundary of the shared window at or
+// after p (the swizzle is a function of the address bits).
+__device__ __forceinline__ unsigned char* align_atom(unsigned char* p) {
+  return p + ((kAtomBytes - (smem_addr(p) & (kAtomBytes - 1))) &
+              (kAtomBytes - 1));
+}
+
+// Byte offset of element (o, k) of a tile (T outer positions, kBKW deep)
+// in the 128-byte swizzle: the 16-byte chunk index (address bits 4-6) is
+// XORed with the row within its 8-row atom (bits 7-9). kKC (K-major): a row
+// of 128 bytes an outer position. Else (MN-major): a row of 128 bytes a
+// depth, 64 outer positions wide, the tile's 64-wide chunks kMnChunkBytes
+// apart.
+template <bool kKC>
+__device__ __forceinline__ int swz(int o, int k) {
+  if (kKC) return o * 128 + ((((k >> 3) ^ o) & 7) << 4) + (k & 7) * 2;
+  return (o >> 6) * kMnChunkBytes + k * 128 +
+         (((((o >> 3) & 7) ^ k) & 7) << 4) + (o & 7) * 2;
+}
+
+// wgmma's descriptor of a tile at shared address `at` (128-byte swizzle,
+// layout type 1 in bits 62-63). K-major: SBO (bits 32-45) = 1024 bytes
+// between 8-row atoms; LBO unused. MN-major: LBO (bits 16-29) = the bytes
+// between 64-wide chunks of the outer axis, SBO = 1024 between 8-deep
+// groups of K (the leading and stride offsets swap meaning with the major).
+template <bool kKC>
+__device__ __forceinline__ uint64_t w_desc(unsigned at) {
+  const uint64_t lbo = kKC ? 1 : kMnChunkBytes >> 4;
+  return ((at & 0x3ffff) >> 4) | (lbo << 16) |
+         (static_cast<uint64_t>(kAtomBytes >> 4) << 32) | (1ull << 62);
+}
+
+// The descriptor's start for the 16-deep slice kk of a step.
+template <bool kKC>
+__device__ __forceinline__ unsigned slice_at(unsigned tile, int kk) {
+  return tile + kk * (kKC ? 32 : 16 * 128);
+}
+
+__device__ __forceinline__ void st_shared16(unsigned at, const uint4& v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(at),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// 16 bytes from global to shared memory, of which the first `bytes` are
+// read and the rest zero-filled.
+__device__ __forceinline__ void cp_async16(unsigned at, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(at),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// The unaligned path of a 16-byte piece, kept out of line (rare, and
+// large when inlined): 8 elements `stride` apart, the first `live` read.
+__device__ __noinline__ void copy_piece_slow(unsigned at, const uint16_t* p,
+                                             long long stride, int live) {
+  uint16_t e[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    e[q] = q < live ? __ldg(p + q * stride) : static_cast<uint16_t>(0);
+  st_shared16(at, pack8(e));
+  fence_async_proxy();  // a generic write, read by wgmma
+}
+
+// One bf16 operand's tile copies, step after step along K: element (o, k)
+// of the next step's tile is base[o*so + k*sk] for o < o_left and k <
+// k_left, else 0. A thread copies 16-byte pieces of 8 elements along the
+// contiguous axis (K where kKC, else the outer axis), neighbouring threads
+// neighbouring pieces. vec: that axis has stride 1, the other a multiple of
+// 8 and the array is 16-byte aligned; else the pieces are loaded element by
+// element and stored by the thread.
+template <int T, bool kKC>
+struct TileCopyW {
+  static constexpr int kPieces = T * kBKW / 8 / kThreads;
+  static_assert(kPieces * 8 * kThreads == T * kBKW, "tile must split evenly");
+  const uint16_t* base;
+  const uint16_t* safe;  // a valid address for pieces that read nothing
+  long long so, sk;
+  int o_left, k_left;
+  bool vec;
+
+  __device__ __forceinline__ TileCopyW(const uint16_t* src, long long o0,
+                                       long long o_lim, long long so_,
+                                       long long k0, long long k_lim,
+                                       long long sk_, bool vec_)
+      : base(src + o0 * so_ + k0 * sk_), safe(src), so(so_), sk(sk_),
+        o_left(static_cast<int>(min(max(o_lim - o0, 0LL), 1LL * T))),
+        k_left(static_cast<int>(min(max(k_lim - k0, 0LL), 1LL << 30))),
+        vec(vec_) {}
+
+  // Starts the copies of the next step into the tile at shared address t.
+  __device__ __forceinline__ void start(unsigned t) {
+#pragma unroll
+    for (int i = 0; i < kPieces; ++i) {
+      const int u = threadIdx.x + i * kThreads;
+      const int o = kKC ? u / (kBKW / 8) : (u % (T / 8)) * 8;
+      const int k = kKC ? (u % (kBKW / 8)) * 8 : u / (T / 8);
+      const int along = kKC ? k_left - k : o_left - o;
+      const bool across = kKC ? o < o_left : k < k_left;
+      const int live = across ? min(max(along, 0), 8) : 0;
+      const unsigned at = t + swz<kKC>(o, k);
+      if (vec) {
+        cp_async16(at, live ? base + (kKC ? o * so + k : o + k * sk) : safe,
+                   2 * live);
+      } else {
+        copy_piece_slow(at, base + o * so + k * sk, kKC ? sk : so, live);
+      }
+    }
+    base += kBKW * sk;
+    k_left -= kBKW;
+  }
+};
+
+// d = a b (scale_d = 0) or d += a b: one 64 x N x 16 bf16 product of the
+// warpgroup, both operands from shared memory (kTA, kTB: A, B MN-major);
+// asynchronous until wgmma_wait(). acc[j][2h + e] is Lane's layout.
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[8][4], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+}
+
+// d = a b or d += a b as wgmma_bf16, A (64 x 16) from registers in the
+// m16n8k16 fragment layout of each warp's 16 rows, B from shared memory
+// (kTB: MN-major).
+template <int kTB>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[8][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(kTB));
+}
+
+// A's fragment for wgmma_bf16_rs from an MN-major tile in shared memory:
+// the 16-deep slice kk of the warp's 16 rows, by one ldmatrix.x4.trans (lane
+// L points at depth 16 kk + L % 8 + 8 (L / 16), rows 16 w + 8 ((L / 8) % 2)
+// on), as four pairs of bf16 along K.
+__device__ __forceinline__ void ldmatrix_a_mn(unsigned tile, int kk,
+                                              uint32_t (&a)[4]) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int k = 16 * kk + lane % 8 + 8 * (lane / 16);
+  const int m = 16 * w + 8 * ((lane / 8) % 2);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(tile + swz<false>(m, k)));
+}
+
+// The K loop of the wgmma core. load(t) starts the copies of the next step
+// into the stage at shared address t (once a step, in order); copies run
+// kStagesW - 1 steps ahead. prep() runs once, behind the first copies and
+// before the first barrier. kARegs: A is read into registers,
+// a_frag(tile, kk, a) giving the fragment of its 16-deep slice kk (the
+// prologue of dW's A runs there), and wgmma reads only B from shared
+// memory; else both. kSlabs: each step's products are chained from zero
+// and added to acc by the CUDA cores; else they accumulate in acc. cp.async
+// data reaches wgmma through the wait and the barrier; only generic stores
+// (TileCopyW's fallback) are fenced into the async proxy, by the thread
+// that made them: a fence here would also wait for the copies in flight.
+// On return every copy has landed, every product is done and the ring is
+// free.
+template <bool kAKC, bool kBKC, bool kSlabs, bool kARegs, class Load,
+          class Prep, class AFrag>
+__device__ __forceinline__ void wgmma_mainloop(unsigned char* ring, int steps,
+                                               float (&acc)[kNJW][4],
+                                               Load load, Prep prep,
+                                               AFrag a_frag) {
+  const unsigned ring_at = smem_addr(ring);
+#pragma unroll
+  for (int j = 0; j < kNJW; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kStagesW - 1; ++s) {
+    if (s < steps) load(ring_at + s * kStageBytesW);
+    cp_async_commit();  // one group a step, empty past the end
+  }
+  prep();
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kStagesW - 2>();  // this thread's copies of step s landed
+    // step s visible to all; step s - 1's products done (waited below):
+    // its stage is free
+    __syncthreads();
+    const int ahead = s + kStagesW - 1;
+    if (ahead < steps) load(ring_at + (ahead % kStagesW) * kStageBytesW);
+    cp_async_commit();
+    const unsigned a_at = ring_at + (s % kStagesW) * kStageBytesW;
+    const unsigned b_at = a_at + kTileBytesW<kBM>;
+    uint32_t a[kARegs ? kBKW / 16 : 1][4];
+    if constexpr (kARegs) {
+#pragma unroll
+      for (int kk = 0; kk < kBKW / 16; ++kk) a_frag(a_at, kk, a[kk]);
+    }
+    // the step's four 16-deep products into d, the first with scale_d =
+    // first (0: d = a b, chained from zero)
+    const auto products = [&](float (&d)[kNJW][4], int first) {
+      pin(d);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBKW / 16; ++kk) {
+        const uint64_t db = w_desc<kBKC>(slice_at<kBKC>(b_at, kk));
+        const int scale = kk > 0 ? 1 : first;
+        if constexpr (kARegs)
+          wgmma_bf16_rs<kBKC ? 0 : 1>(d, a[kk], db, scale);
+        else
+          wgmma_bf16<kAKC ? 0 : 1, kBKC ? 0 : 1>(
+              d, w_desc<kAKC>(slice_at<kAKC>(a_at, kk)), db, scale);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(d);
+    };
+    if constexpr (kSlabs) {
+      float slab[kNJW][4];
+      products(slab, 0);
+#pragma unroll
+      for (int j = 0; j < kNJW; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[j][q] += slab[j][q];
+    } else {
+      products(acc, 1);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// Starts the cp.async copies (in the caller's next group) of v[ch0 + i] (0
+// past ch_lim) for i < count into dst; vec: v + ch0 is 16-byte aligned.
+__device__ __forceinline__ void stage_vector_async(float* dst, const float* v,
+                                                   int ch0, int ch_lim,
+                                                   int count, bool vec) {
+  const int width = vec ? 4 : 1;
+  for (int i = threadIdx.x * width; i < count; i += kThreads * width) {
+    const int left = ch_lim - (ch0 + i);
+    const int live = left > 0 ? min(left, width) : 0;
+    cp_async(dst + i, live ? v + ch0 + i : v, width, live);
+  }
+}
+
+// Starts the copies of rows [r_lo, r_hi) of a block's 64 x kBN tile of bf16
+// x (N, C) at row m0, channel n0 into x_tile (rows of kBN + 8 elements);
+// rows past N and channels past C are zero-filled. vec: 16-byte cp.async
+// (C a multiple of 8, x aligned); else element loads and a 16-byte store.
+template <int kBN>
+__device__ __forceinline__ void stage_x_tile_bf16(uint16_t* x_tile,
+                                                  const uint16_t* x,
+                                                  long long m0, int n0,
+                                                  long long n, int c, int r_lo,
+                                                  int r_hi, bool vec) {
+  constexpr int kChunks = kBN / 8;
+  for (int u = r_lo * kChunks + threadIdx.x; u < r_hi * kChunks;
+       u += kThreads) {
+    const int r = u / kChunks, col = (u % kChunks) * 8;
+    const long long row = m0 + r;
+    const int left = c - (n0 + col);
+    const int live = row < n && left > 0 ? min(left, 8) : 0;
+    const uint16_t* src = x + row * c + n0 + col;
+    const unsigned at = smem_addr(x_tile + r * (kBN + 8) + col);
+    if (vec) {
+      cp_async16(at, live ? src : x, 2 * live);
+    } else {
+      copy_piece_slow(at, src, 1, live);
+    }
+  }
+}
+
+__device__ __forceinline__ float2 bf16x2_to_f32(uint32_t v) {
+  return make_float2(bf16_bits_to_f32(static_cast<uint16_t>(v)),
+                     bf16_bits_to_f32(static_cast<uint16_t>(v >> 16)));
+}
+
 struct DwArgs2 {
   const uint16_t *x, *g;
   const float *mul, *add;
   long long n;
   int c, f;
   long long rows_per_chunk;
-  bool x_vec, g_vec, out_vec;
+  bool x_vec, g_vec, out_vec4;
   float* part;
 };
 
-// bf16 partial dW over one chunk of rows: part[b.z] (C, F) = bf16(a)^T g
-// in fp32; grid (ceil(C/64), ceil(F/(32 NT)), chunks).
-template <int NT>
-__device__ __forceinline__ void dw_block_bf16(const DwArgs2& p, const Block& b,
-                                              unsigned char* smem) {
-  float* smul = reinterpret_cast<float*>(smem);
-  float* sadd = smul + kBM;
-  uint16_t* sa = reinterpret_cast<uint16_t*>(sadd + kBM);
-  uint16_t* sb = sa + kTile2<kBM>;
-  const Lane ln;
-  const int c0 = b.x * kBM;
-  const int f0 = b.y * 32 * NT;
-  const long long r0 = static_cast<long long>(b.z) * p.rows_per_chunk;
-  const long long r1 = min(p.n, r0 + p.rows_per_chunk);
+// A dW block's shared memory: the ring, then mul and add of its channels.
+constexpr int kDwSmemW = kAtomBytes + kRingBytesW + 2 * kBM * 4;
 
-  // A(m = channel, k = row) = x[row, channel], B(k = row, n = output) = g
-  TileLoad2<kBM, false> a(p.x, c0, p.c, 1, r0, r1, p.c, p.x_vec);
-  TileLoad2<32 * NT, false> bl(p.g, f0, p.f, 1, r0, r1, p.f, p.g_vec);
-  stage_vector(smul, p.mul, c0, p.c, kBM);
-  stage_vector(sadd, p.add, c0, p.c, kBM);
-  float acc[kNJ<NT>][4];
-  mainloop_bf16<NT, false, false, false>(
-      a, bl, static_cast<int>((r1 - r0 + kBK2 - 1) / kBK2), sa, sb, acc, ln,
-      [&](float v, int ch, int) {
-        // rows past r1 become relu(add) here, against g rows that are 0
-        return fmaxf(bn_z(v, smul[ch], sadd[ch]), 0.f);
+// bf16 partial dW of one 64 x 64 tile (channels c0.., outputs f0..) over
+// the row chunks of one thread-block cluster: rank k contracts rows
+// [(group*Q + k)*rows_per_chunk, +rows_per_chunk) (a multiple of kBKW; past
+// N, nothing), a = bf16(relu(x*mul + add)) (A, m = channel, k = row: x
+// read MN-major, made into a in the fragment's registers) against g (B, k
+// = row, n = output, MN-major). The Q partials meet in shared memory: after
+// a cluster barrier rank k sums all Q, in rank order, for its share of the
+// tile's channels and writes part[group] (C, F). No atomics: the same bits
+// run to run.
+__device__ __forceinline__ void dw_block_bf16(const DwArgs2& p, int c0, int f0,
+                                              int group,
+                                              unsigned char* smem) {
+  constexpr int kPLd = kBNW + 8;  // the partial's rows, fp32
+  static_assert(kBM * kPLd * 4 <= kRingBytesW, "the partial in the ring");
+  unsigned char* ring = align_atom(smem);
+  float* smul = reinterpret_cast<float*>(ring + kRingBytesW);
+  float* sadd = smul + kBM;
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int q_blocks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const Lane ln;
+  const long long r0 =
+      static_cast<long long>(group * q_blocks + rank) * p.rows_per_chunk;
+  const long long r1 = min(p.n, r0 + p.rows_per_chunk);
+  TileCopyW<kBM, false> a_copy(p.x, c0, p.c, 1, r0, r1, p.c, p.x_vec);
+  TileCopyW<kBNW, false> b_copy(p.g, f0, p.f, 1, r0, r1, p.f, p.g_vec);
+  float acc[kNJW][4];
+  wgmma_mainloop<false, false, true, true>(
+      ring, static_cast<int>(max(0LL, (r1 - r0 + kBKW - 1) / kBKW)), acc,
+      [&](unsigned t) {
+        a_copy.start(t);
+        b_copy.start(t + kTileBytesW<kBM>);
+      },
+      [&] {
+        stage_vector(smul, p.mul, c0, p.c, kBM);
+        stage_vector(sadd, p.add, c0, p.c, kBM);
+      },
+      [&](unsigned a_tile, int kk, uint32_t (&a)[4]) {
+        // a = bf16(relu(x*mul + add)) in the fragment's registers: pairs
+        // along K of channel 16 w + g (a[0], a[2]) and 16 w + g + 8 (a[1],
+        // a[3]). Rows past the chunk become relu(add), against g rows that
+        // are 0; channels past C are 0 (mul = add = 0 there).
+        ldmatrix_a_mn(a_tile, kk, a);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int ch = 16 * ln.w + ln.g + 8 * (q & 1);
+          const float2 v = bf16x2_to_f32(a[q]);
+          a[q] = pack_bf16x2(fmaxf(bn_z(v.x, smul[ch], sadd[ch]), 0.f),
+                             fmaxf(bn_z(v.y, smul[ch], sadd[ch]), 0.f));
+        }
       });
-  store_acc<NT>(p.part + static_cast<long long>(b.z) * p.c * p.f, p.f, c0,
-                p.c, f0, p.f, acc, ln, p.out_vec);
+  if (q_blocks == 1) {  // one chunk a partial: no fold
+    store_acc<kBNW / 32>(p.part + static_cast<long long>(group) * p.c * p.f, p.f, c0,
+                  p.c, f0, p.f, acc, ln, p.out_vec4);
+    return;
+  }
+  float* pk = reinterpret_cast<float*>(ring);  // the ring is free now
+#pragma unroll
+  for (int j = 0; j < kNJW; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(pk + (16 * ln.w + ln.g + 8 * h) * kPLd +
+                                 8 * j + 2 * ln.t) =
+          make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+  cluster.sync();  // every partial written and visible to the cluster
+  constexpr int kQuads = kBNW / 4;
+  const int share = kBM / q_blocks;  // Q divides 64
+  float* dst = p.part + static_cast<long long>(group) * p.c * p.f;
+  for (int u = threadIdx.x; u < share * kQuads; u += kThreads) {
+    const int r = rank * share + u / kQuads, col = (u % kQuads) * 4;
+    const int ch = c0 + r, fo = f0 + col;
+    const float* mine = pk + r * kPLd + col;
+    float4 sum = *reinterpret_cast<const float4*>(
+        cluster.map_shared_rank(mine, 0));
+    for (int k = 1; k < q_blocks; ++k) {  // rank order
+      const float4 v = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(mine, k));
+      sum.x += v.x, sum.y += v.y, sum.z += v.z, sum.w += v.w;
+    }
+    if (ch >= p.c || fo >= p.f) continue;
+    float* at = dst + static_cast<long long>(ch) * p.f + fo;
+    if (p.out_vec4 && fo + 4 <= p.f) {
+      *reinterpret_cast<float4*>(at) = sum;
+    } else {
+      const float v[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (fo + e < p.f) at[e] = v[e];
+    }
+  }
+  cluster.sync();  // no block leaves while a peer may still read its partial
 }
 
-// The bf16 da = g W^T product and its epilogue, as DaArgs / da_block for
-// fp32: kDx = false writes the dbeta/dgamma partials of the block's 64
-// rows (F chunk b.z); kDx = true writes dx in bf16 (one chunk).
+// The bf16 da = g W^T product and its epilogues: bwd_reduce's dbeta/dgamma
+// partials (da_block_bf16) and bwd_dx (bwd_dx_bf16_kernel, and split over
+// F, bwd_dx_cluster_bf16_kernel).
 struct DaArgs2 {
   const uint16_t *g, *w;
   long long w_sc, w_sf;
@@ -1386,170 +1824,338 @@ struct DaArgs2 {
   const float *mul, *add, *mean, *rstd, *c1, *c2;
   long long n;
   int c, f, k_per_chunk;
-  bool g_vec, w_vec, x_pair, dx_pair;
+  bool g_vec, w_vec, x_vec, v_vec, dx_vec;
   uint16_t* dx;
   float* part;
 };
 
-// x[row, ch] and x[row, ch + 1] as fp32, 0 past N or C.
-__device__ __forceinline__ float2 x_pair_of(const DaArgs2& p, long long row,
-                                            int ch) {
-  if (row >= p.n) return make_float2(0.f, 0.f);
-  const uint16_t* at = p.x + row * p.c + ch;
-  if (p.x_pair && ch + 1 < p.c) {
-    const uint32_t v = __ldg(reinterpret_cast<const unsigned int*>(at));
-    return make_float2(bf16_bits_to_f32(static_cast<uint16_t>(v)),
-                       bf16_bits_to_f32(static_cast<uint16_t>(v >> 16)));
-  }
-  return make_float2(ch < p.c ? load_f32(at) : 0.f,
-                     ch + 1 < p.c ? load_f32(at + 1) : 0.f);
+// A da block's shared memory: the ring, its tile of x (rows of 72 bf16:
+// fragment reads by row = lane / 4 then hit every bank) and the six
+// per-channel vectors (64 floats each).
+struct DaSmemW {
+  static constexpr int kXLd = kBNW + 8;
+  static constexpr int kBytes =
+      kAtomBytes + kRingBytesW + kBM * kXLd * 2 + 6 * kBNW * 4;
+  unsigned char* ring;
+  uint16_t* x_tile;
+  float* vecs;
+  __device__ __forceinline__ explicit DaSmemW(unsigned char* smem)
+      : ring(align_atom(smem)),
+        x_tile(reinterpret_cast<uint16_t*>(ring + kRingBytesW)),
+        vecs(reinterpret_cast<float*>(x_tile + kBM * kXLd)) {}
+};
+
+// The da product of the 64 x 64 tile at row m0, channel n0 over F chunk
+// kz into acc. Behind the first copies it starts the copies of what the
+// epilogue reads: rows [r_lo, r_hi) of the tile of x and the tile's slices
+// of the first kVecs of (mul, add, mean, rstd, c1, c2).
+template <int kVecs, bool kWKC>
+__device__ __forceinline__ void da_product_bf16(const DaArgs2& p,
+                                                const DaSmemW& s,
+                                                long long m0, int n0, int kz,
+                                                int r_lo, int r_hi,
+                                                float (&acc)[kNJW][4]) {
+  constexpr int kBN = kBNW;
+  // A(m = row, k = f) = g[row, f], K-major; B(k = f, n = channel) =
+  // W[channel, f], K-major where W's F axis is the contiguous one
+  const int k_beg = kz * p.k_per_chunk;
+  const int k_end = min(p.f, k_beg + p.k_per_chunk);
+  TileCopyW<kBM, true> a_copy(p.g, m0, p.n, p.f, k_beg, k_end, 1, p.g_vec);
+  TileCopyW<kBN, kWKC> b_copy(p.w, n0, p.c, p.w_sc, k_beg, k_end, p.w_sf,
+                              p.w_vec);
+  wgmma_mainloop<true, kWKC, false, false>(
+      s.ring, (k_end - k_beg + kBKW - 1) / kBKW, acc,
+      [&](unsigned t) {
+        a_copy.start(t);
+        b_copy.start(t + kTileBytesW<kBM>);
+      },
+      [&] {
+        stage_x_tile_bf16<kBN>(s.x_tile, p.x, m0, n0, p.n, p.c, r_lo, r_hi,
+                               p.x_vec);
+        const float* src[6] = {p.mul, p.add, p.mean, p.rstd, p.c1, p.c2};
+#pragma unroll
+        for (int v = 0; v < kVecs; ++v)
+          stage_vector_async(s.vecs + v * kBN, src[v], n0, p.c, kBN,
+                             p.v_vec);
+      },
+      [](unsigned, int, uint32_t (&)[4]) {});
 }
 
-// v[ch] and v[ch + 1], 0 past C.
-__device__ __forceinline__ float2 vec_pair_of(const float* v, int ch, int c) {
-  return make_float2(ch < c ? __ldg(v + ch) : 0.f,
-                     ch + 1 < c ? __ldg(v + ch + 1) : 0.f);
-}
-
-template <bool kDx, int NT, bool kWKC>
-__device__ __forceinline__ void da_block_bf16(const DaArgs2& p,
-                                              const Block& b,
+// bwd_reduce's da block: the dbeta/dgamma partials of its 64 rows over F
+// chunk b.z, part[b.z*(row tiles) + b.x] (2C), as da_block does in fp32.
+template <bool kWKC>
+__device__ __forceinline__ void da_block_bf16(const DaArgs2& p, const Block& b,
                                               unsigned char* smem) {
-  constexpr int kBN = 32 * NT;
-  uint16_t* sa = reinterpret_cast<uint16_t*>(smem);
-  uint16_t* sb = sa + kTile2<kBM>;
-  const int c = p.c;
+  constexpr int kBN = kBNW, kXLd = DaSmemW::kXLd;
+  const DaSmemW s(smem);
+  const float* vecs = s.vecs;
   const Lane ln;
+  const int c = p.c;
   const long long m0 = static_cast<long long>(b.x) * kBM;
   const int n0 = b.y * kBN;
-  const int k_beg = b.z * p.k_per_chunk;
-  const int k_end = min(p.f, k_beg + p.k_per_chunk);
-  // A(m = row, k = f) = g[row, f], B(k = f, n = channel) = W[channel, f]
-  TileLoad2<kBM, true> a(p.g, m0, p.n, p.f, k_beg, k_end, 1, p.g_vec);
-  TileLoad2<kBN, kWKC> bl(p.w, n0, c, p.w_sc, k_beg, k_end, p.w_sf, p.w_vec);
-  float acc[kNJ<NT>][4];
-  mainloop_bf16<NT, true, kWKC, true>(
-      a, bl, (k_end - k_beg + kBK2 - 1) / kBK2, sa, sb, acc, ln,
-      [](float v, int, int) { return v; });
-
-  float s_db[kNJ<NT>][2], s_dg[kNJ<NT>][2];
+  float acc[kNJW][4];
+  da_product_bf16<4, kWKC>(p, s, m0, n0, b.z, 0, kBM, acc);
+  float s_db[kNJW][2], s_dg[kNJW][2];
+  const auto pair = [](const float* q) {
+    return *reinterpret_cast<const float2*>(q);
+  };
 #pragma unroll
-  for (int j = 0; j < kNJ<NT>; ++j) {
-    // two neighbouring channels a thread; channels past C read zeros and
-    // are not stored
-    const int ch = n0 + 8 * j + 2 * ln.t;
-    const float2 mu = vec_pair_of(p.mul, ch, c), ad = vec_pair_of(p.add, ch, c);
-    const float2 me = vec_pair_of(p.mean, ch, c);
-    const float2 rs = vec_pair_of(p.rstd, ch, c);
+  for (int j = 0; j < kNJW; ++j) {
+    // two neighbouring channels a thread; channels past C hold zeros
+    // (vectors and x alike) and are not stored
+    const int col = 8 * j + 2 * ln.t;
+    const float2 mu = pair(vecs + col), ad = pair(vecs + kBN + col);
+    const float2 me = pair(vecs + 2 * kBN + col);
+    const float2 rs = pair(vecs + 3 * kBN + col);
     s_db[j][0] = s_db[j][1] = s_dg[j][0] = s_dg[j][1] = 0.f;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const long long row = m0 + 16 * ln.w + ln.g + 8 * h;
-      const float2 xv = x_pair_of(p, row, ch);
-      if constexpr (kDx) {
-        if (row >= p.n) continue;
-        const float2 k1 = vec_pair_of(p.c1, ch, c);
-        const float2 k2 = vec_pair_of(p.c2, ch, c);
-        const float d0 =
-            dx_of(xv.x, acc[j][2 * h], mu.x, ad.x, me.x, rs.x, k1.x, k2.x);
-        const float d1 = dx_of(xv.y, acc[j][2 * h + 1], mu.y, ad.y, me.y,
-                               rs.y, k1.y, k2.y);
-        uint16_t* dst = p.dx + row * c + ch;
-        if (p.dx_pair && ch + 1 < c) {
-          *reinterpret_cast<uint32_t*>(dst) = pack_bf16x2(d0, d1);
-        } else {
-          if (ch < c) dst[0] = f32_to_bf16_bits(d0);
-          if (ch + 1 < c) dst[1] = f32_to_bf16_bits(d1);
-        }
-      } else {
-        // rows past N add 0: their da is 0 (g is zero-filled)
-        const float dz0 = bn_z(xv.x, mu.x, ad.x) > 0.f ? acc[j][2 * h] : 0.f;
-        const float dz1 =
-            bn_z(xv.y, mu.y, ad.y) > 0.f ? acc[j][2 * h + 1] : 0.f;
-        s_db[j][0] += dz0;
-        s_db[j][1] += dz1;
-        s_dg[j][0] += dz0 * ((xv.x - me.x) * rs.x);
-        s_dg[j][1] += dz1 * ((xv.y - me.y) * rs.y);
-      }
+      // rows past N add 0: their da is 0 (g is zero-filled)
+      const int r = 16 * ln.w + ln.g + 8 * h;
+      const float2 xv = bf16x2_to_f32(
+          *reinterpret_cast<const uint32_t*>(s.x_tile + r * kXLd + col));
+      const float dz0 = bn_z(xv.x, mu.x, ad.x) > 0.f ? acc[j][2 * h] : 0.f;
+      const float dz1 =
+          bn_z(xv.y, mu.y, ad.y) > 0.f ? acc[j][2 * h + 1] : 0.f;
+      s_db[j][0] += dz0;
+      s_db[j][1] += dz1;
+      s_dg[j][0] += dz0 * ((xv.x - me.x) * rs.x);
+      s_dg[j][1] += dz1 * ((xv.y - me.y) * rs.y);
     }
   }
-
-  if constexpr (!kDx) {
-    // column sums over the block's 64 rows in a fixed order, as da_block
-    constexpr int kWarps = kThreads / 32;
-    float* red = reinterpret_cast<float*>(smem);  // [2][kWarps][kBN]
-    static_assert(2 * kWarps * kBN * 4 <= kTile2<kBM> * 2, "red fits in sa");
+  // column sums over the block's 64 rows in a fixed order, as da_block
+  constexpr int kWarps = kThreads / 32;
+  float* red = reinterpret_cast<float*>(s.ring);  // [2][kWarps][kBN]
 #pragma unroll
-    for (int j = 0; j < kNJ<NT>; ++j)
+  for (int j = 0; j < kNJW; ++j)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float db = s_db[j][e], dg = s_dg[j][e];
+    for (int e = 0; e < 2; ++e) {
+      float db = s_db[j][e], dg = s_dg[j][e];
 #pragma unroll
-        for (int mask = 4; mask < 32; mask <<= 1) {
-          db += __shfl_xor_sync(0xffffffffu, db, mask);
-          dg += __shfl_xor_sync(0xffffffffu, dg, mask);
-        }
-        if (ln.g == 0) {
-          const int col = 8 * j + 2 * ln.t + e;
-          red[ln.w * kBN + col] = db;
-          red[(kWarps + ln.w) * kBN + col] = dg;
-        }
+      for (int mask = 4; mask < 32; mask <<= 1) {
+        db += __shfl_xor_sync(0xffffffffu, db, mask);
+        dg += __shfl_xor_sync(0xffffffffu, dg, mask);
       }
-    __syncthreads();
-    if (threadIdx.x < kBN) {
-      const int col = threadIdx.x, ch = n0 + col;
-      if (ch < c) {
-        float db = 0.f, dg = 0.f;
-        for (int r = 0; r < kWarps; ++r) {
-          db += red[r * kBN + col];
-          dg += red[(kWarps + r) * kBN + col];
-        }
-        float* dst =
-            p.part + (static_cast<long long>(b.z) * b.nx + b.x) * 2 * c;
-        dst[ch] = db;
-        dst[c + ch] = dg;
+      if (ln.g == 0) {
+        const int col = 8 * j + 2 * ln.t + e;
+        red[ln.w * kBN + col] = db;
+        red[(kWarps + ln.w) * kBN + col] = dg;
       }
+    }
+  __syncthreads();
+  if (threadIdx.x < kBN) {
+    const int col = threadIdx.x, ch = n0 + col;
+    if (ch < c) {
+      float db = 0.f, dg = 0.f;
+      for (int r = 0; r < kWarps; ++r) {
+        db += red[r * kBN + col];
+        dg += red[(kWarps + r) * kBN + col];
+      }
+      float* dst = p.part + (static_cast<long long>(b.z) * b.nx + b.x) * 2 * c;
+      dst[ch] = db;
+      dst[c + ch] = dg;
     }
   }
 }
 
-template <int NT>
-constexpr int kDwSmem2 = 2 * kBM * 4 + (kTile2<kBM> + kTile2<32 * NT>) * 2;
-template <int NT>
-constexpr int kDaSmem2 = (kTile2<kBM> + kTile2<32 * NT>) * 2;
+// Stores 8 bf16 of a row of dx from channel ch on: one 16-byte store where
+// `vec` and all 8 channels are below C, else the live ones one by one.
+__device__ __forceinline__ void store_dx8(uint16_t* dst, const uint4& v,
+                                          int ch, int c, bool vec) {
+  if (vec && ch + 8 <= c) {
+    *reinterpret_cast<uint4*>(dst) = v;
+  } else {
+    uint16_t e[8];
+    unpack8(v, e);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (ch + q < c) dst[q] = e[q];
+  }
+}
 
-// bf16 bwd_dx: the da product with the BN backward as its epilogue; grid
-// (ceil(N/64), ceil(C/(32 NT))).
-template <int NT, bool kWKC>
-__global__ void __launch_bounds__(kThreads)
+// bf16 bwd_dx, F unsplit: the da product with the BN backward as its
+// epilogue; grid (ceil(N/64), ceil(C/64)). dx is written over the x tile,
+// then leaves as 16-byte stores, whole rows. Four blocks a SM (44 KB of
+// shared memory, at most 128 registers each).
+constexpr int kDxMinBlocks = 4;
+
+template <bool kWKC>
+__global__ void __launch_bounds__(kThreads, kDxMinBlocks)
 bwd_dx_bf16_kernel(const DaArgs2 p) {
-  __shared__ __align__(16) unsigned char smem[kDaSmem2<NT>];
-  da_block_bf16<true, NT, kWKC>(
-      p, Block{static_cast<int>(blockIdx.x), static_cast<int>(blockIdx.y), 0,
-               static_cast<int>(gridDim.x)},
-      smem);
+  constexpr int kBN = kBNW, kXLd = DaSmemW::kXLd;
+  extern __shared__ float4 smem4[];
+  const DaSmemW s(reinterpret_cast<unsigned char*>(smem4));
+  const float* vecs = s.vecs;
+  const Lane ln;
+  const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
+  const int n0 = blockIdx.y * kBN, c = p.c;
+  float acc[kNJW][4];
+  da_product_bf16<6, kWKC>(p, s, m0, n0, 0, 0, kBM, acc);
+  const auto pair = [](const float* q) {
+    return *reinterpret_cast<const float2*>(q);
+  };
+#pragma unroll
+  for (int j = 0; j < kNJW; ++j) {
+    const int col = 8 * j + 2 * ln.t;
+    float2 v[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) v[k] = pair(vecs + k * kBN + col);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * ln.w + ln.g + 8 * h;
+      uint32_t* at = reinterpret_cast<uint32_t*>(s.x_tile + r * kXLd + col);
+      const float2 xv = bf16x2_to_f32(*at);
+      *at = pack_bf16x2(
+          dx_of(xv.x, acc[j][2 * h], v[0].x, v[1].x, v[2].x, v[3].x, v[4].x,
+                v[5].x),
+          dx_of(xv.y, acc[j][2 * h + 1], v[0].y, v[1].y, v[2].y, v[3].y,
+                v[4].y, v[5].y));
+    }
+  }
+  __syncthreads();
+  constexpr int kChunks = kBN / 8;
+  for (int u = threadIdx.x; u < kBM * kChunks; u += kThreads) {
+    const int r = u / kChunks, col = (u % kChunks) * 8;
+    const long long row = m0 + r;
+    if (row >= p.n || n0 + col >= c) continue;
+    store_dx8(p.dx + row * c + n0 + col,
+              *reinterpret_cast<const uint4*>(s.x_tile + r * kXLd + col),
+              n0 + col, c, p.dx_vec);
+  }
 }
 
-// bf16 bwd_reduce's two products in one launch, as bwd_reduce_kernel.
-template <int kDwNT, bool kWKC>
-__global__ void __launch_bounds__(kThreads)
+// bf16 bwd_dx with F split across a thread-block cluster, as
+// bwd_dx_cluster_kernel: grid (ceil(N/64), ceil(C/64), chunks), cluster (1,
+// 1, chunks), 2 <= chunks <= kMaxCluster. Block k of a cluster contracts F
+// chunk k and leaves P_k (fp32) in its own shared memory; after a cluster
+// barrier rank r sums P_0 + P_1 + ... in that order for its share of the
+// tile's live rows, reading its peers' shared memory, applies the mask and
+// the BN backward, and stores 8 channels of dx a thread in one 16-byte
+// store. No scratch in device memory, no atomics: the same bits run to run.
+template <bool kWKC>
+__global__ void __launch_bounds__(kThreads, kDxMinBlocks)
+bwd_dx_cluster_bf16_kernel(const DaArgs2 p) {
+  constexpr int kBN = kBNW, kXLd = DaSmemW::kXLd;
+  constexpr int kPLd = kBN + 8;  // P_k's rows, fp32
+  static_assert(kBM * kPLd * 4 <= kRingBytesW, "P_k in the ring");
+  extern __shared__ float4 smem4[];
+  const DaSmemW s(reinterpret_cast<unsigned char*>(smem4));
+  float* part = reinterpret_cast<float*>(s.ring);  // once the ring is free
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int chunks = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const Lane ln;
+  const long long n = p.n, m0 = static_cast<long long>(blockIdx.x) * kBM;
+  const int c = p.c, n0 = blockIdx.y * kBN;
+  // this rank's rows of the tile: an even share of the live ones
+  const int live = static_cast<int>(min(1LL * kBM, n - m0));
+  const int share = (live + chunks - 1) / chunks;
+  const int r_lo = min(live, rank * share), r_hi = min(live, r_lo + share);
+  float acc[kNJW][4];
+  da_product_bf16<6, kWKC>(p, s, m0, n0, rank, r_lo, r_hi, acc);
+#pragma unroll
+  for (int j = 0; j < kNJW; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * ln.w + ln.g + 8 * h, col = 8 * j + 2 * ln.t;
+      *reinterpret_cast<float2*>(part + r * kPLd + col) =
+          make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+  cluster.sync();  // every P_k written and visible to the whole cluster
+
+  const float* peer[kMaxCluster];
+#pragma unroll
+  for (int k = 0; k < kMaxCluster; ++k)
+    peer[k] = cluster.map_shared_rank(part, k < chunks ? k : 0);
+  const auto quad = [](const float* q) {
+    return *reinterpret_cast<const float4*>(q);
+  };
+  constexpr int kOcts = kBN / 8;
+  for (int u = threadIdx.x; u < (r_hi - r_lo) * kOcts; u += kThreads) {
+    const int r = r_lo + u / kOcts, col = (u % kOcts) * 8;
+    float da[8];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int at = r * kPLd + col + 4 * half;
+      float4 q[kMaxCluster];  // all loads in flight before the sum
+#pragma unroll
+      for (int k = 0; k < kMaxCluster; ++k)
+        if (k < chunks) q[k] = quad(peer[k] + at);
+      float4 sum = q[0];
+#pragma unroll
+      for (int k = 1; k < kMaxCluster; ++k)
+        if (k < chunks) sum.x += q[k].x, sum.y += q[k].y, sum.z += q[k].z,
+                        sum.w += q[k].w;
+      da[4 * half] = sum.x, da[4 * half + 1] = sum.y;
+      da[4 * half + 2] = sum.z, da[4 * half + 3] = sum.w;
+    }
+    uint16_t xe[8], out[8];
+    unpack8(*reinterpret_cast<const uint4*>(s.x_tile + r * kXLd + col), xe);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float* v = s.vecs + col + e;
+      out[e] = f32_to_bf16_bits(dx_of(bf16_bits_to_f32(xe[e]), da[e], v[0],
+                                      v[kBN], v[2 * kBN], v[3 * kBN],
+                                      v[4 * kBN], v[5 * kBN]));
+    }
+    store_dx8(p.dx + (m0 + r) * c + n0 + col, pack8(out), n0 + col, c,
+              p.dx_vec);
+  }
+  cluster.sync();  // no block leaves while a peer may still read its P_k
+}
+
+// bf16 bwd_reduce's two products in one launch, as bwd_reduce_kernel, both
+// in 64 x 64 tiles, launched in thread-block clusters of Q blocks along the
+// 1-D grid: blocks [0, dw_grid.n) are dW's (Q row chunks a cluster,
+// clusters tile-fastest), the rest da's, padded to a whole cluster (the
+// padding returns at once; a da cluster never meets at a barrier). Four
+// blocks a SM (~122 registers; 64 x 128 dW tiles took 255 and spilled).
+constexpr int kReduceSmemW =
+    kDwSmemW > DaSmemW::kBytes ? kDwSmemW : DaSmemW::kBytes;
+
+template <bool kWKC>
+__global__ void __launch_bounds__(kThreads, 4)
 bwd_reduce_bf16_kernel(const DwArgs2 dw, const DaArgs2 da, const Grid dw_grid,
                        const Grid da_grid) {
-  constexpr int kBytes =
-      kDwSmem2<kDwNT> > kDaSmem2<2> ? kDwSmem2<kDwNT> : kDaSmem2<2>;
-  __shared__ __align__(16) unsigned char smem[kBytes];
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
   int id = blockIdx.x;
   if (id < dw_grid.n) {
-    dw_block_bf16<kDwNT>(dw, Block{id % dw_grid.x, id / dw_grid.x % dw_grid.y,
-                                   id / (dw_grid.x * dw_grid.y), dw_grid.x},
-                         smem);
-  } else {
-    id -= dw_grid.n;
-    da_block_bf16<false, 2, kWKC>(
-        da, Block{id % da_grid.x, id / da_grid.x % da_grid.y,
-                  id / (da_grid.x * da_grid.y), da_grid.x},
-        smem);
+    const int cl = id / static_cast<int>(cg::this_cluster().num_blocks());
+    const int tile = cl % (dw_grid.x * dw_grid.y);
+    dw_block_bf16(dw, tile % dw_grid.x * kBM, tile / dw_grid.x * 64,
+                  cl / (dw_grid.x * dw_grid.y), smem);
+  } else if ((id -= dw_grid.n) < da_grid.n) {
+    da_block_bf16<kWKC>(da, Block{id % da_grid.x, id / da_grid.x % da_grid.y,
+                                  id / (da_grid.x * da_grid.y), da_grid.x},
+                        smem);
   }
+}
+
+// The core alone, for its tests: out (64, 64) fp32 = A B^T over k, A and B
+// (64, k) bf16, each given K-major (a[m*k + kk]) or MN-major (a[kk*64 + m])
+// as kAKC / kBKC say.
+template <bool kAKC, bool kBKC>
+__global__ void __launch_bounds__(kThreads)
+wgmma_bf16_tile_kernel(const uint16_t* a, const uint16_t* b, int k, bool a_vec,
+                       bool b_vec, float* out) {
+  constexpr int kBN = kBNW;
+  extern __shared__ float4 smem4[];
+  unsigned char* ring = align_atom(reinterpret_cast<unsigned char*>(smem4));
+  const Lane ln;
+  TileCopyW<kBM, kAKC> a_copy(a, 0, kBM, kAKC ? k : 1, 0, k, kAKC ? 1 : kBM,
+                              a_vec);
+  TileCopyW<kBN, kBKC> b_copy(b, 0, kBN, kBKC ? k : 1, 0, k, kBKC ? 1 : kBN,
+                              b_vec);
+  float acc[kNJW][4];
+  wgmma_mainloop<kAKC, kBKC, false, false>(
+      ring, (k + kBKW - 1) / kBKW, acc,
+      [&](unsigned t) {
+        a_copy.start(t);
+        b_copy.start(t + kTileBytesW<kBM>);
+      },
+      [] {}, [](unsigned, int, uint32_t (&)[4]) {});
+  store_acc<kBNW / 32>(out, kBN, 0, kBM, 0, kBN, acc, ln, true);
 }
 
 // --------------------------------------------------------- host launchers
@@ -1620,8 +2226,7 @@ cudaError_t launch_apply(const float* x, const float* mul, const float* add,
   return cudaGetLastError();
 }
 
-template <class Dw>  // DwArgs or DwArgs2
-Grid dw_grid_of(const Dw& dw, int tile_cols) {
+Grid dw_grid_of(const DwArgs& dw, int tile_cols) {
   Grid grid{ceil_div(dw.c, kBM), ceil_div(dw.f, tile_cols), 0};
   grid.n = grid.x * grid.y * ceil_div(dw.n, dw.rows_per_chunk);
   return grid;
@@ -1648,7 +2253,7 @@ cudaError_t launch_bwd_dx(const DaArgs& da, cudaStream_t s) {
 // blocks a 64 x 64 tile, the cluster's size set at run time (it differs
 // from stage to stage). `attr` backs the returned config.
 cudaLaunchConfig_t dx_cluster_config(long long n, int c, int chunks,
-                                     cudaStream_t s,
+                                     int smem_bytes, cudaStream_t s,
                                      cudaLaunchAttribute* attr) {
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = 1;
@@ -1657,7 +2262,7 @@ cudaLaunchConfig_t dx_cluster_config(long long n, int c, int chunks,
   cudaLaunchConfig_t cfg{};
   cfg.gridDim = dim3(ceil_div(n, kBM), ceil_div(c, 64), chunks);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kDaSmemBytes<2>;
+  cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -1671,8 +2276,8 @@ cudaError_t launch_bwd_dx_cluster(const DaArgs& da, int chunks,
   cudaError_t e = allow_smem(kernel, kDaSmemBytes<2>);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = dx_cluster_config(da.n, da.c, chunks, s,
-                                                   &attr);
+  const cudaLaunchConfig_t cfg = dx_cluster_config(
+      da.n, da.c, chunks, kDaSmemBytes<2>, s, &attr);
   void* args[] = {const_cast<DaArgs*>(&da)};
   e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
   return e != cudaSuccess ? e : cudaGetLastError();
@@ -1686,7 +2291,8 @@ cudaError_t dx_max_clusters(long long n, int c, int chunks, int* clusters) {
   cudaError_t e = allow_smem(kernel, kDaSmemBytes<2>);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = dx_cluster_config(n, c, chunks, 0, &attr);
+  const cudaLaunchConfig_t cfg =
+      dx_cluster_config(n, c, chunks, kDaSmemBytes<2>, 0, &attr);
   return cudaOccupancyMaxActiveClusters(
       clusters, reinterpret_cast<const void*>(kernel), &cfg);
 }
@@ -1757,6 +2363,8 @@ cudaError_t launch_apply_bf16(const uint16_t* x, const float* mul,
   return cudaGetLastError();
 }
 
+bool k_chunk_w_ok(long long k) { return k > 0 && k % kBKW == 0; }
+
 DaArgs2 da_args_bf16(const uint16_t* g, const uint16_t* w, long long w_sc,
                      long long w_sf, const uint16_t* x, const float* mul,
                      const float* add, const float* mean, const float* rstd,
@@ -1765,30 +2373,107 @@ DaArgs2 da_args_bf16(const uint16_t* g, const uint16_t* w, long long w_sc,
   da.g = g, da.w = w, da.w_sc = w_sc, da.w_sf = w_sf, da.x = x;
   da.mul = mul, da.add = add, da.mean = mean, da.rstd = rstd;
   da.n = n, da.c = c, da.f = f;
-  da.g_vec = vec8_ok(g, 1, f), da.x_pair = pair_ok(x, c);
+  da.g_vec = vec8_ok(g, 1, f), da.x_vec = vec8_ok(x, 1, c);
   // W[channel, f]: the tile's K axis (f) is contiguous when w_sf == 1
   da.w_vec = w_sf == 1 ? vec8_ok(w, w_sf, w_sc) : vec8_ok(w, w_sc, w_sf);
   return da;
 }
 
-template <int kDwNT, bool kWKC>
+// The vectors a da block stages take 16-byte copies when all are aligned.
+bool vecs_aligned(const float* const* v, int count) {
+  for (int i = 0; i < count; ++i)
+    if (reinterpret_cast<uintptr_t>(v[i]) % 16) return false;
+  return true;
+}
+
+// dW's row chunks in clusters of q_blocks (2 to 8, dividing 64), or (1) a
+// plain launch.
+template <bool kWKC>
 cudaError_t launch_bwd_reduce_bf16(const DwArgs2& dw, const DaArgs2& da,
-                                   cudaStream_t s) {
-  const Grid dw_grid = dw_grid_of(dw, 32 * kDwNT);
+                                   int q_blocks, cudaStream_t s) {
+  auto kernel = bwd_reduce_bf16_kernel<kWKC>;
+  constexpr int kBytes = kReduceSmemW;
+  cudaError_t e = allow_smem(kernel, kBytes);
+  if (e != cudaSuccess) return e;
+  Grid dw_grid{ceil_div(dw.c, kBM), ceil_div(dw.f, 64), 0};
+  dw_grid.n = dw_grid.x * dw_grid.y * q_blocks *
+              ceil_div(ceil_div(dw.n, dw.rows_per_chunk), q_blocks);
   const Grid da_grid = da_grid_of(da);
-  bwd_reduce_bf16_kernel<kDwNT, kWKC>
-      <<<dw_grid.n + da_grid.n, kThreads, 0, s>>>(dw, da, dw_grid, da_grid);
-  return cudaGetLastError();
+  if (q_blocks == 1) {  // no cluster: a plain launch
+    kernel<<<dw_grid.n + da_grid.n, kThreads, kBytes, s>>>(dw, da, dw_grid,
+                                                           da_grid);
+    return cudaGetLastError();
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = q_blocks;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(dw_grid.n + q_blocks * ceil_div(da_grid.n, q_blocks));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kBytes;
+  cfg.stream = s;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  void* args[] = {const_cast<DwArgs2*>(&dw), const_cast<DaArgs2*>(&da),
+                  &dw_grid, const_cast<Grid*>(&da_grid)};
+  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-template <int NT, bool kWKC>
+template <bool kWKC>
 cudaError_t launch_bwd_dx_bf16(const DaArgs2& da, cudaStream_t s) {
-  bwd_dx_bf16_kernel<NT, kWKC>
-      <<<dim3(ceil_div(da.n, kBM), ceil_div(da.c, 32 * NT)), kThreads, 0,
-         s>>>(da);
+  auto kernel = bwd_dx_bf16_kernel<kWKC>;
+  constexpr int kBytes = DaSmemW::kBytes;
+  cudaError_t e = allow_smem(kernel, kBytes);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(ceil_div(da.n, kBM), ceil_div(da.c, 64)), kThreads, kBytes,
+           s>>>(da);
   return cudaGetLastError();
 }
 
+template <bool kWKC>
+cudaError_t launch_bwd_dx_cluster_bf16(const DaArgs2& da, int chunks,
+                                       cudaStream_t s) {
+  auto kernel = bwd_dx_cluster_bf16_kernel<kWKC>;
+  constexpr int kBytes = DaSmemW::kBytes;
+  cudaError_t e = allow_smem(kernel, kBytes);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      dx_cluster_config(da.n, da.c, chunks, kBytes, s, &attr);
+  void* args[] = {const_cast<DaArgs2*>(&da)};
+  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <bool kWKC>
+cudaError_t dx_max_clusters_bf16(long long n, int c, int chunks,
+                                 int* clusters) {
+  auto kernel = bwd_dx_cluster_bf16_kernel<kWKC>;
+  constexpr int kBytes = DaSmemW::kBytes;
+  cudaError_t e = allow_smem(kernel, kBytes);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      dx_cluster_config(n, c, chunks, kBytes, 0, &attr);
+  return cudaOccupancyMaxActiveClusters(
+      clusters, reinterpret_cast<const void*>(kernel), &cfg);
+}
+
+template <bool kAKC, bool kBKC>
+cudaError_t launch_wgmma_tile(const uint16_t* a, const uint16_t* b, int k,
+                              float* out, cudaStream_t s) {
+  auto kernel = wgmma_bf16_tile_kernel<kAKC, kBKC>;
+  constexpr int kBytes = kAtomBytes + kRingBytesW;
+  cudaError_t e = allow_smem(kernel, kBytes);
+  if (e != cudaSuccess) return e;
+  const bool a_vec = kAKC ? vec8_ok(a, 1, k) : vec8_ok(a, 1, kBM);
+  const bool b_vec = kBKC ? vec8_ok(b, 1, k) : vec8_ok(b, 1, 64);
+  kernel<<<1, kThreads, kBytes, s>>>(a, b, k, a_vec, b_vec, out);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -1946,7 +2631,8 @@ int msp_fused_bwd_dx_max_clusters(long long n, int c, int f, int k_per_chunk,
 
 // The bf16 entry points: x, g and W are bf16 (as their 16 bits), the
 // vectors fp32; dW, dgamma, dbeta and the moments fp32, out and dx bf16.
-// Chunk sizes are multiples of 32 (the bf16 K step).
+// Chunk sizes are multiples of 32 for apply (its K step) and of 64 for
+// the backward's (the wgmma core's step).
 
 #ifdef MSP_FUSED_FWD
 int msp_fused_moments_bf16(const uint16_t* x, long long n, int c,
@@ -1990,65 +2676,106 @@ int msp_fused_apply_bf16(const uint16_t* x, const float* mul,
 #endif  // MSP_FUSED_FWD
 
 #ifdef MSP_FUSED_BWD_REDUCE
-// out and part as msp_fused_bwd_reduce (fp32), from bf16 x, g and W.
+// out as msp_fused_bwd_reduce (fp32), from bf16 x, g and W. dW takes 64 x
+// 64 tiles (dw_tile_cols 64) and row chunks of rows_per_chunk (a multiple
+// of 64), in clusters of dw_cluster (1, 2, 4 or 8) that write one partial
+// each; part: the partials, ceil(chunks / dw_cluster) * c * f floats, when
+// there are two or more (one is written straight into out), then the
+// dbeta / dgamma partials as msp_fused_bwd_reduce's. A card that refuses
+// the cluster shape returns its error; nothing falls back.
 int msp_fused_bwd_reduce_bf16(const uint16_t* x, const uint16_t* g,
                               const uint16_t* w, long long w_sc,
                               long long w_sf, const float* mul,
                               const float* add, const float* mean,
                               const float* rstd, long long n, int c, int f,
                               int dw_tile_cols, long long rows_per_chunk,
-                              int da_k_per_chunk, float* part, float* out,
-                              void* stream) {
+                              int dw_cluster, int da_k_per_chunk, float* part,
+                              float* out, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (!tile_cols_ok(dw_tile_cols) || !k_chunk_ok(rows_per_chunk) ||
-      !k_chunk_ok(da_k_per_chunk))
+  if (dw_tile_cols != 64 || !k_chunk_w_ok(rows_per_chunk) ||
+      !k_chunk_w_ok(da_k_per_chunk) || dw_cluster < 1 ||
+      dw_cluster > kMaxCluster || kBM % dw_cluster)
     return cudaErrorInvalidValue;
-  const int dw_chunks = ceil_div(n, rows_per_chunk);
+  const int groups = ceil_div(ceil_div(n, rows_per_chunk), dw_cluster);
   const long long m_dw = static_cast<long long>(c) * f;
+  // one partial is dW itself: written into out, no fold
+  float* dw_part = groups == 1 ? out : part;
   DwArgs2 dw{x, g, mul, add, n, c, f, rows_per_chunk, vec8_ok(x, 1, c),
              vec8_ok(g, 1, f),
-             vec2_ok(part, f) && (dw_chunks == 1 || m_dw % 2 == 0), part};
+             vec4_ok(dw_part, 1, f) && (groups == 1 || m_dw % 4 == 0),
+             dw_part};
   DaArgs2 da = da_args_bf16(g, w, w_sc, w_sf, x, mul, add, mean, rstd, n, c,
                             f);
+  const float* vecs[4] = {mul, add, mean, rstd};
+  da.v_vec = vecs_aligned(vecs, 4);
   da.k_per_chunk = da_k_per_chunk;
-  da.part = part + dw_chunks * m_dw;
-  const bool dw_wide = dw_tile_cols == 128, kc = w_sf == 1;
-  cudaError_t e;
-  if (dw_wide) {
-    e = kc ? launch_bwd_reduce_bf16<4, true>(dw, da, s)
-           : launch_bwd_reduce_bf16<4, false>(dw, da, s);
-  } else {
-    e = kc ? launch_bwd_reduce_bf16<2, true>(dw, da, s)
-           : launch_bwd_reduce_bf16<2, false>(dw, da, s);
-  }
+  da.part = groups == 1 ? part : part + groups * m_dw;
+  const cudaError_t e =
+      w_sf == 1 ? launch_bwd_reduce_bf16<true>(dw, da, dw_cluster, s)
+                : launch_bwd_reduce_bf16<false>(dw, da, dw_cluster, s);
   if (e != cudaSuccess) return e;
   const int bg_parts = ceil_div(n, kBM) * ceil_div(f, da_k_per_chunk);
-  return launch_fold_parts(part, dw_chunks, m_dw, bg_parts, 2LL * c, out, true,
+  if (groups == 1)
+    return launch_fold_parts(da.part, bg_parts, 2LL * c, 0, 0, out + m_dw,
+                             true, s);
+  return launch_fold_parts(part, groups, m_dw, bg_parts, 2LL * c, out, true,
                            s);
 }
 
 #endif  // MSP_FUSED_BWD_REDUCE
 
 #ifdef MSP_FUSED_BWD_DX
-// dx (n, c) bf16 = mul*(dz - c1 - xhat*c2), F unsplit (tile_cols 64 or 128).
+// dx (n, c) bf16 = mul*(dz - c1 - xhat*c2) in 64 x 64 tiles (tile_cols
+// 64), F in chunks of k_per_chunk (a multiple of 64): one chunk is the
+// unsplit launch, 2 to 8 the cluster launch, as msp_fused_bwd_dx.
 int msp_fused_bwd_dx_bf16(const uint16_t* x, const uint16_t* g,
                           const uint16_t* w, long long w_sc, long long w_sf,
                           const float* mul, const float* add,
                           const float* mean, const float* rstd,
                           const float* c1, const float* c2, long long n, int c,
-                          int f, int tile_cols, uint16_t* dx, void* stream) {
+                          int f, int tile_cols, int k_per_chunk, uint16_t* dx,
+                          void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (!tile_cols_ok(tile_cols)) return cudaErrorInvalidValue;
+  const int chunks = ceil_div(f, k_per_chunk);
+  if (tile_cols != 64 || !k_chunk_w_ok(k_per_chunk) || chunks > kMaxCluster)
+    return cudaErrorInvalidValue;
   DaArgs2 da = da_args_bf16(g, w, w_sc, w_sf, x, mul, add, mean, rstd, n, c,
                             f);
-  da.c1 = c1, da.c2 = c2, da.dx = dx, da.dx_pair = pair_ok(dx, c);
-  da.k_per_chunk = ceil_div(f, kBK2) * kBK2;
+  da.c1 = c1, da.c2 = c2, da.dx = dx, da.dx_vec = vec8_ok(dx, 1, c);
+  const float* vecs[6] = {mul, add, mean, rstd, c1, c2};
+  da.v_vec = vecs_aligned(vecs, 6);
+  da.k_per_chunk = k_per_chunk;
   const bool kc = w_sf == 1;
-  if (tile_cols == 128)
-    return kc ? launch_bwd_dx_bf16<4, true>(da, s)
-              : launch_bwd_dx_bf16<4, false>(da, s);
-  return kc ? launch_bwd_dx_bf16<2, true>(da, s)
-            : launch_bwd_dx_bf16<2, false>(da, s);
+  if (chunks > 1)
+    return kc ? launch_bwd_dx_cluster_bf16<true>(da, chunks, s)
+              : launch_bwd_dx_cluster_bf16<false>(da, chunks, s);
+  return kc ? launch_bwd_dx_bf16<true>(da, s) : launch_bwd_dx_bf16<false>(da, s);
+}
+
+// As msp_fused_bwd_dx_max_clusters, for the bf16 cluster launch (F chunks
+// of k_per_chunk, a multiple of 64).
+int msp_fused_bwd_dx_max_clusters_bf16(long long n, int c, int f,
+                                       int k_per_chunk, int w_kc,
+                                       int* clusters) {
+  if (!k_chunk_w_ok(k_per_chunk)) return cudaErrorInvalidValue;
+  const int chunks = ceil_div(f, k_per_chunk);
+  if (chunks < 2 || chunks > kMaxCluster) return cudaErrorInvalidValue;
+  return w_kc ? dx_max_clusters_bf16<true>(n, c, chunks, clusters)
+              : dx_max_clusters_bf16<false>(n, c, chunks, clusters);
+}
+
+// The wgmma core alone on one tile (for its tests): out (64, 64) fp32 =
+// A B^T over k (a multiple of 8), A (64, k) and B (64, k) bf16, each
+// K-major ([row][k]) or, where a_mn / b_mn, MN-major ([k][row]).
+int msp_wgmma_bf16_tile(const uint16_t* a, const uint16_t* b, int a_mn,
+                        int b_mn, int k, float* out, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (k <= 0 || k % 8) return cudaErrorInvalidValue;
+  if (a_mn)
+    return b_mn ? launch_wgmma_tile<false, false>(a, b, k, out, s)
+                : launch_wgmma_tile<false, true>(a, b, k, out, s);
+  return b_mn ? launch_wgmma_tile<true, false>(a, b, k, out, s)
+              : launch_wgmma_tile<true, true>(a, b, k, out, s);
 }
 
 #endif  // MSP_FUSED_BWD_DX

@@ -27,10 +27,12 @@ float32 (the op casts dW to W's dtype, as JAX does).
 The three products (``apply``, and the two of the backward) run on the
 tensor cores: in float32 as 3xTF32 splits, which keep fp32 accuracy
 (:func:`matmul_3xtf32_plain` emulates the split in plain torch), in bf16 as
-one bf16 product (exact in fp32). Their launch plan — 64x128 or 64x64 block
-tiles, how many K chunks share a contraction — is plain Python,
-:func:`launch_plan`, a function of ``(n, c, f)``, the card's SM count and
-the element size only.
+one bf16 product (exact in fp32): ``apply`` on ``mma.sync``, the backward's
+two kernels on a ``wgmma`` core fed by a ring of ``cp.async`` stages
+(:func:`wgmma_bf16_tile` runs that core alone). Their launch plan — 64x128
+or 64x64 block tiles, how many K chunks share a contraction — is plain
+Python, :func:`launch_plan`, a function of ``(n, c, f)``, the card's SM
+count and the element size only.
 
 Semantics are flax's ``BatchNorm(momentum=0.9, epsilon=1e-5,
 use_fast_variance=True)`` in train mode followed by ReLU and a bias-free
@@ -68,6 +70,8 @@ BUILDS = tuple((_SOURCE, (part, *(("MSP_FUSED_BF16",) if bf16 else ())))
 _TILE_ROWS = 64   # kBM in the source: rows of a GEMM block tile
 _TILE_COLS = (128, 64)  # 32 NT in the source: the wide and the narrow tile
 _STEP_BYTES = 64  # a K step is 64 bytes of a row: kBK (16) fp32, kBK2 (32) bf16
+# ... but the bf16 backward's (the wgmma core's) is 128: kBKW (64) bf16
+_BWD_STEP_BYTES_BF16 = 128
 _MAX_K = 1024     # kMaxK in the source: most channels one apply block takes
 _DTYPES = (torch.float32, torch.bfloat16)  # the kernels' compute dtypes
 _MOMENT_ROWS = 256  # rows per moments block
@@ -165,7 +169,10 @@ class LaunchPlan(NamedTuple):
     ``apply`` contracts the channels in ``apply_chunks`` chunks of
     ``apply_k_per_chunk`` (the last may be short); with more than one chunk
     it writes ``apply_scratch`` floats of partial outputs, folded in
-    ascending order. The dW product splits the rows the same way. The
+    ascending order. The dW product splits the rows the same way; in bf16
+    the row chunks of a tile form thread-block clusters of ``dw_cluster``
+    blocks, which sum their partials in rank order in shared memory and
+    write one partial a cluster (float32: ``dw_cluster`` 1). The
     product g Wᵀ takes 64x64 tiles in ``bwd_reduce`` and is split over F
     there (``da_chunks`` of ``da_k_per_chunk``). ``bwd_dx`` takes tiles
     ``dx_tile_cols`` wide and splits F too (``dx_chunks`` of
@@ -173,8 +180,10 @@ class LaunchPlan(NamedTuple):
     mask [z > 0] depends on x alone), so the F chunks of a tile are the
     blocks of one thread-block cluster, which sum their partial products in
     ascending order before the mask and the BN backward run once; one chunk
-    is the unsplit launch. ``reduce_scratch`` holds the dW partials and then
-    the dbeta/dgamma partials of every (64-row tile, F chunk)."""
+    is the unsplit launch. ``reduce_scratch`` holds the dW partials (one a
+    cluster of row chunks; in bf16 none where there would be one, as dW
+    goes straight to the output) and then the dbeta/dgamma partials of
+    every (64-row tile, F chunk)."""
     apply_tile_cols: int
     apply_chunks: int
     apply_k_per_chunk: int
@@ -182,6 +191,7 @@ class LaunchPlan(NamedTuple):
     dw_tile_cols: int
     dw_chunks: int
     dw_rows_per_chunk: int
+    dw_cluster: int
     dx_tile_cols: int
     dx_chunks: int
     dx_k_per_chunk: int
@@ -207,14 +217,29 @@ def _split(steps: int, tiles: int, sm_count: int, max_steps=None,
     return math.ceil(steps / per_chunk), per_chunk
 
 
+def _dw_partials(chunks: int, cluster: int, elem_bytes: int) -> int:
+    """dW partials in bwd_reduce's scratch: one a cluster of row chunks; in
+    bf16 a single one is dW itself, written straight into the output."""
+    partials = math.ceil(chunks / cluster)
+    return 0 if elem_bytes == 2 and partials == 1 else partials
+
+
 @functools.lru_cache(maxsize=None)
 def launch_plan(n: int, c: int, f: int, sm_count: int,
                 elem_bytes: int = 4) -> LaunchPlan:
     """The launch plan of a stage with ``n`` rows, ``c`` channels in and
     ``f`` out on a card with ``sm_count`` SMs, for elements of
     ``elem_bytes`` (4: float32, 2: bfloat16). A K step is 64 bytes of a
-    row: 16 fp32 or 32 bf16 elements, so chunks are multiples of that. The
-    bf16 ``bwd_dx`` kernel has no cluster split: F is one chunk there.
+    row, 16 fp32 or 32 bf16 elements, and in the bf16 backward (the
+    ``wgmma`` core) 128 bytes, 64 elements; chunks are multiples of their
+    step. In bf16 (every tile 64x64 there) dW's float32 partials hold at
+    most a quarter of x's bytes (n·2/4 ≥ partials·f·4 a channel), so its
+    row chunks are few and long; where that leaves fewer than one dW block
+    for two SMs, each longer than 4 steps, the rows are split to fill the
+    card as in float32 and the chunks of a tile form thread-block clusters
+    (2 to 8) that write one partial each. A cluster launch costs the whole
+    grid (the g Wᵀ blocks too) some microseconds on an H100, so it is
+    taken only there.
 
     A product takes the wide 64x128 tile (one column tile at F = 128) when
     that alone puts a block
@@ -230,9 +255,11 @@ def launch_plan(n: int, c: int, f: int, sm_count: int,
     if elem_bytes not in (2, 4):
         raise ValueError(f"no kernels for {elem_bytes}-byte elements")
     k_step = _STEP_BYTES // elem_bytes
+    bwd_step = _BWD_STEP_BYTES_BF16 // 2 if elem_bytes == 2 else k_step
     wide, narrow = _TILE_COLS
     row_tiles = math.ceil(n / _TILE_ROWS)
-    c_steps, n_steps = math.ceil(c / k_step), math.ceil(n / k_step)
+    c_steps, n_steps = math.ceil(c / k_step), math.ceil(n / bwd_step)
+    f_steps = math.ceil(f / bwd_step)
 
     tiles = row_tiles * math.ceil(f / wide)
     apply_cols = wide
@@ -243,28 +270,43 @@ def launch_plan(n: int, c: int, f: int, sm_count: int,
 
     tiles = math.ceil(c / _TILE_ROWS) * math.ceil(f / wide)
     dw_cols = wide
-    if tiles * n_steps < 2 * sm_count:
+    if tiles * n_steps < 2 * sm_count or elem_bytes == 2:
         dw_cols = narrow
         tiles = math.ceil(c / _TILE_ROWS) * math.ceil(f / narrow)
-    dw_chunks, row_steps = _split(n_steps, tiles, sm_count)
+    dw_cluster = 1
+    if elem_bytes == 2:
+        partials = max(1, n * elem_bytes // (16 * f))
+        dw_chunks, row_steps = _split(n_steps, tiles, sm_count,
+                                      max_chunks=partials)
+        if tiles * dw_chunks < sm_count // 2 and row_steps > 4:
+            # chunks of 4 steps, as many clusters as partials
+            dw_chunks = min(math.ceil(n_steps / 4), _MAX_CLUSTER * partials)
+            row_steps = math.ceil(n_steps / dw_chunks)
+            dw_chunks = math.ceil(n_steps / row_steps)
+            while math.ceil(dw_chunks / dw_cluster) > partials:
+                dw_cluster *= 2
+    else:
+        dw_chunks, row_steps = _split(n_steps, tiles, sm_count)
 
     dx_cols = wide if row_tiles * math.ceil(c / wide) >= sm_count else narrow
-    dx_chunks, dx_steps = _split(math.ceil(f / k_step),
-                                 row_tiles * math.ceil(c / dx_cols), sm_count,
-                                 max_chunks=_MAX_CLUSTER if elem_bytes == 4
-                                 else 1, blocks_per_sm=1)
-    da_chunks, f_steps = _split(math.ceil(f / k_step),
-                                row_tiles * math.ceil(c / narrow), sm_count)
+    if elem_bytes == 2:
+        dx_cols = narrow
+    dx_chunks, dx_steps = _split(f_steps, row_tiles * math.ceil(c / dx_cols),
+                                 sm_count, max_chunks=_MAX_CLUSTER,
+                                 blocks_per_sm=1)
+    da_chunks, da_steps = _split(f_steps, row_tiles * math.ceil(c / narrow),
+                                 sm_count)
     return LaunchPlan(
         apply_tile_cols=apply_cols, apply_chunks=apply_chunks,
         apply_k_per_chunk=k_steps * k_step,
         apply_scratch=apply_chunks * n * f if apply_chunks > 1 else 0,
         dw_tile_cols=dw_cols, dw_chunks=dw_chunks,
-        dw_rows_per_chunk=row_steps * k_step, dx_tile_cols=dx_cols,
-        dx_chunks=dx_chunks, dx_k_per_chunk=dx_steps * k_step,
-        da_chunks=da_chunks, da_k_per_chunk=f_steps * k_step,
-        reduce_scratch=(dw_chunks * c * f
-                        + row_tiles * da_chunks * 2 * c))
+        dw_rows_per_chunk=row_steps * bwd_step, dw_cluster=dw_cluster,
+        dx_tile_cols=dx_cols,
+        dx_chunks=dx_chunks, dx_k_per_chunk=dx_steps * bwd_step,
+        da_chunks=da_chunks, da_k_per_chunk=da_steps * bwd_step,
+        reduce_scratch=(_dw_partials(dw_chunks, dw_cluster, elem_bytes)
+                        * c * f + row_tiles * da_chunks * 2 * c))
 
 
 @functools.lru_cache(maxsize=None)
@@ -309,23 +351,25 @@ def _lib(wrapper: str, bf16: bool = False):
         if (part, bf16) not in _typed:
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             sfx = "_bf16" if bf16 else ""
-            dx = [p, p, p, ll, ll, p, p, p, p, p, p, ll, i, i, i]
+            dx = [p, p, p, ll, ll, p, p, p, p, p, p, ll, i, i, i, i, p, p]
             entries = {
                 "MSP_FUSED_FWD": {
                     "moments": [p, ll, i, ll, p, p, p],
                     "apply": [p, p, p, p, ll, ll, ll, i, i, i, i, p, p, p]},
                 "MSP_FUSED_BWD_REDUCE": {
                     "bwd_reduce": [p, p, p, ll, ll, p, p, p, p, ll, i, i, i,
-                                   ll, i, p, p, p]},
-                "MSP_FUSED_BWD_DX": (
-                    {"bwd_dx": dx + [p, p]} if bf16 else
-                    {"bwd_dx": dx + [i, p, p],
-                     "bwd_dx_max_clusters": [ll, i, i, i, i,
-                                             ctypes.POINTER(i)]}),
+                                   ll, *([i] if bf16 else []), i, p, p, p]},
+                "MSP_FUSED_BWD_DX": {
+                    "bwd_dx": dx,
+                    "bwd_dx_max_clusters": [ll, i, i, i, i,
+                                            ctypes.POINTER(i)]},
             }[part]
             for name, types in entries.items():
                 fn = getattr(lib, f"msp_fused_{name}{sfx}")
                 fn.argtypes, fn.restype = types, i
+            if part == "MSP_FUSED_BWD_DX" and bf16:
+                lib.msp_wgmma_bf16_tile.argtypes = [p, p, i, i, i, p, p]
+                lib.msp_wgmma_bf16_tile.restype = i
             lib.msp_cuda_error_string.argtypes = [i]
             lib.msp_cuda_error_string.restype = ctypes.c_char_p
             _typed.add((part, bf16))
@@ -459,7 +503,10 @@ def bwd_reduce(x2d, g, w2d, mul, add, mean, rstd):
     :func:`bwd_reduce_plain`. Kernels: one launch writes dW partials per
     row chunk and dbeta / dgamma partials per 64-row tile from the product
     g Wᵀ into one scratch buffer, a second folds it in a fixed order (no
-    atomics)."""
+    atomics). In bf16 both products run on the ``wgmma`` core, dW's operand
+    a = relu(x·mul + add) made from the raw x tile in shared memory; dW's
+    row chunks are few and long, or fold inside a thread-block cluster
+    where its tiles are few."""
     if not _on_card("bwd_reduce", x2d, (g, w2d), (mul, add, mean, rstd)):
         return bwd_reduce_plain(x2d, g, w2d, mul, add, mean, rstd)
     _check_operands("bwd_reduce", x2d, g, w2d)
@@ -478,8 +525,8 @@ def bwd_reduce(x2d, g, w2d, mul, add, mean, rstd):
                 w2d.stride(1), mul.data_ptr(), add.data_ptr(),
                 mean.data_ptr(), rstd.data_ptr(), n, c, f,
                 plan.dw_tile_cols, plan.dw_rows_per_chunk,
-                plan.da_k_per_chunk, part.data_ptr(), out.data_ptr(),
-                _stream(dev))
+                *((plan.dw_cluster,) if bf16 else ()), plan.da_k_per_chunk,
+                part.data_ptr(), out.data_ptr(), _stream(dev))
     _check(lib, rc, "bwd_reduce")
     _count(bwd_reduce, bf16)
     dbeta, dgamma = out[c * f:c * f + c], out[c * f + c:]
@@ -490,9 +537,11 @@ def bwd_dx(x2d, g, w2d, mul, add, mean, rstd, c1, c2):
     """``dx (N, C) = mul·(dz − c1 − xhat·c2)`` in x's dtype — see
     :func:`bwd_dx_plain`. Kernel: the product g Wᵀ (the mainloop it shares
     with ``bwd_reduce``) with the BN backward as its epilogue, one launch;
-    in float32, where the grid leaves SMs idle, F is split across the
-    blocks of a thread-block cluster whose partial products are summed in a
-    fixed order in shared memory (the bf16 kernel does not split F)."""
+    where the grid leaves SMs idle, F is split across the blocks of a
+    thread-block cluster whose partial products are summed in a fixed
+    order in shared memory. In bf16 the product runs on the ``wgmma``
+    core, the epilogue reads x from shared memory and dx leaves as
+    16-byte stores."""
     if not _on_card("bwd_dx", x2d, (g, w2d),
                     (mul, add, mean, rstd, c1, c2)):
         return bwd_dx_plain(x2d, g, w2d, mul, add, mean, rstd, c1, c2)
@@ -506,9 +555,10 @@ def bwd_dx(x2d, g, w2d, mul, add, mean, rstd, c1, c2):
 
 def _launch_bwd_dx(x2d, g, w2d, vecs, tile_cols: int, k_per_chunk: int):
     """One launch of the ``bwd_dx`` kernel on CUDA tensors at the given tile
-    width and F chunk (``k_per_chunk`` >= F: the unsplit launch; bf16
-    always launches unsplit), without counting it; :func:`bwd_dx` passes
-    its plan's. ``vecs`` is ``(mul, add, mean, rstd, c1, c2)``."""
+    width and F chunk (``k_per_chunk`` >= F: the unsplit launch; a multiple
+    of the dtype's backward step, 16 fp32 or 64 bf16), without counting it;
+    :func:`bwd_dx` passes its plan's. ``vecs`` is ``(mul, add, mean, rstd,
+    c1, c2)``."""
     n, c = x2d.shape
     f = w2d.shape[1]
     g = g.contiguous()
@@ -517,13 +567,9 @@ def _launch_bwd_dx(x2d, g, w2d, vecs, tile_cols: int, k_per_chunk: int):
     lib = _lib("bwd_dx", _bf16(x2d))
     head = (x2d.data_ptr(), g.data_ptr(), w2d.data_ptr(), w2d.stride(0),
             w2d.stride(1), *(v.data_ptr() for v in vecs), n, c, f, tile_cols)
+    fn = lib.msp_fused_bwd_dx_bf16 if _bf16(x2d) else lib.msp_fused_bwd_dx
     with torch.cuda.device(x2d.device):
-        if _bf16(x2d):
-            rc = lib.msp_fused_bwd_dx_bf16(*head, dx.data_ptr(),
-                                           _stream(x2d.device))
-        else:
-            rc = lib.msp_fused_bwd_dx(*head, k_per_chunk, dx.data_ptr(),
-                                      _stream(x2d.device))
+        rc = fn(*head, k_per_chunk, dx.data_ptr(), _stream(x2d.device))
     _check(lib, rc, "bwd_dx")
     return dx
 
@@ -536,14 +582,47 @@ def bwd_dx_max_clusters(x2d: torch.Tensor, w2d: torch.Tensor):
     plan = _plan_for(x2d, w2d.shape[1])
     if plan.dx_chunks == 1:
         return None
-    lib = _lib("bwd_dx")
+    bf16 = _bf16(x2d)
+    lib = _lib("bwd_dx", bf16)
+    fn = (lib.msp_fused_bwd_dx_max_clusters_bf16 if bf16
+          else lib.msp_fused_bwd_dx_max_clusters)
     out = ctypes.c_int(0)
     with torch.cuda.device(x2d.device):
-        rc = lib.msp_fused_bwd_dx_max_clusters(
+        rc = fn(
             x2d.shape[0], x2d.shape[1], w2d.shape[1], plan.dx_k_per_chunk,
             int(w2d.stride(1) == 1), ctypes.byref(out))
     _check(lib, rc, "bwd_dx occupancy")
     return out.value
+
+
+def wgmma_bf16_tile(a: torch.Tensor, b: torch.Tensor, a_mn_major=False,
+                    b_mn_major=False) -> torch.Tensor:
+    """The bf16 ``wgmma`` core of ``bwd_reduce`` and ``bwd_dx`` alone, on one
+    64x64 tile, for its tests: ``a`` and ``b`` (64, K) bf16, K a multiple
+    of 8 -> ``a @ bᵀ`` (64, 64) float32. ``*_mn_major`` hands
+    the kernel that operand's transpose, contiguous ([K][64]), to
+    be read MN-major as the kernels read x and g; else the operand itself
+    (K-major). A CPU tensor takes the plain product; not counted."""
+    if a.device.type == "cpu":
+        return a.float() @ b.float().T
+    if (a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16
+            or a.shape[0] != _TILE_ROWS or b.shape[0] != _TILE_ROWS
+            or a.shape[1] != b.shape[1] or a.shape[1] % 8):
+        raise ValueError(f"wgmma_bf16_tile: expected bf16 (64, K) and (64, "
+                         f"K), K % 8 == 0, got {tuple(a.shape)} {a.dtype}, "
+                         f"{tuple(b.shape)} {b.dtype}")
+    a_in = (a.T if a_mn_major else a).contiguous()
+    b_in = (b.T if b_mn_major else b).contiguous()
+    out = torch.empty((_TILE_ROWS, _TILE_ROWS), dtype=torch.float32,
+                      device=a.device)
+    lib = _lib("bwd_dx", True)
+    with torch.cuda.device(a.device):
+        rc = lib.msp_wgmma_bf16_tile(a_in.data_ptr(), b_in.data_ptr(),
+                                     int(a_mn_major), int(b_mn_major),
+                                     a.shape[1], out.data_ptr(),
+                                     _stream(a.device))
+    _check(lib, rc, "wgmma_bf16_tile")
+    return out
 
 
 moments.launches = apply.launches = bwd_reduce.launches = 0  # float32

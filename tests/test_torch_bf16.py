@@ -244,20 +244,64 @@ def test_wrappers_take_bf16_and_count_nothing_on_the_cpu():
 @pytest.mark.parametrize("c,f", [(64, 128), (96, 64), (224, 128),
                                  (1000, 512)])
 def test_bf16_launch_plan_takes_whole_32_deep_steps(c, f):
-    """A bf16 K step is 32 elements (64 bytes, as a float32 step's 16):
-    every chunk is a multiple of 32 and the chunks cover K; bwd_dx in bf16
-    never splits F (it has no cluster kernel)."""
+    """apply's bf16 K step is 32 elements (64 bytes, as a float32 step's
+    16), the backward's (the wgmma core's) 64 (128 bytes): every chunk is a
+    multiple of its step and the chunks cover K; bwd_dx in bf16 splits F
+    into at most 8 chunks (one thread-block cluster)."""
     for n in (1, 32, 97, 2048, 16384):
         p = fd.launch_plan(n, c, f, 132, 2)
         assert p.apply_k_per_chunk % 32 == 0 and p.apply_k_per_chunk <= 1024
         assert p.apply_chunks == -(-c // p.apply_k_per_chunk)
-        assert p.dw_rows_per_chunk % 32 == 0
+        assert p.dw_rows_per_chunk % 64 == 0
         assert p.dw_chunks == -(-n // p.dw_rows_per_chunk)
-        assert p.da_k_per_chunk % 32 == 0
-        assert p.dx_chunks == 1 and p.dx_k_per_chunk >= f
-        assert p.dx_k_per_chunk % 32 == 0
+        assert p.da_k_per_chunk % 64 == 0
+        assert 1 <= p.dx_chunks <= 8
+        assert p.dx_chunks == -(-f // p.dx_k_per_chunk)
+        assert p.dx_k_per_chunk % 64 == 0
     with pytest.raises(ValueError, match="no kernels"):
         fd.launch_plan(64, c, f, 132, 8)
+
+
+# (n, c, f) and bf16 bwd_dx's F chunks on a 132-SM card (an H100 SXM): the
+# row counts of the train step that split, the widest transition, a short
+# last chunk
+BF16_DX_SPLITS = [((32, 992, 128), 2), ((256, 992, 128), 2),
+                  ((256, 1024, 512), 2), ((2048, 128, 128), 2),
+                  ((33, 1000, 130), 3)]
+
+
+@pytest.mark.parametrize("shape,chunks", BF16_DX_SPLITS)
+def test_bf16_dx_split_over_f_matches_jax(shape, chunks):
+    """The sum the bf16 cluster kernel of bwd_dx computes, in plain torch:
+    P_k = g[:, chunk k] W[:, chunk k]ᵀ of the bf16 operands in float32 at
+    the plan's F chunks, summed in ascending k, then the mask [z > 0] and
+    the BN backward once, rounded to bf16. Held against JAX's bf16
+    ``_bwd_dx`` (Pallas interpret) on the same bf16 inputs to one bf16 ulp
+    + 1e-5 x max|dx| (phase 7b's limit: both round one float32 sum whose
+    last bits differ with its order). (The kernel itself is held against
+    the plain version on the card, tests/test_torch_cuda.py.)"""
+    n, c, f = shape
+    plan = fd.launch_plan(n, c, f, 132, 2)
+    assert plan.dx_chunks == chunks and plan.dx_tile_cols == 64
+    x, scale, bias, w, cot = _data(n, c, f, seed=5)
+    tx, tw, tg = _t16(x), _t16(w), _t16(cot)
+    mean, var, rstd, mul, add = fd._stats(tx, torch.from_numpy(scale),
+                                          torch.from_numpy(bias), 1e-5)
+    _, dgamma, dbeta = fd.bwd_reduce_plain(tx, tg, tw, mul, add, mean, rstd)
+    c1, c2 = dbeta / n, dgamma / n
+    da = None
+    for lo in range(0, f, plan.dx_k_per_chunk):
+        hi = min(f, lo + plan.dx_k_per_chunk)
+        part = tg[:, lo:hi].float() @ tw[:, lo:hi].float().T
+        da = part if da is None else da + part
+    xf = tx.float()
+    dz = torch.where(xf * mul + add > 0, da, 0.0)
+    dx = (mul * (dz - c1 - (xf - mean) * rstd * c2)).to(BF16)
+    vec = [jnp.asarray(v.numpy())[None, :]
+           for v in (mul, add, mean, rstd, c1, c2)]
+    want = jfd._bwd_dx(_j16(x), _j16(cot), _j16(w), *vec)
+    assert want.dtype == jnp.bfloat16
+    _within_ulp(dx, want, "dx")
 
 
 # ---------------------------------------------------------------------------

@@ -14,9 +14,12 @@ cuBLAS, so outputs to rtol 1e-5 and gradients to rtol 1e-4, each with an
 atol of 1e-5 times the largest |value| of the tensor (the CPU tests'
 tolerances, scaled to the size of the sums). Their bf16 variants: the
 same for float32 results (moments, dW, dgamma, dbeta), one bf16 ulp
-(2^-7 of the value) + that atol for bf16 ones (out, dx). The families'
-bf16 forward on the card: within twice the CPU's own bf16-vs-f32 gap + one
-bf16 ulp of the CPU's bf16 value.
+(2^-7 of the value) + that atol for bf16 ones (out, dx); bwd_reduce's also
+against float64 over the same bf16 operands, its relative error at most
+twice the float32 plain version's + 1e-6. The bf16 wgmma core alone: each
+output within K·2^-23 of the sum of its |products| (fp32 sums of exact
+bf16 products). The families' bf16 forward on the card: within twice the
+CPU's own bf16-vs-f32 gap + one bf16 ulp of the CPU's bf16 value.
 """
 
 import numpy as np
@@ -351,16 +354,101 @@ def _close_bf16(got, want):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("a_mn", [False, True], ids=["a_k", "a_mn"])
+@pytest.mark.parametrize("b_mn", [False, True], ids=["b_k", "b_mn"])
+@pytest.mark.parametrize("k", [8, 64, 200, 256])
+def test_wgmma_bf16_core_matches_float64_on_card(cuda_device, a_mn, b_mn, k):
+    """The bf16 wgmma core of bwd_reduce and bwd_dx alone, on one 64x64 tile:
+    A and B each K-major or MN-major (read through wgmma's transpose bits
+    or, for an MN-major A, ldmatrix.trans as dW's prologue does; every
+    major combination the kernels use), K in one step, several (the ring
+    wraps) and ragged (zero-filled), against the float64 product of the
+    same bf16 operands."""
+    gen = torch.Generator(device=cuda_device).manual_seed(k)
+    a = torch.randn((64, k), generator=gen, device=cuda_device).bfloat16()
+    b = torch.randn((64, k), generator=gen, device=cuda_device).bfloat16()
+    got = fd.wgmma_bf16_tile(a, b, a_mn, b_mn)
+    torch.cuda.synchronize()
+    exact = a.double() @ b.double().T
+    bound = k * 2.0 ** -23 * (a.double().abs() @ b.double().abs().T)
+    assert got.dtype == torch.float32 and got.shape == (64, 64)
+    assert bool(((got.double() - exact).abs() <= bound).all()), \
+        float((got.double() - exact).abs().max())
+
+
+def _f64_reduce(x, g, w, mul, add, mean, rstd):
+    """bwd_reduce in float64 over the kernels' bf16 operands: z = x·mul +
+    add in float32 (the kernels' mask), a = relu(z) rounded to bf16, the
+    products and sums in float64."""
+    z = x.float() * mul + add
+    a = torch.relu(z).to(x.dtype).double()
+    dz = torch.where(z > 0, g.double() @ w.double().T, 0.0)
+    xhat = (x.double() - mean.double()) * rstd.double()
+    return a.T @ g.double(), (dz * xhat).sum(0), dz.sum(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,f", [(16384, 224, 128), (16384, 64, 128),
+                                   (2048, 480, 128), (256, 1024, 512),
+                                   (5003, 200, 72), (32, 992, 128)])
+def test_fused_bf16_reduce_holds_float64_yardstick_on_card(cuda_device, n, c,
+                                                           f):
+    """bwd_reduce's bf16 kernel (dW in row chunks, clustered or not, dgamma,
+    dbeta) no further from float64 over the same bf16 operands than twice
+    the float32 plain version + 1e-6, each as ||d|| / ||float64||."""
+    x, gamma, beta, w, g = _fused_inputs(n, c, f, cuda_device, seed=5)
+    x, w, g = (t.to(torch.bfloat16) for t in (x, w, g))
+    mean, var, rstd, mul, add = fd._stats(x, gamma, beta, 1e-5)
+    got = fd.bwd_reduce(x, g, w, mul, add, mean, rstd)
+    plain = fd.bwd_reduce_plain(x, g, w, mul, add, mean, rstd)
+    for name, a, b, e in zip(("dW", "dgamma", "dbeta"), got, plain,
+                             _f64_reduce(x, g, w, mul, add, mean, rstd)):
+        norm = float(e.norm())
+        kernel = float((a.double() - e).norm()) / norm
+        ref = float((b.double() - e).norm()) / norm
+        assert kernel <= 2 * ref + 1e-6, (name, kernel, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,f", [
+    (16384, 224, 128), (2048, 480, 128), (32, 992, 128), (256, 1024, 512)])
+def test_fused_bf16_kernels_repeat_bit_equal_on_card(cuda_device, n, c, f):
+    """The bf16 bwd_reduce and bwd_dx give the same bits twice: dW's row
+    chunks unclustered (16,384 rows) and folded in a cluster (2,048 rows),
+    bwd_dx unsplit (16,384, 2,048 rows) and split over F in a cluster (32,
+    256 rows); every sum in a fixed order, no atomics."""
+    x, gamma, beta, w, g = _fused_inputs(n, c, f, cuda_device, seed=3)
+    x, w, g = (t.to(torch.bfloat16) for t in (x, w, g))
+    mean, var, rstd, mul, add = fd._stats(x, gamma, beta, 1e-5)
+    w_t = w.t().contiguous().t()
+
+    def calls():
+        dw, dgamma, dbeta = fd.bwd_reduce(x, g, w_t, mul, add, mean, rstd)
+        return (dw, dgamma, dbeta,
+                fd.bwd_dx(x, g, w_t, mul, add, mean, rstd, dbeta / n,
+                          dgamma / n))
+
+    first = calls()
+    torch.randn(1 << 20, device=cuda_device).sum().item()
+    again = calls()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,c,f", [(97, 40, 24), (300, 200, 72),
                                    (2048, 160, 128), (32, 992, 128),
-                                   (256, 1024, 512), (33, 1000, 130)])
+                                   (256, 1024, 512), (33, 1000, 130),
+                                   (2048, 128, 128)])
 def test_fused_bf16_kernels_match_plain_on_card(cuda_device, n, c, f):
     """Each bf16 kernel against its plain version on the same bf16 inputs,
     both W layouts; out and dx come back in bf16, the rest in float32;
-    the launches are counted as bf16 ones, none as float32."""
+    the launches are counted as bf16 ones, none as float32. Where bwd_dx
+    splits F, its clusters fit on the card."""
     x, gamma, beta, w, g = _fused_inputs(n, c, f, cuda_device)
     x, w, g = (t.to(torch.bfloat16) for t in (x, w, g))
-    assert fd._plan_for(x, f).dx_chunks == 1
+    if fd._plan_for(x, f).dx_chunks > 1:
+        assert fd.bwd_dx_max_clusters(x, w) >= 1
     before = [k.launches for k in fd.KERNELS]
     before16 = [k.launches_bf16 for k in fd.KERNELS]
     s, sq = fd.moments(x)

@@ -3,8 +3,9 @@
 CPU.
 
 The plan is plain Python: which block tile each of the three products takes
-and how many K chunks share a contraction, from (n, c, f) and the card's SM
-count. The kernels themselves run only on a GPU (tests/test_torch_cuda.py);
+and how many K chunks share a contraction, from (n, c, f), the card's SM
+count and the element size (float32, or bf16 with the backward on a wgmma
+core whose K step is 64 deep and whose dW row chunks may form clusters). The kernels themselves run only on a GPU (tests/test_torch_cuda.py);
 here the split product is emulated in plain torch (round to TF32's 10
 mantissa bits, three products, float32 sums) and held against float64 with
 the kernels' tolerances: outputs rtol 1e-5, gradients rtol 1e-4, each with
@@ -23,6 +24,9 @@ from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
 SMS = 132  # an H100 SXM
 K_STEP, MAX_K, TILE_ROWS = 16, 1024, 64
 MAX_CLUSTER = 8  # bwd_dx's F chunks: the portable cluster size
+# K steps by element size: (apply's, the backward's); bf16's backward runs
+# on the wgmma core, 128 bytes of a row a step
+K_STEPS = {4: (K_STEP, K_STEP), 2: (32, 64)}
 
 
 def _densenet_stages(batch=8, trunk=(16, 16, 8), block_config=(6, 12, 24, 16),
@@ -46,6 +50,14 @@ STAGES = _densenet_stages()
 RAGGED = [(5003, 200, 72), (97, 40, 24), (1, 5, 3), (33, 1000, 130)]
 
 
+def _both_dtypes(shapes):
+    """(n, c, f, elem_bytes) cases: float32 under the shape's own id, bf16
+    with a "-bf16" suffix."""
+    return ([pytest.param(*s, 4, id="-".join(map(str, s))) for s in shapes]
+            + [pytest.param(*s, 2, id="-".join(map(str, s)) + "-bf16")
+               for s in shapes])
+
+
 def test_stage_list_is_the_densenet121_train_step():
     assert len(STAGES) == 61 and len(set(STAGES)) == 61
     assert STAGES[0] == (16384, 64, 128) and STAGES[5] == (16384, 224, 128)
@@ -65,21 +77,28 @@ def _chunks(total, per_chunk):
             for lo in range(0, total, per_chunk)]
 
 
-@pytest.mark.parametrize("n,c,f", STAGES + RAGGED)
-def test_plan_chunks_cover_each_contraction_once(n, c, f):
-    """Every K chunk is a whole number of K steps, no chunk is empty, the
-    chunks the kernels derive from the plan tile the contraction exactly
-    once, and an apply block never contracts more channels than it can
-    stage mul/add for."""
-    plan = fd.launch_plan(n, c, f, SMS)
+@pytest.mark.parametrize("n,c,f,elem_bytes", _both_dtypes(STAGES + RAGGED))
+def test_plan_chunks_cover_each_contraction_once(n, c, f, elem_bytes):
+    """Every K chunk is a whole number of its product's K steps, no chunk is
+    empty, the chunks the kernels derive from the plan tile the contraction
+    exactly once, and an apply block never contracts more channels than it
+    can stage mul/add for. In bf16 every backward tile is 64 wide and dW's
+    row chunks form clusters of 1, 2, 4 or 8."""
+    plan = fd.launch_plan(n, c, f, SMS, elem_bytes)
+    apply_step, bwd_step = K_STEPS[elem_bytes]
     for cols in (plan.apply_tile_cols, plan.dw_tile_cols, plan.dx_tile_cols):
         assert cols in (64, 128)
-    for total, per_chunk, chunks in (
-            (c, plan.apply_k_per_chunk, plan.apply_chunks),
-            (n, plan.dw_rows_per_chunk, plan.dw_chunks),
-            (f, plan.da_k_per_chunk, plan.da_chunks),
-            (f, plan.dx_k_per_chunk, plan.dx_chunks)):
-        assert per_chunk > 0 and per_chunk % K_STEP == 0
+    if elem_bytes == 2:
+        assert plan.dw_tile_cols == plan.dx_tile_cols == 64
+        assert plan.dw_cluster in (1, 2, 4, 8)
+    else:
+        assert plan.dw_cluster == 1
+    for total, per_chunk, chunks, step in (
+            (c, plan.apply_k_per_chunk, plan.apply_chunks, apply_step),
+            (n, plan.dw_rows_per_chunk, plan.dw_chunks, bwd_step),
+            (f, plan.da_k_per_chunk, plan.da_chunks, bwd_step),
+            (f, plan.dx_k_per_chunk, plan.dx_chunks, bwd_step)):
+        assert per_chunk > 0 and per_chunk % step == 0
         assert chunks == math.ceil(total / per_chunk)  # as the launcher counts
         ranges = _chunks(total, per_chunk)
         assert len(ranges) == chunks
@@ -90,14 +109,14 @@ def test_plan_chunks_cover_each_contraction_once(n, c, f):
     assert plan.dx_chunks <= MAX_CLUSTER
 
 
-@pytest.mark.parametrize("n,c,f", STAGES + RAGGED)
-def test_dx_clusters_take_narrow_tiles_and_fill_no_more_than_the_card(n, c,
-                                                                      f):
+@pytest.mark.parametrize("n,c,f,elem_bytes", _both_dtypes(STAGES + RAGGED))
+def test_dx_clusters_take_narrow_tiles_and_fill_no_more_than_the_card(
+        n, c, f, elem_bytes):
     """bwd_dx splits F only where its tiles leave SMs idle, so only in 64x64
     tiles (the cluster kernel's), into 2 to 8 chunks (one cluster each), and
     never past one block per SM, so that every cluster is resident at
-    once."""
-    plan = fd.launch_plan(n, c, f, SMS)
+    once. The same rule holds in bf16, whose tiles are all 64x64."""
+    plan = fd.launch_plan(n, c, f, SMS, elem_bytes)
     tiles = math.ceil(n / TILE_ROWS) * math.ceil(c / plan.dx_tile_cols)
     if plan.dx_chunks > 1:
         assert plan.dx_tile_cols == 64 and tiles < SMS
@@ -106,13 +125,16 @@ def test_dx_clusters_take_narrow_tiles_and_fill_no_more_than_the_card(n, c,
         assert plan.dx_k_per_chunk >= f
 
 
-@pytest.mark.parametrize("n,c,f", STAGES + RAGGED)
-def test_scratch_buffers_are_what_the_plan_implies(n, c, f):
+@pytest.mark.parametrize("n,c,f,elem_bytes", _both_dtypes(STAGES + RAGGED))
+def test_scratch_buffers_are_what_the_plan_implies(n, c, f, elem_bytes):
     """The wrappers' buffers hold exactly the partials the kernels write:
     apply's (chunks, n, f) unless one chunk writes the output itself;
-    bwd_reduce's dW partials per row chunk, then dbeta/dgamma partials per
-    (64-row tile, F chunk)."""
-    plan = fd.launch_plan(n, c, f, SMS)
+    bwd_reduce's dW partials, one per cluster of row chunks (in bf16 none
+    where there would be one: the kernel writes dW itself), then
+    dbeta/dgamma partials per (64-row tile, F chunk). In bf16 the dW
+    partials hold at most a quarter of x's bytes where rows are many (the
+    2,048- and 16,384-row stages)."""
+    plan = fd.launch_plan(n, c, f, SMS, elem_bytes)
     out, part = fd._apply_buffers(plan, n, f, "cpu")
     assert out.shape == (n, f) and out.dtype == torch.float32
     want = plan.apply_chunks * n * f if plan.apply_chunks > 1 else 0
@@ -120,8 +142,13 @@ def test_scratch_buffers_are_what_the_plan_implies(n, c, f):
     out, part = fd._reduce_buffers(plan, c, f, "cpu")
     assert out.numel() == c * f + 2 * c
     row_tiles = math.ceil(n / TILE_ROWS)
-    want = plan.dw_chunks * c * f + row_tiles * plan.da_chunks * 2 * c
+    partials = math.ceil(plan.dw_chunks / plan.dw_cluster)
+    if elem_bytes == 2 and partials == 1:
+        partials = 0
+    want = partials * c * f + row_tiles * plan.da_chunks * 2 * c
     assert part.numel() == plan.reduce_scratch == want
+    if elem_bytes == 2 and n >= 2048:
+        assert partials * c * f * 4 <= n * c * elem_bytes / 4
 
 
 @pytest.mark.parametrize("n,c,f", [s for s in STAGES if s[0] <= 2048])
