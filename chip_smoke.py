@@ -69,8 +69,10 @@ result then):
      copies (its plain versions); no float32 kernel launches. bwd_reduce's
      dW, dgamma and dbeta also against float64 over the same bf16 operands
      (relative error at most 2 x the float32 plain version's + 1e-6; both
-     printed). The bf16 plans of bwd_reduce (dW row chunks, their clusters,
-     the scratch) and bwd_dx (F chunks, clusters resident). Device times of
+     printed). The bf16 plans of moments (row chunks, clusters, partials),
+     apply (channel chunks, one cluster of them a tile, clusters resident),
+     bwd_reduce (dW row chunks, their clusters, the scratch) and bwd_dx (F
+     chunks, clusters resident). Device times of
      all four at phase 7's five timed shapes beside the bf16 bound (2-byte
      elements at 3.35 TB/s, products at 989 TFLOP/s), the plain version and
      torch.matmul in bf16 (torch.var_mean for moments).
@@ -992,16 +994,16 @@ def _time_dx_split(fd, x, w, g, mul, add, mean, rstd, c1, c2, rounds=3):
 # version may land on neighbouring bf16 values where their sums differ in
 # the last bits, one ulp, at most 2^-7 of the value
 BF16_ULP = 2.0 ** -7
-# the bf16 kernels each wrapper launches, by a part of their names; the
-# fold kernels are the float32 path's fold_parts_kernel (moments,
-# bwd_reduce) and apply's fold_bf16_kernel
+# the bf16 kernels each wrapper launches, by a part of their names; the one
+# fold kernel is the float32 path's fold_parts_kernel, after bwd_reduce
+# (moments and apply fold inside their one launch)
 FUSED_BF16_DEVICE_KERNELS = {
-    "moments": ("::moments_partial_bf16_kernel",),
+    "moments": ("::moments_bf16_kernel",),
     "apply": ("::apply_bf16_kernel<",),
     "bwd_reduce": ("::bwd_reduce_bf16_kernel<",),
     "bwd_dx": ("::bwd_dx_bf16_kernel<", "::bwd_dx_cluster_bf16_kernel<"),
 }
-FUSED_BF16_FOLD_KERNELS = (FUSED_FOLD_KERNEL, "::fold_bf16_kernel")
+FUSED_BF16_FOLD_KERNELS = (FUSED_FOLD_KERNEL,)
 FUSED_BF16_LIBRARY = {
     "moments": "torch.var_mean(x, 0, correction=0) on the bf16 x",
     "apply": "torch.matmul(x, W) in bf16 (the contraction alone)",
@@ -1138,6 +1140,7 @@ def phase_fused_bf16_vs_plain(device="cuda", cases=None, timed=None):
                             bwd_reduce_f64(x, g, w, mul, add, mean, rstd))
         c1, c2 = want[2] / n, want[1] / n
         if device != "cpu":
+            _log_forward_plan(fd, x, w, tag)
             _log_reduce_plan(fd, x, w, tag)
             _log_dx_plan(fd, x, w, tag)
         err["bwd_dx"] = _held_bf16(
@@ -1199,6 +1202,32 @@ def phase_fused_bf16_vs_plain(device="cuda", cases=None, timed=None):
             timing[name] = dict(by_shape[timed[0]][name], by_shape=[
                 by_shape[shape][name] for shape in timed])
     return worst, timing
+
+
+def _log_forward_plan(fd, x, w, tag):
+    """Prints the bf16 plans of moments (row chunks of 32-channel slabs,
+    the partials the last block of a slab folds) and apply (tile,
+    channel chunks, one cluster of them a tile, clusters resident at once);
+    fails if apply's clusters do not fit."""
+    n, c = x.shape
+    plan = fd._plan_for(x, w.shape[1])
+    rows = fd.moments_rows_bf16(n, c, fd._sm_count(x.device))
+    partials = fd._moments_bf16_partials(n, rows)
+    clusters = fd.apply_max_clusters(x, w)
+    tiles = (math.ceil(n / plan.apply_tile_rows)
+             * math.ceil(w.shape[1] / plan.apply_tile_cols))
+    log(f"moments plan {tag}: {math.ceil(c / 32)} slab(s) x "
+        f"{math.ceil(n / rows)} chunk(s) of {rows} rows, "
+        + (f"{partials} partials a slab folded by its last block"
+           if partials else "no partial in device memory")
+        + f"; apply plan {tag}: tile {plan.apply_tile_rows}x"
+        f"{plan.apply_tile_cols}, C in {plan.apply_chunks} chunk(s) of "
+        f"{plan.apply_k_per_chunk}, {tiles} tiles; "
+        + ("unclustered launch" if clusters is None else
+                      f"clusters of {plan.apply_cluster} blocks, {clusters} "
+                      "resident at once (cudaOccupancyMaxActiveClusters)"))
+    check(clusters is None or clusters >= 1,
+          f"apply {tag}: no cluster of {plan.apply_cluster} blocks fits")
 
 
 def _log_reduce_plan(fd, x, w, tag):

@@ -520,29 +520,23 @@ __device__ __forceinline__ void stage_x_tile(float* x_tile,
 
 // ---------------------------------------------------------------- moments
 
-// An element of x as fp32: a float, or a bf16 held as its 16 bits.
+// A bf16 held as its 16 bits, as fp32.
 __device__ __forceinline__ float bf16_bits_to_f32(uint16_t b) {
   return __uint_as_float(static_cast<uint32_t>(b) << 16);
-}
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const uint16_t* p) {
-  return bf16_bits_to_f32(__ldg(p));
 }
 
 // Block (kMomCh channels x kMomLanes row lanes) sums one chunk of rows.
 // part is (chunks, 2C): sums at [chunk][c], sums of squares at [chunk][C+c].
-template <class T>
-__device__ __forceinline__ void moments_partial(const T* __restrict__ x,
-                                                long long n, int c,
-                                                long long rows_per_chunk,
-                                                float* __restrict__ part) {
+__global__ void __launch_bounds__(kMomCh * kMomLanes)
+moments_partial_kernel(const float* __restrict__ x, long long n, int c,
+                       long long rows_per_chunk, float* __restrict__ part) {
   const int ch = blockIdx.y * kMomCh + threadIdx.x;
   const long long r0 = static_cast<long long>(blockIdx.x) * rows_per_chunk;
   const long long r1 = min(n, r0 + rows_per_chunk);
   float s = 0.f, q = 0.f;
   if (ch < c) {
     for (long long r = r0 + threadIdx.y; r < r1; r += kMomLanes) {
-      const float v = load_f32(x + r * c + ch);
+      const float v = __ldg(x + r * c + ch);
       s += v;
       q = fmaf(v, v, q);
     }
@@ -560,20 +554,6 @@ __device__ __forceinline__ void moments_partial(const T* __restrict__ x,
     dst[ch] = s;
     dst[c + ch] = q;
   }
-}
-
-__global__ void __launch_bounds__(kMomCh * kMomLanes)
-moments_partial_kernel(const float* __restrict__ x, long long n, int c,
-                       long long rows_per_chunk, float* __restrict__ part) {
-  moments_partial(x, n, c, rows_per_chunk, part);
-}
-
-// The same sums over bf16 rows (sums in fp32; the fold is the f32 one's).
-__global__ void __launch_bounds__(kMomCh * kMomLanes)
-moments_partial_bf16_kernel(const uint16_t* __restrict__ x, long long n,
-                            int c, long long rows_per_chunk,
-                            float* __restrict__ part) {
-  moments_partial(x, n, c, rows_per_chunk, part);
 }
 
 // The fold of every kernel's per-block partials, two segments in one launch
@@ -1044,34 +1024,82 @@ bwd_reduce_kernel(const DwArgs dw, const DaArgs da, const Grid dw_grid,
 
 // ------------------------------------------------------------------- bf16
 //
-// The bf16 variants of apply, bwd_reduce and bwd_dx (the JAX kernels run in
-// the compute dtype: bf16 operands into the products, fp32 accumulation;
-// out and dx in bf16; dW, dgamma and dbeta in fp32). A product of two bf16
+// The bf16 variants of the four kernels (the JAX kernels run in the compute
+// dtype: bf16 operands into the products, fp32 accumulation; out and dx in
+// bf16; the moments, dW, dgamma and dbeta in fp32). A product of two bf16
 // values is exact in fp32, so one bf16 product replaces the fp32 core's
-// three TF32 ones. bwd_reduce and bwd_dx run on the wgmma core further
-// below (its own design notes). apply runs on a simple core of
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, which needs neither
-// the TF32 split nor wgmma's shared-memory layouts: each warp owns 16 rows
-// of the 64-row tile (the fp32 core's Lane layout, so store_acc serves
-// both), and the tile is 64 or 128 columns wide as the launch plan says.
-//
-// apply's loads: a step is 32 deep (64 bytes of a row, the fp32 step's
-// bytes). Each thread loads its 8-element pieces of the next step into
-// registers (one 16-byte load a piece where the axis is contiguous and
-// aligned, else one element at a time, zero past the edge) while the tensor
-// cores run the current step, then writes them to shared memory as
-// [outer][K] rows of kBK2 + 8 elements (80 bytes: the fragment reads hit 32
-// banks). The BN + ReLU prologue runs on that write: each element of x is
-// converted to fp32, normalized, ReLU'd and rounded to bf16 once, by the
-// thread that loaded it (the ReLU mask is the plain version's: the same two
-// fp32 roundings). Split-K over C writes fp32 partials that
-// fold_bf16_kernel sums in a fixed order, straight to bf16.
-
-constexpr int kBK2 = 32;         // bf16 K step: two 16-deep mma slabs
-constexpr int kLd2 = kBK2 + 8;   // shared-memory row of a bf16 tile
-template <int T>
-constexpr int kTile2 = T * kLd2;  // bf16 elements of a [T][kLd2] tile
-static_assert(kMaxK % kBK2 == 0, "apply's staged vectors hold whole steps");
+// three TF32 ones. apply, bwd_reduce and bwd_dx run on one Hopper GEMM
+// core: wgmma (wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16), B
+// always and A mostly read from shared memory through descriptors, fed by a
+// ring of cp.async stages. A block is one warpgroup and its tile 64 x 64
+// (apply's also 128 x 128). The moments have a kernel of their own (its
+// note is above moments_bf16_kernel).
+//   * A step is kBKW (64) deep: 128 bytes of every K row, the width of the
+//     128-byte swizzle. Each operand tile lands as it lies in memory, by
+//     16-byte cp.async into the swizzled layout its descriptor names:
+//     K-major ([outer][K], as x in apply, g, and W where its K axis is
+//     contiguous) or MN-major ([K][outer], as x read as x^T, g as dW's B,
+//     and the conv kernel's W in the backward), which wgmma reads through
+//     its transpose bits (bf16 takes either major): no transposing pass. A
+//     row that is not 16-byte aligned is loaded element by element and
+//     stored by the thread (a generic write, which that thread fences into
+//     the async proxy); the ragged edge is zero-filled by the copy's source
+//     size, never read.
+//   * The ring has kStagesW = 2 stages: the next step's copies run while
+//     this step's products do. On an H100 a third stage cost bwd_dx a
+//     block a SM (3 instead of 4) and bought bwd_reduce nothing, not even
+//     for its long dW blocks alone (ops/bf16_bwd_sweep.py times the
+//     depths; PERF.md has the numbers). Code size mattered more: with the
+//     unaligned fallback inlined at every copy site, each extra stage (one
+//     more inlined load) made every step slower; out of line
+//     (copy_piece_slow) it made every stage of bwd_reduce faster.
+//   * A from registers, with a prologue on the way in (apply's A and dW's):
+//     a = bf16(relu(x*mul + add)) is made from the raw x tile as its
+//     fragment is read (ldmatrix: .x4 from K-major x in apply, .x4.trans
+//     from MN-major x in dW), in fp32 with the plain version's two
+//     roundings (bn_z: an FMA would round once and flip ReLU masks at the
+//     boundary), rounded to bf16 once, and wgmma reads A from those
+//     registers: no generic write to fence (an in-place pass over the
+//     stage would need fence.proxy.async, which also waits for the copies
+//     in flight).
+//   * apply: out = bf16(a @ W). mul and add arrive with each step's copies
+//     (64 of each, into a ring of their own, zero past C), so a block
+//     takes any number of channels; past C the copies zero-fill x and W
+//     too, and a = relu(0*0 + 0) = 0 adds exact zeros. Where its blocks
+//     take 7/8 of the SMs (the 16,384-row stages) the tile is 128 x 128: a
+//     block of two warpgroups, each making its 64 rows' A fragments and
+//     running two m64n64k16 products a slice that share them (x normalised
+//     once an element), both reading one copy of W's tile: a 64 x 128 tile
+//     re-read W from L2 for every 64 rows, and on an H100 W's copies alone
+//     took longer than x's. Elsewhere the tile is 64 x 64,
+//     and where the grid leaves SMs idle C is split into at most
+//     kMaxCluster chunks of whole steps, the blocks of one thread-block
+//     cluster, folded in rank order through bulk copies between their
+//     shared memories (below apply_bf16_kernel's mainloop). One launch, no
+//     fp32 scratch in device memory, no atomics. The products accumulate
+//     in place (a chunk is at most a few steps: the tensor core's truncated
+//     sums drift far below the bf16 output's ulp).
+//   * bwd_dx copies its tile of x and the six per-channel vectors behind
+//     the first operand copies, so the epilogue reads shared memory only;
+//     dx is written over x in shared memory and leaves as 16-byte stores,
+//     whole rows. Where the grid leaves SMs idle F is split over the
+//     blocks of a thread-block cluster (bwd_dx_cluster_bf16_kernel, as the
+//     fp32 bwd_dx_cluster_kernel), folded in rank order through distributed
+//     shared memory. Four blocks a SM.
+//   * bwd_reduce keeps its one launch of dW blocks and da blocks. dW's fp32
+//     partials hold at most a quarter of x's bytes, so its row chunks are
+//     few and long; where that leaves dW blocks the long pole (few tiles),
+//     the chunks are 4 steps and the Q blocks of one thread-block cluster
+//     sum their partials in rank order through distributed shared memory
+//     before one partial is written. Each step's four products are chained
+//     from zero and added to the fp32 accumulators by the CUDA cores: the
+//     tensor core truncates its sums, and one chain over 1,024 rows would
+//     drift (the fp32 core's finding).
+//   * What bounds them: at the 16,384-row stages the 64 x 64 tiles read g,
+//     x and W from L2 several times over (bwd_reduce moves ~72 MB between
+//     L2 and the SMs for 11.7 MB of its own bytes), and each dW block's
+//     steps wait on their copies in turn; the small stages are a few
+//     microseconds of latency a launch.
 
 __device__ __forceinline__ uint16_t f32_to_bf16_bits(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
@@ -1095,298 +1123,6 @@ __device__ __forceinline__ uint4 pack8(const uint16_t (&e)[8]) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// One bf16 operand's tile loads, step after step along K. Element (o, k) of
-// the next step's tile is base[o*so + k*sk] for o < o_left and k < k_left,
-// else 0. kKC: the pieces run along K (K is the contiguous axis), else
-// along the outer axis. vec: the pieces' axis has stride 1, the other
-// stride is a multiple of 8 and the array 16-byte aligned.
-template <int T, bool kKC>
-struct TileLoad2 {
-  static constexpr int kPieces = T * kBK2 / 8 / kThreads;
-  static_assert(kPieces * 8 * kThreads == T * kBK2, "tile must split evenly");
-  const uint16_t* base;
-  long long so, sk;
-  int o_left, k_left;
-  bool vec;
-  uint4 r[kPieces];
-
-  __device__ __forceinline__ TileLoad2(const uint16_t* src, long long o0,
-                                       long long o_lim, long long so_,
-                                       long long k0, long long k_lim,
-                                       long long sk_, bool vec_)
-      : base(src + o0 * so_ + k0 * sk_), so(so_), sk(sk_),
-        o_left(static_cast<int>(min(max(o_lim - o0, 0LL), 1LL * T))),
-        k_left(static_cast<int>(min(max(k_lim - k0, 0LL), 1LL << 30))),
-        vec(vec_) {}
-
-  // The outer position and depth of this thread's piece i.
-  __device__ __forceinline__ static void piece(int i, int& o, int& k) {
-    const int u = threadIdx.x + i * kThreads;
-    if (kKC) {
-      o = u / (kBK2 / 8);
-      k = (u % (kBK2 / 8)) * 8;
-    } else {
-      o = (u % (T / 8)) * 8;
-      k = u / (T / 8);
-    }
-  }
-
-  // Loads the next step's pieces into registers.
-  __device__ __forceinline__ void load() {
-#pragma unroll
-    for (int i = 0; i < kPieces; ++i) {
-      int o, k;
-      piece(i, o, k);
-      const int along = kKC ? k_left - k : o_left - o;
-      const bool across = kKC ? o < o_left : k < k_left;
-      const int live = across ? min(max(along, 0), 8) : 0;
-      if (vec && live == 8) {
-        r[i] = __ldg(reinterpret_cast<const uint4*>(
-            base + (kKC ? o * so + k : o + k * sk)));
-      } else {
-        uint16_t e[8];
-#pragma unroll
-        for (int q = 0; q < 8; ++q)
-          e[q] = q < live ? __ldg(base + (kKC ? o * so + (k + q) * sk
-                                              : (o + q) * so + k * sk))
-                          : static_cast<uint16_t>(0);
-        r[i] = pack8(e);
-      }
-    }
-    base += kBK2 * sk;
-    k_left -= kBK2;
-  }
-
-  // Writes the pieces of step s into `tile` ([T][kLd2], K contiguous). Each
-  // element goes through op(v, o, s*kBK2 + k) in fp32 unless kRaw.
-  template <bool kRaw, class Op>
-  __device__ __forceinline__ void store(uint16_t* tile, int s, Op op) const {
-#pragma unroll
-    for (int i = 0; i < kPieces; ++i) {
-      int o, k;
-      piece(i, o, k);
-      uint16_t e[8];
-      unpack8(r[i], e);
-      if (!kRaw) {
-#pragma unroll
-        for (int q = 0; q < 8; ++q)
-          e[q] = f32_to_bf16_bits(op(bf16_bits_to_f32(e[q]), kKC ? o : o + q,
-                                     s * kBK2 + (kKC ? k + q : k)));
-      }
-      if (kKC) {
-        *reinterpret_cast<uint4*>(tile + o * kLd2 + k) = pack8(e);
-      } else {
-#pragma unroll
-        for (int q = 0; q < 8; ++q) tile[(o + q) * kLd2 + k] = e[q];
-      }
-    }
-  }
-};
-
-// d += a b: one 16 x 8 x 16 bf16 product of the warp, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t tile_word(const uint16_t* tile, int o,
-                                              int k) {
-  return *reinterpret_cast<const uint32_t*>(tile + o * kLd2 + k);
-}
-
-// One step's products: A (64 x kBK2) and B (32 NT x kBK2) from shared
-// memory, both [outer][K]; warp w's rows 16 w .. 16 w + 15.
-template <int NT>
-__device__ __forceinline__ void mma_step(const uint16_t* sa,
-                                         const uint16_t* sb,
-                                         float (&acc)[kNJ<NT>][4],
-                                         const Lane& ln) {
-#pragma unroll
-  for (int slab = 0; slab < kBK2 / 16; ++slab) {
-    const int k = 16 * slab + 2 * ln.t, r = 16 * ln.w + ln.g;
-    const uint32_t a[4] = {tile_word(sa, r, k), tile_word(sa, r + 8, k),
-                           tile_word(sa, r, k + 8),
-                           tile_word(sa, r + 8, k + 8)};
-#pragma unroll
-    for (int j = 0; j < kNJ<NT>; ++j) {
-      const int col = 8 * j + ln.g;
-      mma_bf16(acc[j], a, tile_word(sb, col, k), tile_word(sb, col, k + 8));
-    }
-  }
-}
-
-// The K loop: step s + 1's loads are in flight while step s's products run.
-// a_op(v, o, k) is A's prologue (kARaw: none). What the caller staged in
-// shared memory before the call is visible to a_op. On return every thread
-// is past its last read of sa and sb.
-template <int NT, bool kAKC, bool kBKC, bool kARaw, class AOp>
-__device__ __forceinline__ void mainloop_bf16(TileLoad2<kBM, kAKC>& a,
-                                              TileLoad2<32 * NT, kBKC>& b,
-                                              int steps, uint16_t* sa,
-                                              uint16_t* sb,
-                                              float (&acc)[kNJ<NT>][4],
-                                              const Lane& ln, AOp a_op) {
-  const auto raw = [](float v, int, int) { return v; };
-#pragma unroll
-  for (int j = 0; j < kNJ<NT>; ++j)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
-  if (steps <= 0) return;
-  a.load();
-  b.load();
-  __syncthreads();  // the caller's staged vectors
-  a.template store<kARaw>(sa, 0, a_op);
-  b.template store<true>(sb, 0, raw);
-  __syncthreads();
-  for (int s = 0; s < steps; ++s) {
-    const bool more = s + 1 < steps;
-    if (more) {
-      a.load();
-      b.load();
-    }
-    mma_step<NT>(sa, sb, acc, ln);
-    __syncthreads();  // every warp is done with step s's tiles
-    if (more) {
-      a.template store<kARaw>(sa, s + 1, a_op);
-      b.template store<true>(sb, s + 1, raw);
-      __syncthreads();
-    }
-  }
-}
-
-// dst[(row0 + r)*ld + col0 + c] = bf16(acc(r, c)) for row0 + r < rows,
-// col0 + c < cols; pair: ld is even and dst 4-byte aligned.
-template <int NT>
-__device__ __forceinline__ void store_acc_bf16(
-    uint16_t* __restrict__ dst, long long ld, long long row0, long long rows,
-    int col0, int cols, const float (&acc)[kNJ<NT>][4], const Lane& ln,
-    bool pair) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const long long row = row0 + 16 * ln.w + ln.g + 8 * h;
-    if (row >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < kNJ<NT>; ++j) {
-      const int col = col0 + 8 * j + 2 * ln.t;
-      uint16_t* p = dst + row * ld + col;
-      if (pair && col + 1 < cols) {
-        *reinterpret_cast<uint32_t*>(p) =
-            pack_bf16x2(acc[j][2 * h], acc[j][2 * h + 1]);
-      } else {
-        if (col < cols) p[0] = f32_to_bf16_bits(acc[j][2 * h]);
-        if (col + 1 < cols) p[1] = f32_to_bf16_bits(acc[j][2 * h + 1]);
-      }
-    }
-  }
-}
-
-// bf16 apply: out (N, F) = bf16(relu(x*mul + add) rounded to bf16 @ W),
-// or, with chunks of C (gridDim.z > 1), fp32 partials at part[blockIdx.z]
-// (N, F) for fold_bf16_kernel; grid (ceil(N/64), ceil(F/(32 NT)), chunks).
-template <int NT, bool kWKC>
-__global__ void __launch_bounds__(kThreads)
-apply_bf16_kernel(const uint16_t* __restrict__ x,
-                  const float* __restrict__ mul,
-                  const float* __restrict__ add,
-                  const uint16_t* __restrict__ w, long long w_sc,
-                  long long w_sf, long long n, int c, int f, int k_per_chunk,
-                  bool x_vec, bool w_vec, bool out_pair,
-                  uint16_t* __restrict__ out, float* __restrict__ part) {
-  __shared__ float smul[kMaxK], sadd[kMaxK];
-  __shared__ __align__(16) uint16_t sa[kTile2<kBM>];
-  __shared__ __align__(16) uint16_t sb[kTile2<32 * NT>];
-  const Lane ln;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
-  const int n0 = blockIdx.y * 32 * NT;
-  const int k_beg = blockIdx.z * k_per_chunk;
-  const int k_end = min(c, k_beg + k_per_chunk);
-
-  // A(m = row, k = channel) = x, B(k = channel, n = output) = W
-  TileLoad2<kBM, true> a(x, m0, n, c, k_beg, k_end, 1, x_vec);
-  TileLoad2<32 * NT, kWKC> b(w, n0, f, w_sf, k_beg, k_end, w_sc, w_vec);
-  stage_vector(smul, mul, k_beg, k_end, k_per_chunk);
-  stage_vector(sadd, add, k_beg, k_end, k_per_chunk);
-  float acc[kNJ<NT>][4];
-  mainloop_bf16<NT, true, kWKC, false>(
-      a, b, (k_end - k_beg + kBK2 - 1) / kBK2, sa, sb, acc, ln,
-      [&](float v, int, int k) {
-        return fmaxf(bn_z(v, smul[k], sadd[k]), 0.f);
-      });
-  if (gridDim.z == 1)
-    store_acc_bf16<NT>(out, f, m0, n, n0, f, acc, ln, out_pair);
-  else
-    store_acc<NT>(part + static_cast<long long>(blockIdx.z) * n * f, f, m0,
-                  n, n0, f, acc, ln, out_pair);
-}
-
-// out[j] = bf16(sum_k part[k*m + j]), k ascending: apply's channel chunks.
-__global__ void __launch_bounds__(kFoldThreads)
-fold_bf16_kernel(const float* __restrict__ part, int chunks, long long m,
-                 uint16_t* __restrict__ out) {
-  const long long j =
-      static_cast<long long>(blockIdx.x) * kFoldThreads + threadIdx.x;
-  if (j >= m) return;
-  float s = 0.f;
-  for (int k = 0; k < chunks; ++k) s += part[k * m + j];
-  out[j] = f32_to_bf16_bits(s);
-}
-
-// ------------------------------------------- the bf16 wgmma core (backward)
-//
-// bwd_reduce and bwd_dx in bf16 run on one Hopper GEMM core: wgmma
-// (wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16), B always and A
-// mostly read from shared memory through descriptors, fed by a ring of
-// cp.async stages. A block is one warpgroup and its tile 64 x 64.
-//   * A step is kBKW (64) deep: 128 bytes of every K row, the width of the
-//     128-byte swizzle. Each operand tile lands as it lies in memory, by
-//     16-byte cp.async into the swizzled layout its descriptor names:
-//     K-major ([outer][K], as g, and W where its F axis is contiguous) or
-//     MN-major ([K][outer], as x read as x^T, g as dW's B, and the conv
-//     kernel's W), which wgmma reads through its transpose bits (bf16 takes
-//     either major): no transposing pass. A row that is not 16-byte
-//     aligned is loaded element by element and stored by the thread (a
-//     generic write, which that thread fences into the async proxy); the
-//     ragged edge is zero-filled by the copy's source size, never read.
-//   * The ring has kStagesW = 2 stages: the next step's copies run while
-//     this step's products do. On an H100 a third stage cost bwd_dx a
-//     block a SM (3 instead of 4) and bought bwd_reduce nothing, not even
-//     for its long dW blocks alone (ops/bf16_bwd_sweep.py times the
-//     depths; PERF.md has the numbers). Code size mattered more: with the
-//     unaligned fallback inlined at every copy site, each extra stage (one
-//     more inlined load) made every step slower; out of line
-//     (copy_piece_slow) it made every stage of bwd_reduce faster.
-//   * bwd_dx copies its tile of x and the six per-channel vectors behind
-//     the first operand copies, so the epilogue reads shared memory only;
-//     dx is written over x in shared memory and leaves as 16-byte stores,
-//     whole rows. Where the grid leaves SMs idle F is split over the
-//     blocks of a thread-block cluster (bwd_dx_cluster_bf16_kernel, as the
-//     fp32 bwd_dx_cluster_kernel), folded in rank order through distributed
-//     shared memory. Four blocks a SM.
-//   * bwd_reduce keeps its one launch of dW blocks and da blocks. dW's A
-//     operand a = bf16(relu(x*mul + add)) is made from the raw x tile on
-//     its way into registers (ldmatrix.trans, then the same two fp32
-//     roundings as the plain version, so the same ReLU mask) and wgmma
-//     reads A from registers: no generic write to fence (an in-place pass
-//     over the stage would need fence.proxy.async, which also waits for
-//     the copies in flight). dW's fp32 partials hold at most a quarter of
-//     x's bytes, so its row chunks are few and long; where that leaves dW
-//     blocks the long pole (few tiles), the chunks are 4 steps and the Q
-//     blocks of one thread-block cluster sum their partials in rank order
-//     through distributed shared memory before one partial is written.
-//     Each step's four products are chained from zero and added to the
-//     fp32 accumulators by the CUDA cores: the tensor core truncates its
-//     sums, and one chain over 1,024 rows would drift (the fp32 core's
-//     finding).
-//   * What bounds them: at the 16,384-row stages the 64 x 64 tiles read g,
-//     x and W from L2 several times over (bwd_reduce moves ~72 MB between
-//     L2 and the SMs for 11.7 MB of its own bytes), and each dW block's
-//     steps wait on their copies in turn; the small stages are a few
-//     microseconds of latency a launch.
-
 constexpr int kBKW = 64;       // depth of a step: 128 bytes of a bf16 K row
 constexpr int kStagesW = 2;    // ring depth (see above)
 constexpr int kAtomBytes = 1024;         // 8 rows of 128 bytes, swizzled
@@ -1397,7 +1133,12 @@ template <int T>
 constexpr int kTileBytesW = T * kBKW * 2;
 constexpr int kBNW = 64;        // a tile's width: the N of one wgmma
 constexpr int kNJW = kBNW / 8;  // its 8-column groups: acc[kNJW][4]
-constexpr int kStageBytesW = kTileBytesW<kBM> + kTileBytesW<kBNW>;
+// a stage: A's kWG x 64 rows x kBKW, then B's kNH 64-wide halves (kWG =
+// kNH = 1, or 2 and 2 for apply's 128 x 128 tile)
+template <int kNH, int kWG = 1>
+constexpr int kStageBytesOf =
+    kWG * kTileBytesW<kBM> + kNH * kTileBytesW<kBNW>;
+constexpr int kStageBytesW = kStageBytesOf<1>;
 constexpr int kRingBytesW = kStagesW * kStageBytesW;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -1475,11 +1216,11 @@ __device__ __noinline__ void copy_piece_slow(unsigned at, const uint16_t* p,
 // contiguous axis (K where kKC, else the outer axis), neighbouring threads
 // neighbouring pieces. vec: that axis has stride 1, the other a multiple of
 // 8 and the array is 16-byte aligned; else the pieces are loaded element by
-// element and stored by the thread.
-template <int T, bool kKC>
+// element and stored by the thread. kThr: the block's threads.
+template <int T, bool kKC, int kThr = kThreads>
 struct TileCopyW {
-  static constexpr int kPieces = T * kBKW / 8 / kThreads;
-  static_assert(kPieces * 8 * kThreads == T * kBKW, "tile must split evenly");
+  static constexpr int kPieces = T * kBKW / 8 / kThr;
+  static_assert(kPieces * 8 * kThr == T * kBKW, "tile must split evenly");
   const uint16_t* base;
   const uint16_t* safe;  // a valid address for pieces that read nothing
   long long so, sk;
@@ -1499,7 +1240,7 @@ struct TileCopyW {
   __device__ __forceinline__ void start(unsigned t) {
 #pragma unroll
     for (int i = 0; i < kPieces; ++i) {
-      const int u = threadIdx.x + i * kThreads;
+      const int u = threadIdx.x + i * kThr;
       const int o = kKC ? u / (kBKW / 8) : (u % (T / 8)) * 8;
       const int k = kKC ? (u % (kBKW / 8)) * 8 : u / (T / 8);
       const int along = kKC ? k_left - k : o_left - o;
@@ -1584,75 +1325,103 @@ __device__ __forceinline__ void ldmatrix_a_mn(unsigned tile, int kk,
       : "r"(tile + swz<false>(m, k)));
 }
 
+// A's fragment for wgmma_bf16_rs from a K-major tile in shared memory:
+// the 16-deep slice kk of warp w's 16 rows (w counts the block's warps, so
+// a block of two warpgroups reads a 128-row tile), by one ldmatrix.x4
+// (lane L points at row 16 w + L % 8 + 8 ((L / 8) % 2), depth 16 kk + 8
+// (L / 16)), as four pairs of bf16 along K: rows g and g + 8 at depths 2t,
+// 2t + 1 (a[0], a[1]), then at 2t + 8, 2t + 9 (a[2], a[3]).
+__device__ __forceinline__ void ldmatrix_a_k(unsigned tile, int kk,
+                                             uint32_t (&a)[4]) {
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int m = 16 * w + lane % 8 + 8 * ((lane / 8) % 2);
+  const int k = 16 * kk + 8 * (lane / 16);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(tile + swz<true>(m, k)));
+}
+
 // The K loop of the wgmma core. load(t) starts the copies of the next step
-// into the stage at shared address t (once a step, in order); copies run
-// kStagesW - 1 steps ahead. prep() runs once, behind the first copies and
-// before the first barrier. kARegs: A is read into registers,
-// a_frag(tile, kk, a) giving the fragment of its 16-deep slice kk (the
-// prologue of dW's A runs there), and wgmma reads only B from shared
-// memory; else both. kSlabs: each step's products are chained from zero
-// and added to acc by the CUDA cores; else they accumulate in acc. cp.async
-// data reaches wgmma through the wait and the barrier; only generic stores
-// (TileCopyW's fallback) are fenced into the async proxy, by the thread
-// that made them: a fence here would also wait for the copies in flight.
-// On return every copy has landed, every product is done and the ring is
-// free.
-template <bool kAKC, bool kBKC, bool kSlabs, bool kARegs, class Load,
-          class Prep, class AFrag>
+// into the stage at shared address t (once a step, in order). prep() runs
+// once, behind the first copies and before the first barrier. kARegs: A is
+// read into registers, a_frag(tile, s, kk, a) giving the fragment of step
+// s's 16-deep slice kk (the prologue of apply's and dW's A runs there),
+// and wgmma reads only B from shared memory; else both. kSlabs: each
+// step's products are chained from zero and added to acc by the CUDA
+// cores; else they accumulate in acc. kNH: B's tile is kNH 64-wide halves
+// (acc's groups 8 h .. 8 h + 7 hold half h), each slice's products sharing
+// A. kWG: the block is kWG warpgroups, warpgroup g the A rows 64 g .. 64 g
+// + 63 (A from registers only), all sharing B. kStages: the ring's depth
+// (copies run kStages - 1 steps ahead). cp.async data reaches wgmma
+// through the wait and the barrier; only generic stores (TileCopyW's
+// fallback) are fenced into the async proxy, by the thread that made them:
+// a fence here would also wait for the copies in flight. On return every
+// copy has landed, every product is done and the ring is free.
+template <bool kAKC, bool kBKC, bool kSlabs, bool kARegs, int kNH = 1,
+          int kStages = kStagesW, int kWG = 1, class Load, class Prep,
+          class AFrag>
 __device__ __forceinline__ void wgmma_mainloop(unsigned char* ring, int steps,
-                                               float (&acc)[kNJW][4],
+                                               float (&acc)[kNH * kNJW][4],
                                                Load load, Prep prep,
                                                AFrag a_frag) {
+  static_assert(kWG == 1 || kARegs, "A from shared memory: one warpgroup");
+  constexpr int kStage = kStageBytesOf<kNH, kWG>, kNJ = kNH * kNJW;
   const unsigned ring_at = smem_addr(ring);
 #pragma unroll
-  for (int j = 0; j < kNJW; ++j)
+  for (int j = 0; j < kNJ; ++j)
 #pragma unroll
     for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
 #pragma unroll
-  for (int s = 0; s < kStagesW - 1; ++s) {
-    if (s < steps) load(ring_at + s * kStageBytesW);
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) load(ring_at + s * kStage);
     cp_async_commit();  // one group a step, empty past the end
   }
   prep();
   for (int s = 0; s < steps; ++s) {
-    cp_async_wait<kStagesW - 2>();  // this thread's copies of step s landed
+    cp_async_wait<kStages - 2>();  // this thread's copies of step s landed
     // step s visible to all; step s - 1's products done (waited below):
     // its stage is free
     __syncthreads();
-    const int ahead = s + kStagesW - 1;
-    if (ahead < steps) load(ring_at + (ahead % kStagesW) * kStageBytesW);
+    const int ahead = s + kStages - 1;
+    if (ahead < steps) load(ring_at + (ahead % kStages) * kStage);
     cp_async_commit();
-    const unsigned a_at = ring_at + (s % kStagesW) * kStageBytesW;
-    const unsigned b_at = a_at + kTileBytesW<kBM>;
+    const unsigned a_at = ring_at + (s % kStages) * kStage;
+    const unsigned b_at = a_at + kWG * kTileBytesW<kBM>;
     uint32_t a[kARegs ? kBKW / 16 : 1][4];
     if constexpr (kARegs) {
 #pragma unroll
-      for (int kk = 0; kk < kBKW / 16; ++kk) a_frag(a_at, kk, a[kk]);
+      for (int kk = 0; kk < kBKW / 16; ++kk) a_frag(a_at, s, kk, a[kk]);
     }
-    // the step's four 16-deep products into d, the first with scale_d =
-    // first (0: d = a b, chained from zero)
-    const auto products = [&](float (&d)[kNJW][4], int first) {
+    // the step's 16-deep products into d, the first of each half with
+    // scale_d = first (0: d = a b, chained from zero)
+    const auto products = [&](float (&d)[kNJ][4], int first) {
       pin(d);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBKW / 16; ++kk) {
-        const uint64_t db = w_desc<kBKC>(slice_at<kBKC>(b_at, kk));
-        const int scale = kk > 0 ? 1 : first;
-        if constexpr (kARegs)
-          wgmma_bf16_rs<kBKC ? 0 : 1>(d, a[kk], db, scale);
-        else
-          wgmma_bf16<kAKC ? 0 : 1, kBKC ? 0 : 1>(
-              d, w_desc<kAKC>(slice_at<kAKC>(a_at, kk)), db, scale);
-      }
+      for (int kk = 0; kk < kBKW / 16; ++kk)
+#pragma unroll
+        for (int h = 0; h < kNH; ++h) {
+          const uint64_t db = w_desc<kBKC>(
+              slice_at<kBKC>(b_at + h * kTileBytesW<kBNW>, kk));
+          const int scale = kk > 0 ? 1 : first;
+          float(&dh)[kNJW][4] =
+              *reinterpret_cast<float(*)[kNJW][4]>(&d[h * kNJW]);
+          if constexpr (kARegs)
+            wgmma_bf16_rs<kBKC ? 0 : 1>(dh, a[kk], db, scale);
+          else
+            wgmma_bf16<kAKC ? 0 : 1, kBKC ? 0 : 1>(
+                dh, w_desc<kAKC>(slice_at<kAKC>(a_at, kk)), db, scale);
+        }
       wgmma_commit();
       wgmma_wait<0>();
       pin(d);
     };
     if constexpr (kSlabs) {
-      float slab[kNJW][4];
+      float slab[kNJ][4];
       products(slab, 0);
 #pragma unroll
-      for (int j = 0; j < kNJW; ++j)
+      for (int j = 0; j < kNJ; ++j)
 #pragma unroll
         for (int q = 0; q < 4; ++q) acc[j][q] += slab[j][q];
     } else {
@@ -1758,7 +1527,7 @@ __device__ __forceinline__ void dw_block_bf16(const DwArgs2& p, int c0, int f0,
         stage_vector(smul, p.mul, c0, p.c, kBM);
         stage_vector(sadd, p.add, c0, p.c, kBM);
       },
-      [&](unsigned a_tile, int kk, uint32_t (&a)[4]) {
+      [&](unsigned a_tile, int, int kk, uint32_t (&a)[4]) {
         // a = bf16(relu(x*mul + add)) in the fragment's registers: pairs
         // along K of channel 16 w + g (a[0], a[2]) and 16 w + g + 8 (a[1],
         // a[3]). Rows past the chunk become relu(add), against g rows that
@@ -1878,7 +1647,7 @@ __device__ __forceinline__ void da_product_bf16(const DaArgs2& p,
           stage_vector_async(s.vecs + v * kBN, src[v], n0, p.c, kBN,
                              p.v_vec);
       },
-      [](unsigned, int, uint32_t (&)[4]) {});
+      [](unsigned, int, int, uint32_t (&)[4]) {});
 }
 
 // bwd_reduce's da block: the dbeta/dgamma partials of its 64 rows over F
@@ -2134,8 +1903,10 @@ bwd_reduce_bf16_kernel(const DwArgs2 dw, const DaArgs2 da, const Grid dw_grid,
 
 // The core alone, for its tests: out (64, 64) fp32 = A B^T over k, A and B
 // (64, k) bf16, each given K-major (a[m*k + kk]) or MN-major (a[kk*64 + m])
-// as kAKC / kBKC say.
-template <bool kAKC, bool kBKC>
+// as kAKC / kBKC say. kARegs: A reaches wgmma from registers by the
+// fragment loads the prologues use (ldmatrix_a_k, ldmatrix_a_mn), else
+// through its descriptor.
+template <bool kAKC, bool kBKC, bool kARegs>
 __global__ void __launch_bounds__(kThreads)
 wgmma_bf16_tile_kernel(const uint16_t* a, const uint16_t* b, int k, bool a_vec,
                        bool b_vec, float* out) {
@@ -2148,15 +1919,399 @@ wgmma_bf16_tile_kernel(const uint16_t* a, const uint16_t* b, int k, bool a_vec,
   TileCopyW<kBN, kBKC> b_copy(b, 0, kBN, kBKC ? k : 1, 0, k, kBKC ? 1 : kBN,
                               b_vec);
   float acc[kNJW][4];
-  wgmma_mainloop<kAKC, kBKC, false, false>(
+  wgmma_mainloop<kAKC, kBKC, false, kARegs>(
       ring, (k + kBKW - 1) / kBKW, acc,
       [&](unsigned t) {
         a_copy.start(t);
         b_copy.start(t + kTileBytesW<kBM>);
       },
-      [] {}, [](unsigned, int, uint32_t (&)[4]) {});
+      [] {},
+      [](unsigned a_tile, int, int kk, uint32_t (&a)[4]) {
+        if constexpr (kAKC)
+          ldmatrix_a_k(a_tile, kk, a);
+        else
+          ldmatrix_a_mn(a_tile, kk, a);
+      });
   store_acc<kBNW / 32>(out, kBN, 0, kBM, 0, kBN, acc, ln, true);
 }
+
+// bf16 apply (see the notes above kBKW): out (N, F) = bf16(a @ W), a =
+// bf16(relu(x*mul + add)) made in the A fragment's registers. Grid
+// (ceil(N/64), ceil(F/(64 kNH)), chunks); with chunks > 1 a thread-block
+// cluster (1, 1, chunks): rank k contracts channels [k*k_per_chunk,
+// +k_per_chunk) (whole steps), and the ranks fold their partials in rank
+// order. kWKC: W's channel axis is the contiguous one (the conv kernel's
+// layout: B K-major); else its F axis (B MN-major).
+struct ApplyArgs2 {
+  const uint16_t *x, *w;
+  const float *mul, *add;
+  long long w_sc, w_sf, n;
+  int c, f, k_per_chunk;
+  bool x_vec, w_vec, v_vec, out_vec;
+  uint16_t* out;
+};
+
+// A 64 x 64 block (the only tile whose channels the plan splits) keeps a
+// ring of 2 steps: 3 or 4 cost it blocks a SM and ran no faster at any
+// stage on an H100 (ops/bf16_fwd_sweep.py); the wide tiles (one block a SM
+// by their registers) keep 4,
+// all of a chunk's copies in flight at once at every wide stage of the
+// train step. Shared memory: the ring, each stage's mul and add (kBKW
+// each), and where the channels split, the inbox of the fold (a slot of
+// the owner's rows for each rank: chunks * share <= kBM + chunks - 1 rows)
+// and its transaction barrier.
+template <int kWG, int kNH>
+constexpr bool kApplySplits = kWG == 1 && kNH == 1;
+template <int kWG, int kNH>
+constexpr int kApplyStages = kApplySplits<kWG, kNH> ? 2 : 4;
+constexpr int kInboxFloats = (kBM + kMaxCluster) * (kBNW + 8);
+template <int kWG, int kNH>
+constexpr int kApplySmemW =
+    kAtomBytes +
+    kApplyStages<kWG, kNH> * (kStageBytesOf<kNH, kWG> + 2 * kBKW * 4) +
+    (kApplySplits<kWG, kNH> ? kInboxFloats * 4 + 16 : 0);
+
+// The cluster barrier in halves: a block arrives as it starts and waits
+// before its first copy into a peer's shared memory (the peer must have
+// started and set up its barrier; the wait costs nothing by then).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// A transaction barrier (mbarrier) in shared memory at `bar`, for the bulk
+// copies that peers of the cluster send into this block.
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+  asm volatile(
+      "mbarrier.init.shared::cta.b64 [%0], 1;\n"
+      "fence.mbarrier_init.release.cluster;\n" ::"r"(bar)
+      : "memory");
+}
+// This block's arrival, expecting `bytes` of copies before the phase ends.
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned bar) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], 0;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(bar)
+      : "memory");
+}
+// Address `at` of this block's shared memory in block `rank`'s.
+__device__ __forceinline__ unsigned peer_addr(unsigned at, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(at), "r"(rank));
+  return out;
+}
+// `bytes` (a multiple of 16) from this block's shared memory at `src` to
+// `dst` in a peer's, completing on the peer's barrier `bar`.
+__device__ __forceinline__ void bulk_copy_to_peer(unsigned dst, unsigned src,
+                                                  unsigned bytes,
+                                                  unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// kWG warpgroups (64 kWG rows) by kNH 64-wide halves: 64 x 64 (1, 1) or
+// 128 x 128 (2, 2); only 64 x 64 blocks take chunks > 1.
+// 64 x 64 blocks: three a SM (four left 128 registers, and the fold
+// spilled), as many as the plan's largest grid (256 blocks) needs.
+template <int kWG, int kNH, bool kWKC>
+__global__ void __launch_bounds__(kWG * kThreads,
+                                  kApplySplits<kWG, kNH> ? 3 : 1)
+apply_bf16_kernel(const ApplyArgs2 p) {
+  constexpr bool kSplit = kApplySplits<kWG, kNH>;
+  constexpr int kStages = kApplyStages<kWG, kNH>;
+  constexpr int kRows = kWG * kBM, kThr = kWG * kThreads;
+  constexpr int kBN = kNH * kBNW, kPLd = kBN + 8;  // partials' rows, fp32
+  constexpr int kStage = kStageBytesOf<kNH, kWG>;
+  static_assert(kRows * kPLd * 4 <= kStages * kStage, "P in the ring");
+  extern __shared__ float4 smem4[];
+  unsigned char* ring = align_atom(reinterpret_cast<unsigned char*>(smem4));
+  float* svec = reinterpret_cast<float*>(ring + kStages * kStage);
+  float* const part = reinterpret_cast<float*>(ring);  // after the mainloop
+  float* const inbox = svec + kStages * 2 * kBKW;  // where kSplit
+  const unsigned bar = smem_addr(inbox + kInboxFloats);
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int chunks = kSplit ? static_cast<int>(cluster.num_blocks()) : 1;
+  const int rank = kSplit ? static_cast<int>(cluster.block_rank()) : 0;
+  if (chunks > 1) {
+    if (threadIdx.x == 0) mbar_init(bar);
+    cluster_arrive_relaxed();
+  }
+  const Lane ln;  // warp ln.w of the block: rows 16 ln.w ..
+  const long long m0 = static_cast<long long>(blockIdx.x) * kRows;
+  const int n0 = blockIdx.y * kBN;
+  const int k_beg = rank * p.k_per_chunk;
+  const int k_end = min(p.c, k_beg + p.k_per_chunk);
+  // A(m = row, k = channel) = x, K-major; B(k = channel, n = output) = W
+  TileCopyW<kRows, true, kThr> a_copy(p.x, m0, p.n, p.c, k_beg, k_end, 1,
+                                      p.x_vec);
+  TileCopyW<kBN, kWKC, kThr> b_copy(p.w, n0, p.f, p.w_sf, k_beg, k_end,
+                                    p.w_sc, p.w_vec);
+  int staged = 0;  // steps whose copies have started
+  float acc[kNH * kNJW][4];
+  wgmma_mainloop<true, kWKC, false, true, kNH, kStages, kWG>(
+      ring, (k_end - k_beg + kBKW - 1) / kBKW, acc,
+      [&](unsigned t) {
+        a_copy.start(t);
+        b_copy.start(t + kWG * kTileBytesW<kBM>);
+        float* v = svec + (staged % kStages) * 2 * kBKW;
+        const int ch0 = k_beg + staged * kBKW;
+        stage_vector_async(v, p.mul, ch0, k_end, kBKW, p.v_vec);
+        stage_vector_async(v + kBKW, p.add, ch0, k_end, kBKW, p.v_vec);
+        ++staged;
+      },
+      [] {},
+      [&](unsigned a_tile, int s, int kk, uint32_t (&a)[4]) {
+        // a[q] holds rows 16 w + g (q even) and + 8 (q odd) at depths
+        // 16 kk + 2t + 8 (q / 2) and + 1 of step s
+        ldmatrix_a_k(a_tile, kk, a);
+        const float* v = svec + (s % kStages) * 2 * kBKW;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int k = 16 * kk + 2 * ln.t + 8 * (q / 2);
+          const float2 x2 = bf16x2_to_f32(a[q]);
+          const float2 mu = *reinterpret_cast<const float2*>(v + k);
+          const float2 ad = *reinterpret_cast<const float2*>(v + kBKW + k);
+          a[q] = pack_bf16x2(fmaxf(bn_z(x2.x, mu.x, ad.x), 0.f),
+                             fmaxf(bn_z(x2.y, mu.y, ad.y), 0.f));
+        }
+      });
+
+  // The fold. Each rank leaves its partial P in its own ring, and rank r
+  // owns rows [r*share, (r+1)*share) of the tile's live rows: every other
+  // rank sends it those rows of its P by one bulk copy into slot [rank]
+  // of r's inbox (a peer's inbox is in use only for the fold, so no barrier
+  // comes first), completing on r's transaction barrier; r waits on it,
+  // sums P_0, P_1, ... in rank order, rounds once to bf16 and stores
+  // 16-byte rows. No thread writes another block's shared memory itself:
+  // on an H100 those small stores, and the cluster barrier behind them,
+  // were slower.
+#pragma unroll
+  for (int j = 0; j < kNH * kNJW; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(
+          part + (16 * ln.w + ln.g + 8 * h) * kPLd + 8 * j + 2 * ln.t) =
+          make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+  const int live = static_cast<int>(min(1LL * kRows, p.n - m0));
+  const int share = (live + chunks - 1) / chunks;
+  const int r_lo = min(live, rank * share), r_hi = min(live, r_lo + share);
+  if (chunks > 1) {
+    fence_async_proxy();  // P's writes visible to the bulk copies
+    cluster_wait();       // every peer's inbox barrier is set up
+    __syncthreads();      // P written and fenced by every thread
+    if (threadIdx.x == 0) {
+      constexpr unsigned kRowBytes = kPLd * 4;
+      mbar_expect(bar, (chunks - 1) * (r_hi - r_lo) * kRowBytes);
+      const unsigned slot = smem_addr(inbox + rank * share * kPLd);
+      for (int k = 0; k < chunks; ++k) {
+        const int lo = min(live, k * share), hi = min(live, lo + share);
+        if (k != rank && hi > lo)
+          bulk_copy_to_peer(peer_addr(slot, k), smem_addr(part + lo * kPLd),
+                            (hi - lo) * kRowBytes, peer_addr(bar, k));
+      }
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+    mbar_wait(bar);  // every peer's rows have landed
+  } else {
+    __syncthreads();
+  }
+  constexpr int kOcts = kBN / 8;
+  for (int u = threadIdx.x; u < (r_hi - r_lo) * kOcts; u += kThr) {
+    const int rr = u / kOcts, col = (u % kOcts) * 8;
+    if (n0 + col >= p.f) continue;
+    uint32_t o[4];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int at = col + 4 * half;
+      const auto slot = [&](int k) {  // P_k's row
+        return *reinterpret_cast<const float4*>(
+            (k == rank ? part + (r_lo + rr) * kPLd
+                       : inbox + (k * share + rr) * kPLd) + at);
+      };
+      float4 sum = slot(0);
+      for (int k = 1; k < chunks; ++k) {  // rank order
+        const float4 v = slot(k);
+        sum.x += v.x, sum.y += v.y, sum.z += v.z, sum.w += v.w;
+      }
+      o[2 * half] = pack_bf16x2(sum.x, sum.y);
+      o[2 * half + 1] = pack_bf16x2(sum.z, sum.w);
+    }
+    store_dx8(p.out + (m0 + r_lo + rr) * p.f + n0 + col,
+              make_uint4(o[0], o[1], o[2], o[3]), n0 + col, p.f, p.out_vec);
+  }
+  // P stays in place until the bulk copies have read it
+  if (chunks > 1 && threadIdx.x == 0)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------- bf16 moments
+//
+// Per-channel sum x and sum x^2 (fp32) over bf16 x (N, C), one launch. A
+// block of kMomThreads2 threads sums one chunk of rows of one 32-channel
+// slab: a thread reads 16 bytes, 8 channels of a row (4 threads a row, 64
+// bytes, neighbouring threads on neighbouring addresses), kUnroll rows
+// (64 apart) all in flight, into 8 sums and 8 sums of squares in fp32
+// registers. A chunk is 64 kUnroll rows, 256, 512 or 1,024, as the launch
+// plan picks them (fused_dense.py: moments_rows_bf16; ops/bf16_fwd_sweep.py
+// times the three).
+// Where a slab has one chunk (256 and 32 rows) the block writes the
+// output. Else each block writes its partial, and the last block of the
+// slab to finish (it finds itself last by the slab's counter, which it
+// leaves at 0 for the next launch) folds the slab's partials: one launch,
+// no second kernel. The counter's add is a release-acquire at GPU scope
+// behind the block's barrier, as CUTLASS's semaphores are: faster on an
+// H100 than a __threadfence on both sides. The row chunks of a slab are not
+// a thread-block cluster: folded in distributed shared memory (two cluster
+// barriers a block) they were slower at the 16,384-row stage on an H100.
+// The order of every sum is fixed by N and C alone: within a thread its
+// rows ascending; the 8 row lanes of a warp by a butterfly (xor 1, 2, 4 of
+// the row lane); the 8 warps in order; the chunks k of a slab in 4 lanes
+// (lane l: k = l, l + 4, ... ascending), then the 4 lanes in order. So
+// repeats are bit-equal; no value is ever added by an atomic. Where C is
+// not a multiple of 8 or x is not 16-byte aligned the pieces are loaded
+// element by element, out of line.
+constexpr int kMomThreads2 = 256;
+constexpr int kMomGroups2 = 4;  // 8-channel groups of a slab
+constexpr int kMomSlab2 = 8 * kMomGroups2;
+constexpr int kMomLanes2 = kMomThreads2 / kMomGroups2;  // row lanes: 64
+constexpr int kMomFoldLanes2 = kMomThreads2 / (2 * kMomSlab2);  // 4
+
+#if defined(MSP_FUSED_FWD) && defined(MSP_FUSED_BF16)
+// 8 elements from p, the first `live` read and the rest 0, as a piece.
+__device__ __noinline__ uint4 load_piece_slow(const uint16_t* p, int live) {
+  uint16_t e[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    e[q] = q < live ? __ldg(p + q) : static_cast<uint16_t>(0);
+  return pack8(e);
+}
+
+// Grid (chunks, ceil(C/32)). out: sums, then sums of squares (2C). With
+// chunks > 1, part[chunk][2C] holds the blocks' partials and done[slab]
+// is 0 on entry and on exit.
+template <int kUnroll>
+__global__ void __launch_bounds__(kMomThreads2)
+moments_bf16_kernel(const uint16_t* __restrict__ x, long long n, int c,
+                    bool vec, float* __restrict__ part,
+                    unsigned* __restrict__ done, float* __restrict__ out) {
+  const int group = threadIdx.x % kMomGroups2;
+  const int lane_row = threadIdx.x / kMomGroups2;
+  const int ch = blockIdx.y * kMomSlab2 + 8 * group;
+  const long long r0 =
+      static_cast<long long>(blockIdx.x) * kMomLanes2 * kUnroll;
+  float s[8], q[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) s[e] = q[e] = 0.f;
+  if (ch < c) {
+    uint4 v[kUnroll];
+    const uint16_t* p = x + (r0 + lane_row) * c + ch;
+    const long long step = static_cast<long long>(kMomLanes2) * c;
+    if (vec) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        v[u] = r0 + lane_row + u * kMomLanes2 < n
+                   ? __ldg(reinterpret_cast<const uint4*>(p + u * step))
+                   : make_uint4(0, 0, 0, 0);
+    } else {
+      const int live = min(8, c - ch);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        v[u] = r0 + lane_row + u * kMomLanes2 < n
+                   ? load_piece_slow(p + u * step, live)
+                   : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      uint16_t e8[8];
+      unpack8(v[u], e8);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float f = bf16_bits_to_f32(e8[e]);
+        s[e] += f;
+        q[e] = fmaf(f, f, q[e]);
+      }
+    }
+  }
+  // the warp's 8 row lanes (lane bits 2-4) by butterfly
+#pragma unroll
+  for (int mask = kMomGroups2; mask < 32; mask <<= 1)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      s[e] += __shfl_xor_sync(0xffffffffu, s[e], mask);
+      q[e] += __shfl_xor_sync(0xffffffffu, q[e], mask);
+    }
+  constexpr int kWarps = kMomThreads2 / 32, kVals = 2 * kMomSlab2;
+  __shared__ float red[kWarps][kVals];  // then the fold's lanes
+  __shared__ bool last;
+  if (threadIdx.x % 32 < kMomGroups2) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      red[threadIdx.x / 32][8 * group + e] = s[e];
+      red[threadIdx.x / 32][kMomSlab2 + 8 * group + e] = q[e];
+    }
+  }
+  __syncthreads();
+  // value t < 64 of the slab: sums, then sums of squares, of its channels
+  const int t = threadIdx.x, j = t % kVals;
+  const int slab_ch = blockIdx.y * kMomSlab2 + j % kMomSlab2;
+  const long long at = static_cast<long long>(j / kMomSlab2) * c + slab_ch;
+  const bool live = slab_ch < c;
+  if (t < kVals) {
+    float v = red[0][t];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) v += red[w][t];
+    if (gridDim.x == 1) {
+      if (live) out[at] = v;
+    } else if (live) {
+      part[blockIdx.x * 2LL * c + at] = v;
+    }
+  }
+  if (gridDim.x == 1) return;
+  // the block's partial (ordered before the add by the barrier) released,
+  // every other block's acquired: the last to count reads them all
+  __syncthreads();
+  if (t == 0) {
+    unsigned seen;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+                 : "=r"(seen)
+                 : "l"(done + blockIdx.y)
+                 : "memory");
+    last = seen == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  const int lane = t / kVals;  // chunks lane, lane + 4, ... ascending
+  float v = 0.f;
+  if (live) {
+    const int chunks = static_cast<int>(gridDim.x);
+    int k = lane;
+#pragma unroll 4
+    for (; k < chunks; k += kMomFoldLanes2) v += __ldcg(part + k * 2LL * c + at);
+  }
+  red[lane][j] = v;  // no thread reads red since the barrier above
+  __syncthreads();
+  if (t < kVals && live) {
+    float o = red[0][t];
+#pragma unroll
+    for (int l = 1; l < kMomFoldLanes2; ++l) o += red[l][t];
+    out[at] = o;
+  }
+  if (t == 0) done[blockIdx.y] = 0u;  // for the next launch on this stream
+}
+#endif  // MSP_FUSED_FWD && MSP_FUSED_BF16
 
 // --------------------------------------------------------- host launchers
 
@@ -2249,24 +2404,29 @@ cudaError_t launch_bwd_dx(const DaArgs& da, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// The cluster launch of bwd_dx: `chunks` F chunks, one cluster of `chunks`
-// blocks a 64 x 64 tile, the cluster's size set at run time (it differs
-// from stage to stage). `attr` backs the returned config.
-cudaLaunchConfig_t dx_cluster_config(long long n, int c, int chunks,
-                                     int smem_bytes, cudaStream_t s,
-                                     cudaLaunchAttribute* attr) {
+// A launch of `grid` in thread-block clusters of its grid.z blocks along z
+// (bwd_dx's F chunks, apply's channel chunks: one cluster a tile), the
+// cluster's size set at run time (it differs from stage to stage). `attr`
+// backs the returned config.
+cudaLaunchConfig_t z_cluster_config(dim3 grid, int smem_bytes, cudaStream_t s,
+                                    cudaLaunchAttribute* attr) {
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = 1;
   attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = chunks;
+  attr->val.clusterDim.z = grid.z;
   cudaLaunchConfig_t cfg{};
-  cfg.gridDim = dim3(ceil_div(n, kBM), ceil_div(c, 64), chunks);
+  cfg.gridDim = grid;
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cfg;
+}
+
+// bwd_dx's cluster grid: 64 x 64 tiles, `chunks` F chunks a tile
+dim3 dx_grid(long long n, int c, int chunks) {
+  return dim3(ceil_div(n, kBM), ceil_div(c, 64), chunks);
 }
 
 template <bool kWKC>
@@ -2276,8 +2436,8 @@ cudaError_t launch_bwd_dx_cluster(const DaArgs& da, int chunks,
   cudaError_t e = allow_smem(kernel, kDaSmemBytes<2>);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = dx_cluster_config(
-      da.n, da.c, chunks, kDaSmemBytes<2>, s, &attr);
+  const cudaLaunchConfig_t cfg = z_cluster_config(
+      dx_grid(da.n, da.c, chunks), kDaSmemBytes<2>, s, &attr);
   void* args[] = {const_cast<DaArgs*>(&da)};
   e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
   return e != cudaSuccess ? e : cudaGetLastError();
@@ -2292,7 +2452,7 @@ cudaError_t dx_max_clusters(long long n, int c, int chunks, int* clusters) {
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      dx_cluster_config(n, c, chunks, kDaSmemBytes<2>, 0, &attr);
+      z_cluster_config(dx_grid(n, c, chunks), kDaSmemBytes<2>, 0, &attr);
   return cudaOccupancyMaxActiveClusters(
       clusters, reinterpret_cast<const void*>(kernel), &cfg);
 }
@@ -2338,31 +2498,6 @@ bool vec8_ok(const void* p, long long contiguous, long long ld) {
          reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// Pairs of bf16 along rows of `ld` elements take 4-byte accesses.
-bool pair_ok(const void* p, long long ld) {
-  return ld % 2 == 0 && reinterpret_cast<uintptr_t>(p) % 4 == 0;
-}
-
-bool k_chunk_ok(long long k) { return k > 0 && k % kBK2 == 0; }
-
-template <int NT, bool kWKC>
-cudaError_t launch_apply_bf16(const uint16_t* x, const float* mul,
-                              const float* add, const uint16_t* w,
-                              long long w_sc, long long w_sf, long long n,
-                              int c, int f, int chunks, int k_per_chunk,
-                              uint16_t* out, float* part, cudaStream_t s) {
-  dim3 grid(ceil_div(n, kBM), ceil_div(f, 32 * NT), chunks);
-  const bool w_vec = kWKC ? vec8_ok(w, w_sc, w_sf) : vec8_ok(w, w_sf, w_sc);
-  // bf16 pairs into out, or float2 pairs into every chunk's (n, f) slab
-  const bool out_pair = chunks == 1
-                            ? pair_ok(out, f)
-                            : vec2_ok(part, f) && (n * f) % 2 == 0;
-  apply_bf16_kernel<NT, kWKC><<<grid, kThreads, 0, s>>>(
-      x, mul, add, w, w_sc, w_sf, n, c, f, k_per_chunk, vec8_ok(x, 1, c),
-      w_vec, out_pair, out, part);
-  return cudaGetLastError();
-}
-
 bool k_chunk_w_ok(long long k) { return k > 0 && k % kBKW == 0; }
 
 DaArgs2 da_args_bf16(const uint16_t* g, const uint16_t* w, long long w_sc,
@@ -2383,6 +2518,65 @@ DaArgs2 da_args_bf16(const uint16_t* g, const uint16_t* w, long long w_sc,
 bool vecs_aligned(const float* const* v, int count) {
   for (int i = 0; i < count; ++i)
     if (reinterpret_cast<uintptr_t>(v[i]) % 16) return false;
+  return true;
+}
+
+// bf16 apply's launch: (1, 1, chunks) clusters where chunks > 1, else a
+// plain launch; kWG x 64 by kNH x 64 tiles.
+template <int kWG, int kNH>
+cudaLaunchConfig_t apply_config(const ApplyArgs2& p, int chunks,
+                                cudaStream_t s, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = z_cluster_config(
+      dim3(ceil_div(p.n, kWG * kBM), ceil_div(p.f, kNH * kBNW), chunks),
+      kApplySmemW<kWG, kNH>, s, attr);
+  cfg.blockDim = dim3(kWG * kThreads);
+  if (chunks == 1) cfg.numAttrs = 0;
+  return cfg;
+}
+
+template <int kWG, int kNH, bool kWKC>
+cudaError_t launch_apply_bf16(const ApplyArgs2& p, int chunks,
+                              cudaStream_t s) {
+  auto kernel = apply_bf16_kernel<kWG, kNH, kWKC>;
+  cudaError_t e = allow_smem(kernel, kApplySmemW<kWG, kNH>);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = apply_config<kWG, kNH>(p, chunks, s, &attr);
+  void* args[] = {const_cast<ApplyArgs2*>(&p)};
+  e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <int kWG, int kNH, bool kWKC>
+cudaError_t apply_max_clusters_bf16(const ApplyArgs2& p, int chunks,
+                                    int* clusters) {
+  auto kernel = apply_bf16_kernel<kWG, kNH, kWKC>;
+  cudaError_t e = allow_smem(kernel, kApplySmemW<kWG, kNH>);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = apply_config<kWG, kNH>(p, chunks, 0, &attr);
+  return cudaOccupancyMaxActiveClusters(
+      clusters, reinterpret_cast<const void*>(kernel), &cfg);
+}
+
+// apply's arguments from the entry points' (tiles 64 x 64 or 128 x 128,
+// chunks of k_per_chunk, a multiple of 64: at most kMaxCluster of them, one
+// for 128 x 128); false for a plan the kernel does not take.
+bool apply_args_bf16(const uint16_t* x, const float* mul, const float* add,
+                     const uint16_t* w, long long w_sc, long long w_sf,
+                     long long n, int c, int f, int tile_rows, int tile_cols,
+                     int k_per_chunk, uint16_t* out, ApplyArgs2* p,
+                     int* chunks) {
+  if (!(tile_rows == 64 || tile_rows == 128) || tile_cols != tile_rows ||
+      !k_chunk_w_ok(k_per_chunk))
+    return false;
+  *chunks = ceil_div(c, k_per_chunk);
+  if (*chunks > kMaxCluster || (*chunks > 1 && tile_cols != 64)) return false;
+  const float* vecs[2] = {mul, add};
+  *p = ApplyArgs2{x, w, mul, add, w_sc, w_sf, n, c, f, k_per_chunk,
+                  vec8_ok(x, 1, c),
+                  w_sc == 1 ? vec8_ok(w, w_sc, w_sf) : vec8_ok(w, w_sf, w_sc),
+                  vecs_aligned(vecs, 2), vec8_ok(out, 1, f), out};
   return true;
 }
 
@@ -2442,7 +2636,7 @@ cudaError_t launch_bwd_dx_cluster_bf16(const DaArgs2& da, int chunks,
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      dx_cluster_config(da.n, da.c, chunks, kBytes, s, &attr);
+      z_cluster_config(dx_grid(da.n, da.c, chunks), kBytes, s, &attr);
   void* args[] = {const_cast<DaArgs2*>(&da)};
   e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
   return e != cudaSuccess ? e : cudaGetLastError();
@@ -2457,15 +2651,15 @@ cudaError_t dx_max_clusters_bf16(long long n, int c, int chunks,
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      dx_cluster_config(n, c, chunks, kBytes, 0, &attr);
+      z_cluster_config(dx_grid(n, c, chunks), kBytes, 0, &attr);
   return cudaOccupancyMaxActiveClusters(
       clusters, reinterpret_cast<const void*>(kernel), &cfg);
 }
 
-template <bool kAKC, bool kBKC>
+template <bool kAKC, bool kBKC, bool kARegs>
 cudaError_t launch_wgmma_tile(const uint16_t* a, const uint16_t* b, int k,
                               float* out, cudaStream_t s) {
-  auto kernel = wgmma_bf16_tile_kernel<kAKC, kBKC>;
+  auto kernel = wgmma_bf16_tile_kernel<kAKC, kBKC, kARegs>;
   constexpr int kBytes = kAtomBytes + kRingBytesW;
   cudaError_t e = allow_smem(kernel, kBytes);
   if (e != cudaSuccess) return e;
@@ -2631,46 +2825,73 @@ int msp_fused_bwd_dx_max_clusters(long long n, int c, int f, int k_per_chunk,
 
 // The bf16 entry points: x, g and W are bf16 (as their 16 bits), the
 // vectors fp32; dW, dgamma, dbeta and the moments fp32, out and dx bf16.
-// Chunk sizes are multiples of 32 for apply (its K step) and of 64 for
-// the backward's (the wgmma core's step).
+// Chunk sizes are multiples of 64 (the wgmma core's step).
 
 #ifdef MSP_FUSED_FWD
+// out (2c): sums then sums of squares, in one launch of rows_per_chunk
+// (256, 512 or 1024) row chunks of 32-channel slabs. part: chunks * 2c
+// floats, chunks = ceil(n / rows_per_chunk), where chunks > 1 (else
+// unused); done: ceil(c / 32) counters, 0 on entry, left at 0 (the caller
+// keeps one set for each stream).
 int msp_fused_moments_bf16(const uint16_t* x, long long n, int c,
-                           long long rows_per_chunk, float* part, float* out,
-                           void* stream) {
+                           long long rows_per_chunk, float* part,
+                           unsigned* done, float* out, void* stream) {
+  const dim3 grid(ceil_div(n, rows_per_chunk), ceil_div(c, kMomSlab2));
   auto s = static_cast<cudaStream_t>(stream);
-  const int chunks = ceil_div(n, rows_per_chunk);
-  dim3 grid(chunks, ceil_div(c, kMomCh));
-  moments_partial_bf16_kernel<<<grid, dim3(kMomCh, kMomLanes), 0, s>>>(
-      x, n, c, rows_per_chunk, part);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return launch_fold_parts(part, chunks, 2LL * c, 0, 0, out, false, s);
+  const bool vec = vec8_ok(x, 1, c);
+#define MSP_MOMENTS(U)                                                      \
+  moments_bf16_kernel<U><<<grid, kMomThreads2, 0, s>>>(x, n, c, vec, part, \
+                                                        done, out)
+  if (rows_per_chunk == 4 * kMomLanes2) MSP_MOMENTS(4);
+  else if (rows_per_chunk == 8 * kMomLanes2) MSP_MOMENTS(8);
+  else if (rows_per_chunk == 16 * kMomLanes2) MSP_MOMENTS(16);
+  else return cudaErrorInvalidValue;
+#undef MSP_MOMENTS
+  return cudaGetLastError();
 }
 
-// out (n, f) bf16. With more than one chunk of C, part holds chunks * n * f
-// floats folded into out in ascending order.
+// out (n, f) bf16 in one launch: tile_rows x tile_cols tiles (64 x 64 or
+// 128 x 128), channels in chunks of k_per_chunk (64 x 64: at most 8
+// chunks, one thread-block cluster a tile).
 int msp_fused_apply_bf16(const uint16_t* x, const float* mul,
                          const float* add, const uint16_t* w, long long w_sc,
                          long long w_sf, long long n, int c, int f,
-                         int tile_cols, int k_per_chunk, float* part,
+                         int tile_rows, int tile_cols, int k_per_chunk,
                          uint16_t* out, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (!tile_cols_ok(tile_cols) || !k_chunk_ok(k_per_chunk) ||
-      k_per_chunk > kMaxK)
+  ApplyArgs2 p;
+  int chunks;
+  if (!apply_args_bf16(x, mul, add, w, w_sc, w_sf, n, c, f, tile_rows,
+                       tile_cols, k_per_chunk, out, &p, &chunks))
     return cudaErrorInvalidValue;
-  const int chunks = ceil_div(c, k_per_chunk);
-  const bool wide = tile_cols == 128, kc = w_sc == 1;
-#define MSP_APPLY(NT, KC)                                                  \
-  launch_apply_bf16<NT, KC>(x, mul, add, w, w_sc, w_sf, n, c, f, chunks,   \
-                            k_per_chunk, out, part, s)
-  cudaError_t e = wide ? (kc ? MSP_APPLY(4, true) : MSP_APPLY(4, false))
-                       : (kc ? MSP_APPLY(2, true) : MSP_APPLY(2, false));
+  const bool kc = w_sc == 1;
+#define MSP_APPLY(WG, NH)                                                   \
+  (kc ? launch_apply_bf16<WG, NH, true>(p, chunks, s)                       \
+      : launch_apply_bf16<WG, NH, false>(p, chunks, s))
+  return tile_rows == 128 ? MSP_APPLY(2, 2) : MSP_APPLY(1, 1);
 #undef MSP_APPLY
-  if (e != cudaSuccess || chunks == 1) return e;
-  fold_bf16_kernel<<<ceil_div(n * f, kFoldThreads), kFoldThreads, 0, s>>>(
-      part, chunks, n * f, out);
-  return cudaGetLastError();
+}
+
+// *clusters = how many clusters of apply's launch for (n, c, f) at this
+// plan (2 to 8 chunks) the card keeps resident at once
+// (cudaOccupancyMaxActiveClusters); w_kc: W's channel axis is the
+// contiguous one.
+int msp_fused_apply_max_clusters_bf16(long long n, int c, int f,
+                                      int tile_rows, int tile_cols,
+                                      int k_per_chunk, int w_kc,
+                                      int* clusters) {
+  ApplyArgs2 p;
+  int chunks;
+  if (!apply_args_bf16(nullptr, nullptr, nullptr, nullptr, w_kc ? 1 : f,
+                       w_kc ? c : 1, n, c, f, tile_rows, tile_cols,
+                       k_per_chunk, nullptr, &p, &chunks) ||
+      chunks < 2)
+    return cudaErrorInvalidValue;
+#define MSP_CLUSTERS(WG, NH)                                                \
+  (w_kc ? apply_max_clusters_bf16<WG, NH, true>(p, chunks, clusters)        \
+        : apply_max_clusters_bf16<WG, NH, false>(p, chunks, clusters))
+  return MSP_CLUSTERS(1, 1);
+#undef MSP_CLUSTERS
 }
 
 #endif  // MSP_FUSED_FWD
@@ -2766,16 +2987,19 @@ int msp_fused_bwd_dx_max_clusters_bf16(long long n, int c, int f,
 
 // The wgmma core alone on one tile (for its tests): out (64, 64) fp32 =
 // A B^T over k (a multiple of 8), A (64, k) and B (64, k) bf16, each
-// K-major ([row][k]) or, where a_mn / b_mn, MN-major ([k][row]).
+// K-major ([row][k]) or, where a_mn / b_mn, MN-major ([k][row]); a_regs:
+// A reaches wgmma from registers (ldmatrix), else through its descriptor.
 int msp_wgmma_bf16_tile(const uint16_t* a, const uint16_t* b, int a_mn,
-                        int b_mn, int k, float* out, void* stream) {
+                        int b_mn, int a_regs, int k, float* out,
+                        void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (k <= 0 || k % 8) return cudaErrorInvalidValue;
-  if (a_mn)
-    return b_mn ? launch_wgmma_tile<false, false>(a, b, k, out, s)
-                : launch_wgmma_tile<false, true>(a, b, k, out, s);
-  return b_mn ? launch_wgmma_tile<true, false>(a, b, k, out, s)
-              : launch_wgmma_tile<true, true>(a, b, k, out, s);
+#define MSP_TILE(AKC, BKC)                                                  \
+  (a_regs ? launch_wgmma_tile<AKC, BKC, true>(a, b, k, out, s)              \
+          : launch_wgmma_tile<AKC, BKC, false>(a, b, k, out, s))
+  if (a_mn) return b_mn ? MSP_TILE(false, false) : MSP_TILE(false, true);
+  return b_mn ? MSP_TILE(true, false) : MSP_TILE(true, true);
+#undef MSP_TILE
 }
 
 #endif  // MSP_FUSED_BWD_DX

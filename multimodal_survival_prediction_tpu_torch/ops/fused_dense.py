@@ -27,12 +27,14 @@ float32 (the op casts dW to W's dtype, as JAX does).
 The three products (``apply``, and the two of the backward) run on the
 tensor cores: in float32 as 3xTF32 splits, which keep fp32 accuracy
 (:func:`matmul_3xtf32_plain` emulates the split in plain torch), in bf16 as
-one bf16 product (exact in fp32): ``apply`` on ``mma.sync``, the backward's
-two kernels on a ``wgmma`` core fed by a ring of ``cp.async`` stages
-(:func:`wgmma_bf16_tile` runs that core alone). Their launch plan — 64x128
-or 64x64 block tiles, how many K chunks share a contraction — is plain
-Python, :func:`launch_plan`, a function of ``(n, c, f)``, the card's SM
-count and the element size only.
+one bf16 product (exact in fp32) on a ``wgmma`` core fed by a ring of
+``cp.async`` stages (:func:`wgmma_bf16_tile` runs that core alone); bf16
+``apply`` makes its A operand relu(x*mul + add) in registers and folds its
+channel chunks inside a thread-block cluster, and bf16 ``moments`` is one
+launch of 16-byte loads. Their launch plan — block tiles of 64x64 to
+128x128, how many K chunks share a contraction, which chunks form a
+cluster — is plain Python, :func:`launch_plan`, a function of ``(n, c,
+f)``, the card's SM count and the element size only.
 
 Semantics are flax's ``BatchNorm(momentum=0.9, epsilon=1e-5,
 use_fast_variance=True)`` in train mode followed by ReLU and a bias-free
@@ -69,13 +71,13 @@ BUILDS = tuple((_SOURCE, (part, *(("MSP_FUSED_BF16",) if bf16 else ())))
                for part in dict.fromkeys(_PARTS.values()))
 _TILE_ROWS = 64   # kBM in the source: rows of a GEMM block tile
 _TILE_COLS = (128, 64)  # 32 NT in the source: the wide and the narrow tile
-_STEP_BYTES = 64  # a K step is 64 bytes of a row: kBK (16) fp32, kBK2 (32) bf16
-# ... but the bf16 backward's (the wgmma core's) is 128: kBKW (64) bf16
-_BWD_STEP_BYTES_BF16 = 128
-_MAX_K = 1024     # kMaxK in the source: most channels one apply block takes
+_STEP_BYTES = 64  # a float32 K step is 64 bytes of a row: kBK (16)
+# the bf16 products' (the wgmma core's) is 128: kBKW (64) bf16
+_WGMMA_STEP_BYTES = 128
+_MAX_K = 1024     # kMaxK in the source: most channels an f32 apply block takes
 _DTYPES = (torch.float32, torch.bfloat16)  # the kernels' compute dtypes
-_MOMENT_ROWS = 256  # rows per moments block
-_MAX_CLUSTER = 8  # kMaxCluster in the source: bwd_dx's most F chunks
+_MOMENT_ROWS = 256  # rows per float32 moments block
+_MAX_CLUSTER = 8  # kMaxCluster in the source: the most blocks a cluster
 
 _lock = threading.Lock()
 _typed: set = set()  # the (part, bf16) libraries whose argtypes are set
@@ -165,15 +167,19 @@ def matmul_3xtf32_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 class LaunchPlan(NamedTuple):
     """How the three products of one (n, c, f) stage are launched.
 
-    ``*_tile_cols`` is the block tile's width (its height is 64).
+    ``*_tile_cols`` is the block tile's width (its height is 64, but
+    ``apply``'s, ``apply_tile_rows``, is 128 for bf16's 128x128 tile).
     ``apply`` contracts the channels in ``apply_chunks`` chunks of
-    ``apply_k_per_chunk`` (the last may be short); with more than one chunk
-    it writes ``apply_scratch`` floats of partial outputs, folded in
-    ascending order. The dW product splits the rows the same way; in bf16
-    the row chunks of a tile form thread-block clusters of ``dw_cluster``
-    blocks, which sum their partials in rank order in shared memory and
-    write one partial a cluster (float32: ``dw_cluster`` 1). The
-    product g Wᵀ takes 64x64 tiles in ``bwd_reduce`` and is split over F
+    ``apply_k_per_chunk`` (the last may be short). In float32, with more
+    than one chunk, it writes ``apply_scratch`` floats of partial outputs,
+    folded in ascending order by a second kernel (``apply_cluster`` 1); in
+    bf16 the chunks of a tile are the ``apply_cluster`` (= chunks, at most
+    8) blocks of one thread-block cluster, which sum their partials in rank
+    order in shared memory (``apply_scratch`` 0). The dW product splits
+    the rows the same way; in bf16 the row chunks of a tile form
+    thread-block clusters of ``dw_cluster`` blocks, which sum their
+    partials in rank order in shared memory and write one partial a
+    cluster (float32: ``dw_cluster`` 1). The product g Wᵀ takes 64x64 tiles in ``bwd_reduce`` and is split over F
     there (``da_chunks`` of ``da_k_per_chunk``). ``bwd_dx`` takes tiles
     ``dx_tile_cols`` wide and splits F too (``dx_chunks`` of
     ``dx_k_per_chunk``, at most 8): its epilogue is affine in g Wᵀ (the
@@ -184,9 +190,11 @@ class LaunchPlan(NamedTuple):
     cluster of row chunks; in bf16 none where there would be one, as dW
     goes straight to the output) and then the dbeta/dgamma partials of
     every (64-row tile, F chunk)."""
+    apply_tile_rows: int
     apply_tile_cols: int
     apply_chunks: int
     apply_k_per_chunk: int
+    apply_cluster: int
     apply_scratch: int
     dw_tile_cols: int
     dw_chunks: int
@@ -230,9 +238,11 @@ def launch_plan(n: int, c: int, f: int, sm_count: int,
     """The launch plan of a stage with ``n`` rows, ``c`` channels in and
     ``f`` out on a card with ``sm_count`` SMs, for elements of
     ``elem_bytes`` (4: float32, 2: bfloat16). A K step is 64 bytes of a
-    row, 16 fp32 or 32 bf16 elements, and in the bf16 backward (the
-    ``wgmma`` core) 128 bytes, 64 elements; chunks are multiples of their
-    step. In bf16 (every tile 64x64 there) dW's float32 partials hold at
+    row, 16 fp32 elements, and in bf16 (the ``wgmma`` core) 128 bytes, 64
+    elements; chunks are multiples of their step. In bf16 ``apply``'s
+    channel chunks are at most 8, one thread-block cluster a tile, and take
+    any number of channels (mul/add arrive with each step); every backward
+    tile is 64x64 there, and dW's float32 partials hold at
     most a quarter of x's bytes (n·2/4 ≥ partials·f·4 a channel), so its
     row chunks are few and long; where that leaves fewer than one dW block
     for two SMs, each longer than 4 steps, the rows are split to fill the
@@ -242,8 +252,9 @@ def launch_plan(n: int, c: int, f: int, sm_count: int,
     taken only there.
 
     A product takes the wide 64x128 tile (one column tile at F = 128) when
-    that alone puts a block
-    on every SM; otherwise the narrow 64x64 tile, and if that still leaves
+    that alone puts a block on every SM (bf16 ``apply``: a 128x128 tile,
+    where those take 7/8 of the SMs); otherwise the narrow 64x64 tile, and
+    if that still leaves
     SMs idle its contraction is split into chunks of whole K steps until
     there are about two blocks per SM (``apply`` over the channels, dW over
     the rows). ``bwd_reduce`` runs dW and g Wᵀ in one launch, g Wᵀ always in
@@ -254,19 +265,33 @@ def launch_plan(n: int, c: int, f: int, sm_count: int,
     two blocks per SM ran part of its clusters in a second wave."""
     if elem_bytes not in (2, 4):
         raise ValueError(f"no kernels for {elem_bytes}-byte elements")
-    k_step = _STEP_BYTES // elem_bytes
-    bwd_step = _BWD_STEP_BYTES_BF16 // 2 if elem_bytes == 2 else k_step
+    bf16 = elem_bytes == 2
+    k_step = _WGMMA_STEP_BYTES // 2 if bf16 else _STEP_BYTES // elem_bytes
     wide, narrow = _TILE_COLS
     row_tiles = math.ceil(n / _TILE_ROWS)
-    c_steps, n_steps = math.ceil(c / k_step), math.ceil(n / bwd_step)
-    f_steps = math.ceil(f / bwd_step)
+    c_steps, n_steps = math.ceil(c / k_step), math.ceil(n / k_step)
+    f_steps = math.ceil(f / k_step)
 
-    tiles = row_tiles * math.ceil(f / wide)
-    apply_cols = wide
-    if tiles < sm_count:
-        apply_cols, tiles = narrow, row_tiles * math.ceil(f / narrow)
-    apply_chunks, k_steps = _split(c_steps, tiles, sm_count,
-                                   _MAX_K // k_step)
+    apply_rows = _TILE_ROWS
+    if bf16:
+        # 128x128 blocks (two warpgroups sharing W's tiles), unsplit, where
+        # they take 7/8 of the SMs or more (the 16,384-row stages); else
+        # 64x64 blocks, split over C into one cluster a tile
+        tiles = math.ceil(n / wide) * math.ceil(f / wide)
+        if 8 * tiles >= 7 * sm_count:
+            apply_rows = apply_cols = wide
+            apply_chunks, k_steps = 1, c_steps
+        else:
+            apply_cols, tiles = narrow, row_tiles * math.ceil(f / narrow)
+            apply_chunks, k_steps = _split(c_steps, tiles, sm_count,
+                                           max_chunks=_MAX_CLUSTER)
+    else:
+        tiles = row_tiles * math.ceil(f / wide)
+        apply_cols = wide
+        if tiles < sm_count:
+            apply_cols, tiles = narrow, row_tiles * math.ceil(f / narrow)
+        apply_chunks, k_steps = _split(c_steps, tiles, sm_count,
+                                       _MAX_K // k_step)
 
     tiles = math.ceil(c / _TILE_ROWS) * math.ceil(f / wide)
     dw_cols = wide
@@ -274,7 +299,7 @@ def launch_plan(n: int, c: int, f: int, sm_count: int,
         dw_cols = narrow
         tiles = math.ceil(c / _TILE_ROWS) * math.ceil(f / narrow)
     dw_cluster = 1
-    if elem_bytes == 2:
+    if bf16:
         partials = max(1, n * elem_bytes // (16 * f))
         dw_chunks, row_steps = _split(n_steps, tiles, sm_count,
                                       max_chunks=partials)
@@ -289,7 +314,7 @@ def launch_plan(n: int, c: int, f: int, sm_count: int,
         dw_chunks, row_steps = _split(n_steps, tiles, sm_count)
 
     dx_cols = wide if row_tiles * math.ceil(c / wide) >= sm_count else narrow
-    if elem_bytes == 2:
+    if bf16:
         dx_cols = narrow
     dx_chunks, dx_steps = _split(f_steps, row_tiles * math.ceil(c / dx_cols),
                                  sm_count, max_chunks=_MAX_CLUSTER,
@@ -297,14 +322,17 @@ def launch_plan(n: int, c: int, f: int, sm_count: int,
     da_chunks, da_steps = _split(f_steps, row_tiles * math.ceil(c / narrow),
                                  sm_count)
     return LaunchPlan(
-        apply_tile_cols=apply_cols, apply_chunks=apply_chunks,
+        apply_tile_rows=apply_rows, apply_tile_cols=apply_cols,
+        apply_chunks=apply_chunks,
         apply_k_per_chunk=k_steps * k_step,
-        apply_scratch=apply_chunks * n * f if apply_chunks > 1 else 0,
+        apply_cluster=apply_chunks if bf16 else 1,
+        apply_scratch=apply_chunks * n * f if apply_chunks > 1 and not bf16
+        else 0,
         dw_tile_cols=dw_cols, dw_chunks=dw_chunks,
-        dw_rows_per_chunk=row_steps * bwd_step, dw_cluster=dw_cluster,
+        dw_rows_per_chunk=row_steps * k_step, dw_cluster=dw_cluster,
         dx_tile_cols=dx_cols,
-        dx_chunks=dx_chunks, dx_k_per_chunk=dx_steps * bwd_step,
-        da_chunks=da_chunks, da_k_per_chunk=da_steps * bwd_step,
+        dx_chunks=dx_chunks, dx_k_per_chunk=dx_steps * k_step,
+        da_chunks=da_chunks, da_k_per_chunk=da_steps * k_step,
         reduce_scratch=(_dw_partials(dw_chunks, dw_cluster, elem_bytes)
                         * c * f + row_tiles * da_chunks * 2 * c))
 
@@ -352,10 +380,14 @@ def _lib(wrapper: str, bf16: bool = False):
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             sfx = "_bf16" if bf16 else ""
             dx = [p, p, p, ll, ll, p, p, p, p, p, p, ll, i, i, i, i, p, p]
+            fwd = ({"moments": [p, ll, i, ll, p, p, p, p],
+                    "apply": [p, p, p, p, ll, ll, ll, i, i, i, i, i, p, p],
+                    "apply_max_clusters": [ll, i, i, i, i, i, i,
+                                           ctypes.POINTER(i)]} if bf16 else
+                   {"moments": [p, ll, i, ll, p, p, p],
+                    "apply": [p, p, p, p, ll, ll, ll, i, i, i, i, p, p, p]})
             entries = {
-                "MSP_FUSED_FWD": {
-                    "moments": [p, ll, i, ll, p, p, p],
-                    "apply": [p, p, p, p, ll, ll, ll, i, i, i, i, p, p, p]},
+                "MSP_FUSED_FWD": fwd,
                 "MSP_FUSED_BWD_REDUCE": {
                     "bwd_reduce": [p, p, p, ll, ll, p, p, p, p, ll, i, i, i,
                                    ll, *([i] if bf16 else []), i, p, p, p]},
@@ -368,7 +400,7 @@ def _lib(wrapper: str, bf16: bool = False):
                 fn = getattr(lib, f"msp_fused_{name}{sfx}")
                 fn.argtypes, fn.restype = types, i
             if part == "MSP_FUSED_BWD_DX" and bf16:
-                lib.msp_wgmma_bf16_tile.argtypes = [p, p, i, i, i, p, p]
+                lib.msp_wgmma_bf16_tile.argtypes = [p, p, i, i, i, i, p, p]
                 lib.msp_wgmma_bf16_tile.restype = i
             lib.msp_cuda_error_string.argtypes = [i]
             lib.msp_cuda_error_string.restype = ctypes.c_char_p
@@ -446,24 +478,73 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
+def moments_rows_bf16(n: int, c: int, sm_count: int) -> int:
+    """Rows of a bf16 ``moments`` block (a 256-thread block keeps a quarter
+    of them in flight at once): 1,024 or 512, the longer that still gives
+    a block for every third SM (slabs of 32 channels x row chunks), else
+    256. On an H100 this picked the fastest of the three, or one within
+    0.03 us of it, at every stage ``ops/bf16_fwd_sweep.py`` times."""
+    slabs = math.ceil(c / 32)
+    for rows in (1024, 512):
+        if slabs * math.ceil(n / rows) >= sm_count // 3:
+            return rows
+    return 256
+
+
+def _moments_bf16_partials(n: int, rows: int) -> int:
+    """The bf16 ``moments`` launch's partials a 32-channel slab in device
+    memory: one a chunk of ``rows`` where there are two chunks or more,
+    else 0 (the one block writes the output)."""
+    chunks = math.ceil(n / rows)
+    return chunks if chunks > 1 else 0
+
+
+_done: dict = {}  # (device, stream) -> moments' zeroed counters, one a slab
+
+
+def _done_counters(dev: torch.device, slabs: int) -> torch.Tensor:
+    """The bf16 ``moments`` kernel's counters (at least ``slabs``) for
+    ``dev``'s current stream: 0 at every launch (the launch that uses one
+    leaves it at 0); one set a stream, so launches on two streams never
+    share them."""
+    key = (dev, _stream(dev))
+    with _lock:
+        if key not in _done or _done[key].numel() < slabs:
+            _done[key] = torch.zeros(max(slabs, 64), dtype=torch.int32,
+                                     device=dev)
+        return _done[key]
+
+
 def moments(x2d: torch.Tensor):
     """Per-channel ``(sum x, sum x^2)`` of ``x2d`` (N, C), each (C,) f32 —
-    see :func:`moments_plain`. Kernel: one block per (256-row chunk, 32
-    channels) writes partials, a second kernel folds them in a fixed
-    order."""
+    see :func:`moments_plain`. Kernel: float32, one block per (256-row
+    chunk, 32 channels) writes partials, a second kernel folds them in a
+    fixed order; bf16, one launch: 16-byte loads, and the row chunks of a
+    32-channel slab folded in a fixed order by the last of its blocks to
+    finish."""
     if not _on_card("moments", x2d):
         return moments_plain(x2d)
     n, c = x2d.shape
     bf16 = _bf16(x2d)
-    chunks = math.ceil(n / _MOMENT_ROWS)
-    part = torch.empty((chunks, 2 * c), dtype=torch.float32,
-                       device=x2d.device)
-    out = torch.empty(2 * c, dtype=torch.float32, device=x2d.device)
+    dev = x2d.device
+    out = torch.empty(2 * c, dtype=torch.float32, device=dev)
     lib = _lib("moments", bf16)
-    fn = lib.msp_fused_moments_bf16 if bf16 else lib.msp_fused_moments
-    with torch.cuda.device(x2d.device):
-        rc = fn(x2d.data_ptr(), n, c, _MOMENT_ROWS, part.data_ptr(),
-                out.data_ptr(), _stream(x2d.device))
+    with torch.cuda.device(dev):
+        if bf16:
+            rows = moments_rows_bf16(n, c, _sm_count(dev))
+            part = torch.empty(_moments_bf16_partials(n, rows) * 2 * c,
+                               dtype=torch.float32, device=dev)
+            done = _done_counters(dev, math.ceil(c / 32))
+            rc = lib.msp_fused_moments_bf16(
+                x2d.data_ptr(), n, c, rows, part.data_ptr(),
+                done.data_ptr(), out.data_ptr(), _stream(dev))
+        else:
+            part = torch.empty((math.ceil(n / _MOMENT_ROWS), 2 * c),
+                               dtype=torch.float32, device=dev)
+            rc = lib.msp_fused_moments(x2d.data_ptr(), n, c, _MOMENT_ROWS,
+                                       part.data_ptr(), out.data_ptr(),
+                                       _stream(dev))
     _check(lib, rc, "moments")
     _count(moments, bf16)
     return out[:c], out[c:]
@@ -473,9 +554,11 @@ def apply(x2d, mul, add, w2d):
     """``relu(x*mul + add) @ W`` -> (N, F) in x's dtype — see
     :func:`apply_plain`. ``w2d`` (C, F) may be any strided view (the conv
     kernel's transpose). Kernel: a tensor-core product with the BN + ReLU
-    as its prologue (pipelined 3xTF32 in float32, one bf16 product in
-    bfloat16); a small grid splits the channels into chunks whose partial
-    outputs a second kernel folds in ascending order (no atomics)."""
+    as its prologue (pipelined 3xTF32 in float32, one bf16 product on the
+    ``wgmma`` core in bfloat16); a small grid splits the channels into
+    chunks whose partial outputs are folded in ascending order, by a second
+    kernel in float32, inside a thread-block cluster in bf16 (no
+    atomics)."""
     if not _on_card("apply", x2d, (w2d,), (mul, add)):
         return apply_plain(x2d, mul, add, w2d)
     _check_operands("apply", x2d, None, w2d)
@@ -491,8 +574,11 @@ def apply(x2d, mul, add, w2d):
     with torch.cuda.device(dev):
         rc = fn(x2d.data_ptr(), mul.data_ptr(), add.data_ptr(),
                 w2d.data_ptr(), w2d.stride(0), w2d.stride(1), n, c, f,
-                plan.apply_tile_cols, plan.apply_k_per_chunk,
-                part.data_ptr(), out.data_ptr(), _stream(dev))
+                *((plan.apply_tile_rows,) if bf16 else ()),
+                plan.apply_tile_cols,
+                plan.apply_k_per_chunk,
+                *(() if bf16 else (part.data_ptr(),)), out.data_ptr(),
+                _stream(dev))
     _check(lib, rc, "apply")
     _count(apply, bf16)
     return out
@@ -595,14 +681,37 @@ def bwd_dx_max_clusters(x2d: torch.Tensor, w2d: torch.Tensor):
     return out.value
 
 
+def apply_max_clusters(x2d: torch.Tensor, w2d: torch.Tensor):
+    """How many clusters of :func:`apply`'s planned bf16 launch for ``x2d``
+    (N, C) and ``w2d`` (C, F) the card keeps resident at once
+    (``cudaOccupancyMaxActiveClusters``), or None where the plan does not
+    cluster (one channel chunk, or float32)."""
+    plan = _plan_for(x2d, w2d.shape[1])
+    if plan.apply_cluster == 1:
+        return None
+    lib = _lib("apply", True)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(x2d.device):
+        rc = lib.msp_fused_apply_max_clusters_bf16(
+            x2d.shape[0], x2d.shape[1], w2d.shape[1], plan.apply_tile_rows,
+            plan.apply_tile_cols, plan.apply_k_per_chunk,
+            int(w2d.stride(0) == 1),
+            ctypes.byref(out))
+    _check(lib, rc, "apply occupancy")
+    return out.value
+
+
 def wgmma_bf16_tile(a: torch.Tensor, b: torch.Tensor, a_mn_major=False,
-                    b_mn_major=False) -> torch.Tensor:
-    """The bf16 ``wgmma`` core of ``bwd_reduce`` and ``bwd_dx`` alone, on one
-    64x64 tile, for its tests: ``a`` and ``b`` (64, K) bf16, K a multiple
-    of 8 -> ``a @ bᵀ`` (64, 64) float32. ``*_mn_major`` hands
+                    b_mn_major=False, a_regs=False) -> torch.Tensor:
+    """The bf16 ``wgmma`` core of ``apply``, ``bwd_reduce`` and ``bwd_dx``
+    alone, on one 64x64 tile, for its tests: ``a`` and ``b`` (64, K) bf16,
+    K a multiple of 8 -> ``a @ bᵀ`` (64, 64) float32. ``*_mn_major`` hands
     the kernel that operand's transpose, contiguous ([K][64]), to
     be read MN-major as the kernels read x and g; else the operand itself
-    (K-major). A CPU tensor takes the plain product; not counted."""
+    (K-major). ``a_regs``: A reaches ``wgmma`` from registers, by the
+    fragment loads of ``apply``'s prologue (K-major) and dW's (MN-major),
+    else through its descriptor. A CPU tensor takes the plain product; not
+    counted."""
     if a.device.type == "cpu":
         return a.float() @ b.float().T
     if (a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16
@@ -619,7 +728,7 @@ def wgmma_bf16_tile(a: torch.Tensor, b: torch.Tensor, a_mn_major=False,
     with torch.cuda.device(a.device):
         rc = lib.msp_wgmma_bf16_tile(a_in.data_ptr(), b_in.data_ptr(),
                                      int(a_mn_major), int(b_mn_major),
-                                     a.shape[1], out.data_ptr(),
+                                     int(a_regs), a.shape[1], out.data_ptr(),
                                      _stream(a.device))
     _check(lib, rc, "wgmma_bf16_tile")
     return out

@@ -244,13 +244,13 @@ def test_wrappers_take_bf16_and_count_nothing_on_the_cpu():
 @pytest.mark.parametrize("c,f", [(64, 128), (96, 64), (224, 128),
                                  (1000, 512)])
 def test_bf16_launch_plan_takes_whole_32_deep_steps(c, f):
-    """apply's bf16 K step is 32 elements (64 bytes, as a float32 step's
-    16), the backward's (the wgmma core's) 64 (128 bytes): every chunk is a
-    multiple of its step and the chunks cover K; bwd_dx in bf16 splits F
-    into at most 8 chunks (one thread-block cluster)."""
+    """Every bf16 product's K step is the wgmma core's, 64 elements (128
+    bytes; apply's was 32 before it moved onto that core): every chunk is a
+    multiple of its step and the chunks cover K; apply's chunks and bwd_dx's
+    F chunks are each at most 8 (one thread-block cluster)."""
     for n in (1, 32, 97, 2048, 16384):
         p = fd.launch_plan(n, c, f, 132, 2)
-        assert p.apply_k_per_chunk % 32 == 0 and p.apply_k_per_chunk <= 1024
+        assert p.apply_k_per_chunk % 64 == 0 and 1 <= p.apply_chunks <= 8
         assert p.apply_chunks == -(-c // p.apply_k_per_chunk)
         assert p.dw_rows_per_chunk % 64 == 0
         assert p.dw_chunks == -(-n // p.dw_rows_per_chunk)
@@ -302,6 +302,103 @@ def test_bf16_dx_split_over_f_matches_jax(shape, chunks):
     want = jfd._bwd_dx(_j16(x), _j16(cot), _j16(w), *vec)
     assert want.dtype == jnp.bfloat16
     _within_ulp(dx, want, "dx")
+
+
+def _apply_in_kernel_order(tx, mul, add, tw, plan):
+    """The sum the bf16 apply kernel computes, in plain torch: a =
+    bf16(relu(x·mul + add)), each of the plan's channel chunks' float32
+    product a[:, chunk] W[chunk] (exact bf16 products, float32 sums),
+    summed in rank order and rounded to bf16 once."""
+    a = torch.relu(tx.float() * mul + add).to(BF16).float()
+    out = None
+    for lo in range(0, tx.shape[1], plan.apply_k_per_chunk):
+        hi = lo + plan.apply_k_per_chunk
+        part = a[:, lo:hi] @ tw[lo:hi].float()
+        out = part if out is None else out + part
+    return out.to(BF16)
+
+
+# (n, c, f), the SM count and apply's bf16 channel chunks: unsplit in
+# 64x128 tiles (a card of 4 SMs, which 4 such tiles fill), unsplit in
+# 64x64 tiles, and split over a cluster of 8 (a 132-SM H100 SXM), the last
+# chunk short
+BF16_APPLY_PLANS = [((256, 96, 128), 4, 1), ((300, 200, 72), 4, 1),
+                    ((256, 992, 128), 132, 8), ((33, 1000, 130), 132, 8)]
+
+
+@pytest.mark.parametrize("shape,sms,chunks", BF16_APPLY_PLANS)
+def test_bf16_apply_chunks_fold_in_rank_order_matches_jax(shape, sms,
+                                                          chunks):
+    """The bf16 apply kernel's sum (``_apply_in_kernel_order``: the
+    cluster's channel chunks summed in rank order, rounded once) against
+    JAX's bf16 ``_apply`` (Pallas interpret) on the same bf16 inputs, to one
+    bf16 ulp + 1e-5 x max|out| (phase 7b's limit: both round one float32
+    sum whose last bits differ with its order). (The kernel itself is held
+    against the plain version on the card, tests/test_torch_cuda.py.)"""
+    n, c, f = shape
+    plan = fd.launch_plan(n, c, f, sms, 2)
+    assert plan.apply_chunks == plan.apply_cluster == chunks
+    x, scale, bias, w, _ = _data(n, c, f, seed=7)
+    tx, tw = _t16(x), _t16(w)
+    _, _, _, mul, add = fd._stats(tx, torch.from_numpy(scale),
+                                  torch.from_numpy(bias), 1e-5)
+    got = _apply_in_kernel_order(tx, mul, add, tw, plan)
+    want = jfd._apply(_j16(x), jnp.asarray(mul.numpy())[None, :],
+                      jnp.asarray(add.numpy())[None, :], _j16(w))
+    assert got.dtype == BF16 and want.dtype == jnp.bfloat16
+    _within_ulp(got, want, "out")
+
+
+def _moments_in_kernel_order(tx):
+    """The sums the bf16 moments kernel takes, in their order, in float32
+    torch: row chunks (``moments_rows_bf16`` on 132 SMs: 64 U rows) of
+    32-channel slabs, a thread summing rows r, r + 64, ..., r + 64 (U - 1)
+    (r = 8 w + l, warp w, row lane l); the 8 row lanes of a warp by
+    butterfly (pairs, then pairs of pairs: xor 1, 2, 4); the 8 warps in
+    order; the chunks k of a slab in 4 lanes (lane m sums k = m, m + 4, ...
+    ascending), then the lanes in order. (x² of a bf16 value is exact in
+    float32, so the kernel's fmaf rounds as x·x + q does.)"""
+    n, c = tx.shape
+    rows = fd.moments_rows_bf16(n, c, 132)  # an H100 SXM's SMs
+    chunks = -(-n // rows)
+    xp = torch.zeros((chunks * rows, -(-c // 32) * 32))
+    xp[:n, :c] = tx.float()
+
+    def in_order(t, dim):
+        acc = t.select(dim, 0)
+        for k in range(1, t.shape[dim]):
+            acc = acc + t.select(dim, k)
+        return acc
+
+    sums = []
+    for v in (xp, xp * xp):
+        v = v.view(chunks, rows // 64, 8, 8, -1)  # (chunk, u, w, l, ch)
+        t = in_order(v, 1)
+        for _ in range(3):  # the butterfly over the row lanes l
+            t = t[:, :, 0::2] + t[:, :, 1::2]
+        t = in_order(t[:, :, 0], 1)  # the warps: (chunk, ch)
+        if chunks > 1:
+            t = in_order(torch.stack([in_order(t[m::4], 0)
+                                      for m in range(min(4, chunks))]), 0)
+        else:
+            t = t[0]
+        sums.append(t[:c])
+    return sums
+
+
+@pytest.mark.parametrize("n,c", [(97, 40), (2048, 96), (4608, 200),
+                                 (8192, 352)])
+def test_bf16_moments_chunk_order_matches_jax(n, c):
+    """The bf16 moments kernel's order of sums (``_moments_in_kernel_order``:
+    one block a slab; 8 chunks of 256 rows, 9 of 512 and 8 of 1,024, whose
+    partials the slab's last block folds in 4 lanes) against JAX's bf16
+    ``_moments`` (Pallas interpret) on the
+    same bf16 x: the float32 tests' rtol 1e-5 + 1e-5 x the largest |sum|."""
+    x, _, _, _, _ = _data(n, c, 8, seed=9)
+    s, sq = _moments_in_kernel_order(_t16(x))
+    js, jsq = jfd._moments(_j16(x))
+    _close_f32(s.numpy(), js[0], 1e-5, "sum")
+    _close_f32(sq.numpy(), jsq[0], 1e-5, "sumsq")
 
 
 # ---------------------------------------------------------------------------

@@ -376,6 +376,27 @@ def test_wgmma_bf16_core_matches_float64_on_card(cuda_device, a_mn, b_mn, k):
         float((got.double() - exact).abs().max())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_mn", [False, True], ids=["a_k", "a_mn"])
+@pytest.mark.parametrize("b_mn", [False, True], ids=["b_k", "b_mn"])
+@pytest.mark.parametrize("k", [8, 64, 200])
+def test_wgmma_bf16_register_a_matches_float64_on_card(cuda_device, a_mn,
+                                                       b_mn, k):
+    """The core with A read into registers, the fragment loads of apply's
+    prologue (K-major x: ldmatrix.x4 inside the 128-byte swizzle) and of
+    dW's (MN-major: ldmatrix.x4.trans), then wgmma with A from registers,
+    against float64 as test_wgmma_bf16_core_matches_float64_on_card."""
+    gen = torch.Generator(device=cuda_device).manual_seed(100 + k)
+    a = torch.randn((64, k), generator=gen, device=cuda_device).bfloat16()
+    b = torch.randn((64, k), generator=gen, device=cuda_device).bfloat16()
+    got = fd.wgmma_bf16_tile(a, b, a_mn, b_mn, a_regs=True)
+    torch.cuda.synchronize()
+    exact = a.double() @ b.double().T
+    bound = k * 2.0 ** -23 * (a.double().abs() @ b.double().abs().T)
+    assert bool(((got.double() - exact).abs() <= bound).all()), \
+        float((got.double() - exact).abs().max())
+
+
 def _f64_reduce(x, g, w, mul, add, mean, rstd):
     """bwd_reduce in float64 over the kernels' bf16 operands: z = x·mul +
     add in float32 (the kernels' mask), a = relu(z) rounded to bf16, the
@@ -413,10 +434,14 @@ def test_fused_bf16_reduce_holds_float64_yardstick_on_card(cuda_device, n, c,
 @pytest.mark.parametrize("n,c,f", [
     (16384, 224, 128), (2048, 480, 128), (32, 992, 128), (256, 1024, 512)])
 def test_fused_bf16_kernels_repeat_bit_equal_on_card(cuda_device, n, c, f):
-    """The bf16 bwd_reduce and bwd_dx give the same bits twice: dW's row
-    chunks unclustered (16,384 rows) and folded in a cluster (2,048 rows),
-    bwd_dx unsplit (16,384, 2,048 rows) and split over F in a cluster (32,
-    256 rows); every sum in a fixed order, no atomics."""
+    """The four bf16 kernels give the same bits twice: moments in clusters
+    whose partials the last to finish folds (16,384 rows), in one cluster
+    (2,048) and in one block a slab (32, 256); apply unsplit in 64x128
+    tiles (16,384 rows) and with its channel chunks folded in a cluster
+    (2,048, 256, 32); dW's row chunks unclustered (16,384 rows) and folded
+    in a cluster (2,048 rows), bwd_dx unsplit (16,384, 2,048 rows) and
+    split over F in a cluster (32, 256 rows); every sum in a fixed
+    order."""
     x, gamma, beta, w, g = _fused_inputs(n, c, f, cuda_device, seed=3)
     x, w, g = (t.to(torch.bfloat16) for t in (x, w, g))
     mean, var, rstd, mul, add = fd._stats(x, gamma, beta, 1e-5)
@@ -424,7 +449,8 @@ def test_fused_bf16_kernels_repeat_bit_equal_on_card(cuda_device, n, c, f):
 
     def calls():
         dw, dgamma, dbeta = fd.bwd_reduce(x, g, w_t, mul, add, mean, rstd)
-        return (dw, dgamma, dbeta,
+        return (*fd.moments(x), fd.apply(x, mul, add, w_t),
+                fd.apply(x, mul, add, w), dw, dgamma, dbeta,
                 fd.bwd_dx(x, g, w_t, mul, add, mean, rstd, dbeta / n,
                           dgamma / n))
 
@@ -439,16 +465,20 @@ def test_fused_bf16_kernels_repeat_bit_equal_on_card(cuda_device, n, c, f):
 @pytest.mark.parametrize("n,c,f", [(97, 40, 24), (300, 200, 72),
                                    (2048, 160, 128), (32, 992, 128),
                                    (256, 1024, 512), (33, 1000, 130),
-                                   (2048, 128, 128)])
+                                   (2048, 128, 128), (5003, 200, 72),
+                                   (61, 37, 24)])
 def test_fused_bf16_kernels_match_plain_on_card(cuda_device, n, c, f):
     """Each bf16 kernel against its plain version on the same bf16 inputs,
     both W layouts; out and dx come back in bf16, the rest in float32;
-    the launches are counted as bf16 ones, none as float32. Where bwd_dx
-    splits F, its clusters fit on the card."""
+    the launches are counted as bf16 ones, none as float32. Where apply
+    folds channel chunks or bwd_dx splits F in a cluster, its clusters fit
+    on the card. C = 37 takes every copy's element-by-element path."""
     x, gamma, beta, w, g = _fused_inputs(n, c, f, cuda_device)
     x, w, g = (t.to(torch.bfloat16) for t in (x, w, g))
     if fd._plan_for(x, f).dx_chunks > 1:
         assert fd.bwd_dx_max_clusters(x, w) >= 1
+    if fd._plan_for(x, f).apply_cluster > 1:
+        assert fd.apply_max_clusters(x, w) >= 1
     before = [k.launches for k in fd.KERNELS]
     before16 = [k.launches_bf16 for k in fd.KERNELS]
     s, sq = fd.moments(x)

@@ -4,8 +4,10 @@ CPU.
 
 The plan is plain Python: which block tile each of the three products takes
 and how many K chunks share a contraction, from (n, c, f), the card's SM
-count and the element size (float32, or bf16 with the backward on a wgmma
-core whose K step is 64 deep and whose dW row chunks may form clusters). The kernels themselves run only on a GPU (tests/test_torch_cuda.py);
+count and the element size (float32, or bf16 on a wgmma core whose K step
+is 64 deep, whose apply channel chunks and dW row chunks may form
+thread-block clusters). The kernels themselves run only on a GPU
+(tests/test_torch_cuda.py);
 here the split product is emulated in plain torch (round to TF32's 10
 mantissa bits, three products, float32 sums) and held against float64 with
 the kernels' tolerances: outputs rtol 1e-5, gradients rtol 1e-4, each with
@@ -24,9 +26,9 @@ from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
 SMS = 132  # an H100 SXM
 K_STEP, MAX_K, TILE_ROWS = 16, 1024, 64
 MAX_CLUSTER = 8  # bwd_dx's F chunks: the portable cluster size
-# K steps by element size: (apply's, the backward's); bf16's backward runs
+# K steps by element size: (apply's, the backward's); bf16's products run
 # on the wgmma core, 128 bytes of a row a step
-K_STEPS = {4: (K_STEP, K_STEP), 2: (32, 64)}
+K_STEPS = {4: (K_STEP, K_STEP), 2: (64, 64)}
 
 
 def _densenet_stages(batch=8, trunk=(16, 16, 8), block_config=(6, 12, 24, 16),
@@ -105,7 +107,8 @@ def test_plan_chunks_cover_each_contraction_once(n, c, f, elem_bytes):
         assert ranges[0][0] == 0 and ranges[-1][1] == total
         assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
         assert all(hi > lo for lo, hi in ranges)
-    assert plan.apply_k_per_chunk <= MAX_K
+    if elem_bytes == 4:  # bf16 apply blocks stage mul/add a step at a time
+        assert plan.apply_k_per_chunk <= MAX_K
     assert plan.dx_chunks <= MAX_CLUSTER
 
 
@@ -128,7 +131,8 @@ def test_dx_clusters_take_narrow_tiles_and_fill_no_more_than_the_card(
 @pytest.mark.parametrize("n,c,f,elem_bytes", _both_dtypes(STAGES + RAGGED))
 def test_scratch_buffers_are_what_the_plan_implies(n, c, f, elem_bytes):
     """The wrappers' buffers hold exactly the partials the kernels write:
-    apply's (chunks, n, f) unless one chunk writes the output itself;
+    apply's (chunks, n, f) in float32 unless one chunk writes the output
+    itself, none in bf16 (its chunks fold inside a cluster);
     bwd_reduce's dW partials, one per cluster of row chunks (in bf16 none
     where there would be one: the kernel writes dW itself), then
     dbeta/dgamma partials per (64-row tile, F chunk). In bf16 the dW
@@ -137,7 +141,8 @@ def test_scratch_buffers_are_what_the_plan_implies(n, c, f, elem_bytes):
     plan = fd.launch_plan(n, c, f, SMS, elem_bytes)
     out, part = fd._apply_buffers(plan, n, f, "cpu")
     assert out.shape == (n, f) and out.dtype == torch.float32
-    want = plan.apply_chunks * n * f if plan.apply_chunks > 1 else 0
+    want = (plan.apply_chunks * n * f
+            if plan.apply_chunks > 1 and elem_bytes == 4 else 0)
     assert part.numel() == plan.apply_scratch == want
     out, part = fd._reduce_buffers(plan, c, f, "cpu")
     assert out.numel() == c * f + 2 * c
@@ -177,6 +182,58 @@ def test_large_stages_are_not_split(n, c, f):
     assert plan.dx_tile_cols == 128 and plan.da_chunks == 1
     assert plan.dx_chunks == 1 and plan.dx_k_per_chunk == f
     assert _apply_blocks(plan, n, f) == n // 64
+
+
+@pytest.mark.parametrize("n,c,f", STAGES + RAGGED)
+def test_bf16_apply_chunks_are_one_cluster_of_whole_steps(n, c, f):
+    """bf16 apply: the channel chunks of a tile are whole 64-deep steps that
+    cover C once, at most 8 of them, all the blocks of one thread-block
+    cluster (apply_cluster = chunks), and no float32 scratch; the tile is
+    128x128, unsplit, exactly where those blocks take 7/8 of the SMs or
+    more (the 16,384-row stages), else 64x64, split only while the tiles
+    leave SMs idle."""
+    plan = fd.launch_plan(n, c, f, SMS, 2)
+    assert plan.apply_k_per_chunk % 64 == 0
+    assert 1 <= plan.apply_chunks <= MAX_CLUSTER
+    assert plan.apply_cluster == plan.apply_chunks
+    assert plan.apply_scratch == 0
+    ranges = _chunks(c, plan.apply_k_per_chunk)
+    assert len(ranges) == plan.apply_chunks and ranges[-1][1] == c
+    big = math.ceil(n / 128) * math.ceil(f / 128)
+    wide = 8 * big >= 7 * SMS
+    assert (plan.apply_tile_rows, plan.apply_tile_cols) == (
+        (128, 128) if wide else (64, 64))
+    tiles = (math.ceil(n / plan.apply_tile_rows)
+             * math.ceil(f / plan.apply_tile_cols))
+    if wide or tiles >= SMS:
+        assert plan.apply_chunks == 1 and plan.apply_k_per_chunk >= c
+    if n == 16384:
+        assert wide and plan.apply_chunks == 1
+
+
+# float32 plans of the five timed shapes, as PRs 3-9 launched them (bf16's
+# redesign of apply left them as they were; apply_cluster is 1 there)
+F32_PLANS = {
+    (16384, 224, 128): (128, 1, 224, 0, 128, 64, 256, 1, 128, 1, 128, 1, 128,
+                        1949696),
+    (2048, 480, 128): (64, 4, 128, 1048576, 128, 32, 64, 1, 64, 1, 128, 1,
+                       128, 1996800),
+    (256, 992, 128): (64, 31, 32, 1015808, 64, 8, 32, 1, 64, 2, 64, 4, 32,
+                      1047552),
+    (32, 992, 128): (64, 62, 16, 253952, 64, 2, 16, 1, 64, 8, 16, 8, 16,
+                     269824),
+    (256, 1024, 512): (64, 8, 128, 1048576, 128, 4, 64, 1, 64, 2, 256, 4,
+                       128, 2129920),
+}
+
+
+@pytest.mark.parametrize("shape", F32_PLANS, ids=str)
+def test_f32_plan_is_unchanged(shape):
+    """The float32 plan's fields as they were (its apply tile 64 rows high,
+    no cluster)."""
+    plan = fd.launch_plan(*shape, SMS, 4)._asdict()
+    assert plan.pop("apply_cluster") == 1 and plan.pop("apply_tile_rows") == 64
+    assert tuple(plan.values()) == F32_PLANS[shape]
 
 
 def test_plan_depends_on_the_sm_count_only_through_the_split():
