@@ -130,7 +130,24 @@ result then):
      fold's main epoch; mmsurv's risks are finite on the patient with no
      modality. Prints each family's parameter count, CLI and ingest walls
      and each epoch's ms by CUDA events beside the card's name and limit.
-  11. summary: one JSON line of per-kernel numbers, then the final line
+  11. checkpoints: phase 9's two partial_modality folds and fold 1 of each
+     of phase 10's seven families, each written as .msgpack by the port's
+     writer (its .meta.json copied), exported to a reference .pth with
+     tools/export_torch_checkpoint (not mmsurv, which has no reference
+     layout) and converted back to .pt with tools/convert_torch_checkpoint;
+     predict_risk on every format (use_pallas=True for the converted one,
+     whose meta says false as JAX's tool writes it): log-hazards within
+     1e-6 of the .pt's, W-pass launches a call equal to the imaging
+     patients. Then tools/calibrate on the two-fold .msgpack ensemble and
+     RiskScorer with that calibration, one patient at a time, against
+     predict_risk's ensemble as phase 10 holds it; a freshly built server
+     (it warms itself in its constructor) and its first three /score
+     calls, timed and printed; analysis.generate_km_curves then
+     analysis.evaluate_model on phase 9's cohort: evaluation_summary.json
+     with JAX's keys, its c_index equal to concordance_index_np on the
+     predictions CSV within 1e-12, numbers finite or null exactly where
+     JAX writes null. Prints the phase's wall.
+  12. summary: one JSON line of per-kernel numbers, then the final line
      {"ok": true, "device": {...}}.
 
 Everything it writes goes under build/ in this checkout (kernel build,
@@ -1925,7 +1942,8 @@ def phase_cv(work, table, paths, n_img, smi="", device="cuda", extra_argv=(),
     return dict(wall_s=wall, ingest_s=run["ingest_s"],
                 ingest_launches=ingest, predict_launches=scored,
                 fused_launches=dict(zip(FUSED_NAMES, fused)),
-                folds=per_fold, c_index_mean=payload["c_index_mean"])
+                folds=per_fold, c_index_mean=payload["c_index_mean"],
+                ckpts=ckpts, arrays=arrays)
 
 
 # --------------------------------------------------------------------------
@@ -2085,7 +2103,7 @@ def phase_families(work, smi="", device="cuda", image_shapes=FAMILY_CT_SHAPES,
     2 folds x 1 epoch (simmlm after one stage-1 epoch), then
     ``predict_risk`` on each fold checkpoint and on the ensemble, and
     ``RiskScorer`` on the fold checkpoints, one patient at a time. Returns
-    each family's numbers."""
+    each family's numbers, and the cohort (its table and paths)."""
     import importlib
 
     from multimodal_survival_prediction_tpu_torch.data.synthetic import (
@@ -2112,7 +2130,7 @@ def phase_families(work, smi="", device="cuda", image_shapes=FAMILY_CT_SHAPES,
     log(f"families ({smi}): CLI walls s {walls}, together "
         f"{sum(walls.values()):.2f} s; the phase (cohort, CLIs, scoring) "
         f"{time.perf_counter() - t0:.2f} s")
-    return out
+    return out, table, paths
 
 
 def _one_family(name, entry, main, work, table, paths, smi, device,
@@ -2122,7 +2140,6 @@ def _one_family(name, entry, main, work, table, paths, smi, device,
 
     from multimodal_survival_prediction_tpu_torch.config import ALL_CONFIGS
     from multimodal_survival_prediction_tpu_torch.data.datasets import (
-        load_rnaseq_matrix,
         select_cohort,
     )
     from multimodal_survival_prediction_tpu_torch.io.checkpoint import (
@@ -2225,25 +2242,13 @@ def _one_family(name, entry, main, work, table, paths, smi, device,
     # RISK_TOL on the log-hazard, carried through that z-score.
     t0 = time.perf_counter()
     scorer = RiskScorer(name, ckpts, fold_calibration=stats, device=device)
-    rows = {r["patient_id"]: r for r in table}
-    rna = load_rnaseq_matrix(paths["rnaseq_csv"])
     mask = arrays.arrays["mask"]
     by_pattern = {}
     for i in np.nonzero(mask.sum(1) > 0)[0]:
         by_pattern.setdefault(tuple(mask[i] > 0), []).append(i)
     idx = np.sort(np.concatenate([v[:FAMILY_SCORED_PER_PATTERN]
                                   for v in by_pattern.values()]))
-    patients = []
-    for i in idx:
-        row = rows[pred["patient_id"][i]]
-        patient = {}
-        if mask[i, 0]:
-            patient["nifti_path"] = row["nifti_path"]
-        if mask[i, 1]:
-            patient["rnaseq"] = rna.row(row["patient_id"])
-        if mask[i, 2]:
-            patient["age"] = row["age"]
-        patients.append(patient)
+    patients = _requests(table, paths, pred["patient_id"], mask, idx)
     scored = np.asarray([r["risk_score"] for r in scorer.score_many(patients)])
     walls["RiskScorer"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2297,7 +2302,310 @@ def _one_family(name, entry, main, work, table, paths, smi, device,
                 scorer_max_d_logh=float(d_z[worst] / per_raw),
                 scorer_raw_max_d=float(d_raw.max()),
                 ingest_launches=run["ingest_launches"], folds=per_fold,
-                c_index_mean=payload["c_index_mean"])
+                c_index_mean=payload["c_index_mean"], ckpts=ckpts,
+                n_img=n_img)
+
+
+def _requests(table, paths, patient_ids, mask, idx):
+    """The /score bodies (as RiskScorer.score_many takes them) of patients
+    ``idx`` of a scored cohort: the CT, RNA and age its mask row holds."""
+    from multimodal_survival_prediction_tpu_torch.data.datasets import (
+        load_rnaseq_matrix,
+    )
+
+    rows = {r["patient_id"]: r for r in table}
+    rna = load_rnaseq_matrix(paths["rnaseq_csv"])
+    patients = []
+    for i in idx:
+        row = rows[patient_ids[i]]
+        patient = {}
+        if mask[i, 0]:
+            patient["nifti_path"] = row["nifti_path"]
+        if mask[i, 1]:
+            patient["rnaseq"] = rna.row(row["patient_id"])
+        if mask[i, 2]:
+            patient["age"] = row["age"]
+        patients.append(patient)
+    return patients
+
+
+# --------------------------------------------------------------------------
+# 11: fold checkpoints in every format, the server's warm start, and the
+#     evaluation tools (io/checkpoint.py, tools/, analysis/)
+# --------------------------------------------------------------------------
+
+FORMAT_TOL = 1e-6  # max |d log-hazard| of a format against the .pt
+# evaluation_summary.json as the JAX package writes it (its keys, nested)
+EVAL_SUMMARY_KEYS = {
+    "n_patients": None, "n_events": None, "c_index": None,
+    "median_risk_score": None,
+    "risk_groups": {g: {"n": None, "events": None, "median_survival": None}
+                    for g in ("high", "low")},
+    "logrank": {"statistic": None, "p_value": None},
+    "risk_score_stats": {"mean": None, "std": None, "min": None,
+                         "max": None}}
+
+
+def _key_tree(d):
+    return ({k: _key_tree(v) for k, v in d.items()} if isinstance(d, dict)
+            else None)
+
+
+def _leaves(d, path=""):
+    if isinstance(d, dict):
+        for k, v in d.items():
+            yield from _leaves(v, f"{path}/{k}")
+    else:
+        yield path, d
+
+
+def _scored(cfg, ckpt, table, paths, device, **kw):
+    """predict_risk's log-hazards (every patient) and the W-pass launches
+    of that one call (the count is set to 0 just before it)."""
+    import torch
+
+    from multimodal_survival_prediction_tpu_torch.ops import resample as rs
+    from multimodal_survival_prediction_tpu_torch.train.predict import (
+        predict_risk,
+    )
+
+    rs.wpass.launches = 0
+    pred = predict_risk(cfg, ckpt, table, rnaseq_csv=paths["rnaseq_csv"],
+                        labeled_only=False, device=device, **kw)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return pred, rs.wpass.launches
+
+
+def _formats(name, fold_ckpt, table, paths, n_img, out, device,
+             expect_launches):
+    """One fold in every format: .msgpack (the port's writer), .pth
+    (tools/export_torch_checkpoint) and back (tools/convert_torch_checkpoint,
+    to .pt); predict_risk on each against the .pt. Returns
+    ``(per-format launches, per-format max |d|, the .msgpack path)``."""
+    import numpy as np
+
+    from multimodal_survival_prediction_tpu_torch.config import ALL_CONFIGS
+    from multimodal_survival_prediction_tpu_torch.io.checkpoint import (
+        load_checkpoint,
+        load_fold_meta,
+        save_checkpoint,
+        save_fold_meta,
+    )
+    from multimodal_survival_prediction_tpu_torch.io.torch_import import (
+        REFERENCE_FAMILIES,
+    )
+    from multimodal_survival_prediction_tpu_torch.tools import (
+        convert_torch_checkpoint,
+        export_torch_checkpoint,
+    )
+
+    cfg = ALL_CONFIGS[name]
+    meta = load_fold_meta(fold_ckpt)
+    check(meta["use_pallas_resample"] is True,
+          f"{name} {fold_ckpt.name}: the meta does not pin the kernel: {meta}")
+    stem = fold_ckpt.name[:-len(".pt")]
+    mpk = out / "msgpack" / name / f"{stem}.msgpack"
+    save_checkpoint(mpk, load_checkpoint(fold_ckpt, model_name=name),
+                    model_name=name)
+    save_fold_meta(mpk, **meta)
+    files = {"pt": (fold_ckpt, {}), "msgpack": (mpk, {})}
+    if name in REFERENCE_FAMILIES:
+        pth = out / "pth" / name / f"{stem}.pth"
+        check(export_torch_checkpoint.main([
+            "--checkpoint", str(mpk), "--out", str(pth)]) == 0,
+            f"{name}: export failed")
+        back = out / "converted" / name / f"{stem}.pt"
+        check(convert_torch_checkpoint.main([
+            "--model", name, "--torch-checkpoint", str(pth), "--out",
+            str(back), "--image-shape",
+            ",".join(str(x) for x in meta["image_shape"]),
+            "--device", device]) == 0, f"{name}: convert failed")
+        check(load_fold_meta(back)["use_pallas_resample"] is False,
+              f"{name}: the converter's meta should say false, as JAX's")
+        files["pth"] = (pth, {})
+        # the converter's meta says false, as JAX's tool writes it: ask
+        files["converted"] = (back, {"use_pallas": True})
+    launches, diffs, ref = {}, {}, None
+    want = n_img if expect_launches else 0
+    for fmt, (path, kw) in files.items():
+        pred, launches[fmt] = _scored(cfg, path, table, paths, device, **kw)
+        risk = pred["risk_score"]
+        check(np.all(np.isfinite(risk)), f"{name} {fmt}: risks {risk}")
+        check(launches[fmt] == want,
+              f"{name} {fmt}: predict_risk launched the W-pass kernel "
+              f"{launches[fmt]} times, expected {want} (its imaging "
+              f"patients)")
+        if ref is None:
+            ref = pred
+            continue
+        check(list(pred["patient_id"]) == list(ref["patient_id"]),
+              f"{name} {fmt}: patients differ from the .pt's")
+        diffs[fmt] = float(np.abs(risk - ref["risk_score"]).max())
+        check(diffs[fmt] <= FORMAT_TOL,
+              f"{name} {fmt}: log-hazards differ from the .pt's by "
+              f"{diffs[fmt]} > {FORMAT_TOL}")
+    return launches, diffs, mpk
+
+
+def phase_checkpoints(work, cv_run, cv_table, cv_paths, cv_n_img,
+                      families, fam_table, fam_paths, smi="", device="cuda",
+                      expect_launches=True):
+    """Phase 9's two partial_modality folds and fold 1 of each phase-10
+    family, each written as .msgpack, exported to .pth and converted back,
+    scored in every format; the .msgpack ensemble calibrated
+    (tools/calibrate) and served one patient at a time; a fresh server's
+    first three /score calls timed; generate_km_curves then evaluate_model
+    on phase 9's cohort. Returns the phase's numbers."""
+    import numpy as np
+
+    from multimodal_survival_prediction_tpu_torch.analysis import (
+        evaluate,
+        evaluate_model,
+        generate_km_curves,
+    )
+    from multimodal_survival_prediction_tpu_torch.config import ALL_CONFIGS
+    from multimodal_survival_prediction_tpu_torch.ops import resample as rs
+    from multimodal_survival_prediction_tpu_torch.ops.cindex import (
+        concordance_index_np,
+    )
+    from multimodal_survival_prediction_tpu_torch.serving import (
+        RiskScorer,
+        make_server,
+    )
+    from multimodal_survival_prediction_tpu_torch.tools import calibrate
+    from multimodal_survival_prediction_tpu_torch.train.predict import (
+        fold_checkpoints,
+    )
+
+    t_phase = time.perf_counter()
+    out = work / "checkpoints"
+    name = "partial_modality"
+    cfg = ALL_CONFIGS[name]
+    folds = [(name, c, cv_table, cv_paths, cv_n_img) for c in cv_run["ckpts"]]
+    folds += [(fam, r["ckpts"][0], fam_table, fam_paths, r["n_img"])
+              for fam, r in families.items()]
+    launches, diffs = {}, {}
+    for fam, ckpt, table, paths, n_img in folds:
+        t0 = time.perf_counter()
+        key = f"{fam} {ckpt.name[:-len('_best.pt')]}"
+        launches[key], diffs[key], _ = _formats(
+            fam, ckpt, table, paths, n_img, out, device, expect_launches)
+        log(f"checkpoints {key}: W-pass launches a predict_risk "
+            f"{launches[key]} for {n_img} imaging patients; max |d| against "
+            f"the .pt {({k: f'{v:.1e}' for k, v in diffs[key].items()})} "
+            f"(tol {FORMAT_TOL}); {time.perf_counter() - t0:.2f} s ({smi})")
+
+    # the two-fold .msgpack ensemble: calibrate, then one patient at a time
+    models = out / "msgpack"
+    ckpts = fold_checkpoints(models, name)
+    check([c.suffix for c in ckpts] == [".msgpack"] * 2,
+          f"the .msgpack ensemble: {ckpts}")
+    cal_path = out / "calibration.json"
+    rs.wpass.launches = 0
+    cal = calibrate.main(["--model", name, "--models-dir", str(models),
+                          "--data-root", str(cv_paths["root"]), "--out",
+                          str(cal_path), "--device", device])
+    launches["calibrate"] = rs.wpass.launches
+    stats = [tuple(s) for s in json.loads(cal_path.read_text())["stats"]]
+    check(stats == [tuple(s) for s in cal["stats"]] and len(stats) == 2,
+          f"calibration.json stats {stats}")
+    pred, launches["ensemble"] = _scored(cfg, ckpts, cv_table, cv_paths,
+                                         device)
+    arrays = cv_run["arrays"]
+    check(list(pred["patient_id"]) == list(arrays.patient_ids),
+          "the ensemble's patients are not phase 9's")
+    mask = arrays.arrays["mask"]
+    idx = np.nonzero(mask.sum(1) > 0)[0]
+    patients = _requests(cv_table, cv_paths, pred["patient_id"], mask, idx)
+    scorer = RiskScorer(name, ckpts, fold_calibration=stats, device=device)
+    scored = np.asarray([r["risk_score"] for r in scorer.score_many(patients)])
+    d_z = np.abs(scored - pred["risk_score"][idx])
+    sds = np.asarray([sd for _, sd in stats]) + 1e-8
+    per_raw = float(np.mean(1.0 / sds))
+    limit = RISK_TOL * per_raw
+    check(float(d_z.max()) <= limit,
+          f"RiskScorer on the .msgpack ensemble vs predict_risk: |d| "
+          f"{d_z.max()} over {limit} (RISK_TOL on the log-hazard, fold sds "
+          f"{sds.tolist()})")
+    log(f"RiskScorer on the calibrated .msgpack ensemble, {len(idx)} "
+        f"patients one at a time: max |d| against predict_risk "
+        f"{d_z.max():.3e} z-scored ({d_z.max() / per_raw:.3e} on the "
+        f"log-hazard; limit {limit:.3e}); calibration {stats}")
+
+    # a fresh server: it warms itself in the constructor; the first three
+    # /score calls timed (printed, not held: cuDNN's first calls in this
+    # process were paid in phase 5)
+    full = [i for i in idx if mask[i].all()]
+    check(full, "phase 9's cohort has no patient with all three modalities")
+    body = dict(_requests(cv_table, cv_paths, pred["patient_id"], mask,
+                          full[:1])[0])
+    body["rnaseq"] = body["rnaseq"].tolist()
+    t0 = time.perf_counter()
+    fresh = RiskScorer(name, ckpts, fold_calibration=stats, device=device)
+    build_s = time.perf_counter() - t0
+    server = make_server(fresh, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = "http://%s:%d" % server.server_address
+        first3 = []
+        for _ in range(3):
+            code, reply, ms = _post(base, "/score", body)
+            check(code == 200, f"/score answered {code}: {reply}")
+            first3.append(ms)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), "server thread did not stop")
+    d_first = abs(reply["risk_score"] - float(pred["risk_score"][full[0]]))
+    check(d_first <= limit, f"/score vs the ensemble |d| {d_first}")
+    log(f"fresh server on the .msgpack ensemble ({smi}): built and warmed "
+        f"in {build_s:.2f} s; first three /score ms "
+        f"{[round(x, 2) for x in first3]} (CT + RNA + age)")
+
+    # generate_km_curves -> evaluate_model on phase 9's cohort
+    results = out / "results"
+    rs.wpass.launches = 0
+    km = generate_km_curves.main([
+        "--model", name, "--models-dir", str(models), "--data-root",
+        str(cv_paths["root"]), "--results-root", str(results), "--ensemble",
+        "--device", device])
+    launches["km_curves"] = rs.wpass.launches
+    summary = evaluate_model.main([
+        "--predictions", str(results / "test_predictions.csv"),
+        "--results-root", str(results)])
+    written = json.loads((results / "evaluation" /
+                          "evaluation_summary.json").read_text())
+    check(_key_tree(written) == EVAL_SUMMARY_KEYS,
+          f"evaluation_summary.json keys {_key_tree(written)}")
+    csv = evaluate.read_predictions_csv(km["predictions"])
+    c = concordance_index_np(csv["risk_score"], csv["survival_time"],
+                             csv["event"])
+    check(abs(written["c_index"] - c) <= 1e-12,
+          f"c_index {written['c_index']} vs the CSV's {c}")
+    for (path, got), (_, raw) in zip(_leaves(written), _leaves(summary)):
+        finite = isinstance(raw, (int, float)) and math.isfinite(raw)
+        check((got is None) == (not finite) and (got is None or got == raw),
+              f"evaluation_summary.json{path}: {got} for {raw}")
+    log(f"generate_km_curves + evaluate_model on phase 9's cohort: "
+        f"{written['n_patients']} labelled patients, C-index "
+        f"{written['c_index']:.6f} (= the CSV's), log-rank "
+        f"{written['logrank']}, median survival high/low "
+        f"{written['risk_groups']['high']['median_survival']}/"
+        f"{written['risk_groups']['low']['median_survival']}; W-pass "
+        f"launches calibrate {launches['calibrate']}, ensemble "
+        f"{launches['ensemble']}, km_curves {launches['km_curves']}")
+    want = cv_n_img if expect_launches else 0  # one ingest for both folds
+    for k in ("calibrate", "ensemble", "km_curves"):
+        check(launches[k] == want, f"{k}: {launches[k]} W-pass launches, "
+              f"expected {want}")
+    wall = time.perf_counter() - t_phase
+    log(f"checkpoints phase ({smi}): {len(folds)} folds, wall {wall:.2f} s")
+    return dict(wall_s=wall, launches=launches, max_d=diffs,
+                scorer_max_d=float(d_z.max()), first_score_ms=first3,
+                scorer_build_s=build_s, c_index=written["c_index"])
 
 
 def main() -> int:
@@ -2340,7 +2648,11 @@ def main() -> int:
         cv_run = timed("9 cv", phase_cv, work, table, paths, n_img, smi=smi)
         cli_bf16 = timed("9b cli bf16", phase_cli_bf16, work, table, paths,
                          n_img, smi=smi)
-        families = timed("10 families", phase_families, work, smi=smi)
+        families, fam_table, fam_paths = timed(
+            "10 families", phase_families, work, smi=smi)
+        checkpoints = timed("11 checkpoints", phase_checkpoints, work, cv_run,
+                            table, paths, n_img, families, fam_table,
+                            fam_paths, smi=smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2362,7 +2674,8 @@ def main() -> int:
             "cv_ingest": cv_run["ingest_launches"],
             "cv_predict_risk": cv_run["predict_launches"],
             "families_ingest": {k: v["ingest_launches"]
-                                for k, v in families.items()}},
+                                for k, v in families.items()},
+            "checkpoints": checkpoints["launches"]},
         "kernel_ms": timing["kernel_ms"],
         "call_ms": timing["call_ms"],
         "bound_us": timing["bound_ms"] * 1e3,

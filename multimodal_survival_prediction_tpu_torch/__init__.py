@@ -22,7 +22,13 @@ Ported: all eight model families of the JAX package (``models/``:
     multimodal_survival_prediction_tpu_torch.train.<entry>`` with entry
     ``train_rnaseq_only``, ``image_only``, ``simple_fusion``,
     ``flexible_multimodal``, ``final_multimodal``,
-    ``partial_modality_training``, ``simmlm`` or ``mmsurv``.
+    ``partial_modality_training``, ``simmlm`` or ``mmsurv``;
+  * fold checkpoints in the port's ``.pt``, the JAX package's flax
+    ``.msgpack`` and the reference's ``.pth`` (``io.checkpoint``,
+    ``io.msgpack``, ``io.torch_import``), with the converters and the
+    ensemble calibration under ``tools/``;
+  * evaluation — ``ops.km`` and ``analysis`` (``evaluate_predictions``, the
+    ``generate_km_curves`` and ``evaluate_model`` entry points).
 ROADMAP.md lists what is still to come.
 """
 

@@ -6,10 +6,15 @@ micro-batches, with CT preprocessing on the device; ``make_server`` wraps
 it in the same HTTP contract as the JAX package (/healthz, /score,
 /score_batch; 400 for bad input, 500 for faults, 404 elsewhere).
 
-Serve from the command line:
+Serve from the command line (fold checkpoints in any format of
+``io/checkpoint.py``; ``--calibration`` takes the ``calibration.json`` of
+``python -m multimodal_survival_prediction_tpu_torch.tools.calibrate``):
 
     python -m multimodal_survival_prediction_tpu_torch.serving \\
         --checkpoint models/partial_modality/fold_1_best.pt --port 8080
+
+The constructor warms every fold model (:meth:`RiskScorer.warmup`), so the
+first request does not pay cuDNN's first calls.
 
 Scoring runs under ``torch.inference_mode()`` with the models in eval mode
 (read-only), and every request allocates its own tensors, so handler
@@ -35,17 +40,19 @@ class RiskScorer:
 
     Args:
       model_name: config key (e.g. 'partial_modality').
-      checkpoint_path: models/<name>/fold_K_best.pt — or a SEQUENCE of fold
-        checkpoints for a fold ensemble (per-fold hazards, then averaged).
+      checkpoint_path: models/<name>/fold_K_best.{pt,msgpack,pth} — or a
+        SEQUENCE of fold checkpoints for a fold ensemble (per-fold hazards,
+        then averaged); formats may mix.
       batch_size: patients per forward pass in ``score_many``.
       fold_calibration: optional per-fold (mu, sd) pairs (e.g. from
         ``train.predict.predict_risk(..., return_fold_stats=True)``): each
         fold's hazard is z-scored before averaging, matching predict_risk's
         ensemble; without it the raw per-fold hazards are averaged.
       hu_window: CT Hounsfield window — must match training ingest.
-      no_image_variant: image-less requests build their zero image plane on
-        the device instead of shipping it from the host (the same result);
-        image-free families always do.
+      no_image_variant: also warm the image-less route at construction
+        (:meth:`warmup_no_image`): image-less requests then build their
+        zero image plane on the device instead of shipping it from the host
+        (the same result); image-free families always do.
       aot_cache_dir: the JAX package's compiled-executable cache; not
         ported (eager torch compiles nothing) — raises if given.
       device: where the models run and CTs are resampled (default 'cuda').
@@ -87,8 +94,10 @@ class RiskScorer:
             model, self._batch_to_inputs, hazard_and_aux = \
                 make_model_and_adapters(self.cfg, rna_dim=self.rna_dim,
                                         backbone=backbone)
-            model.load_state_dict(load_checkpoint(p), strict=True)
-            self.models.append(model.to(self.device).eval())
+            model = model.to(self.device).eval()
+            model.load_state_dict(load_checkpoint(
+                p, self.device, model_name=self.cfg.name), strict=True)
+            self.models.append(model)
         self._hazard_and_aux = hazard_and_aux or (lambda out, b: (out, 0.0))
         self.n_folds = len(paths)
 
@@ -104,8 +113,63 @@ class RiskScorer:
         else:
             self._cal_mu = self._cal_sd = None
         self._has_image_modality = "image" in self.cfg.modalities
-        self._no_image_ready = (no_image_variant
-                                or not self._has_image_modality)
+        self._no_image_ready = False
+        self.warmup(no_image_variant=no_image_variant)
+
+    def _empty_host(self, b, with_image):
+        """Host zeros of one request batch, the arrays ``_fill_row`` fills
+        (the image plane only ``with_image``)."""
+        host = {
+            "rnaseq": np.zeros((b, self.rna_dim), np.float32),
+            "clinical": np.zeros((b, 1), np.float32),
+            "mask": np.zeros((b, 3), np.float32),
+        }
+        if with_image:
+            host["image"] = np.zeros((b, *self.image_shape, 1), np.float32)
+        return host
+
+    def _per_fold(self, host) -> np.ndarray:
+        """(folds, B) log-hazards of one host batch; without an image plane
+        in ``host`` the zero plane is made on the device."""
+        b = len(host["mask"])
+        with torch.inference_mode():
+            batch = {k: torch.from_numpy(v).to(self.device)
+                     for k, v in host.items()}
+            if "image" not in host:
+                batch["image"] = torch.zeros(
+                    (b, *self.image_shape, 1), device=self.device)
+            zeros = torch.zeros(b, device=self.device)
+            batch.update(time=zeros, event=zeros, svalid=zeros,
+                         valid=torch.ones(b, device=self.device))
+            return torch.stack([
+                self._hazard_and_aux(
+                    m(*self._batch_to_inputs(batch)), batch)[0]
+                for m in self.models]).float().cpu().numpy()
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def warmup(self, no_image_variant: bool = False):
+        """Run one zero batch of ``batch_size`` patients (image plane
+        included) through every fold model and synchronise, so the first
+        request does not pay cuDNN's first calls; image-free families warm
+        the image-less route (:meth:`warmup_no_image`) instead. Idempotent;
+        changes no later risk."""
+        if not self._has_image_modality:
+            self.warmup_no_image()
+            return
+        self._per_fold(self._empty_host(self.batch_size, with_image=True))
+        self._sync()
+        if no_image_variant:
+            self.warmup_no_image()
+
+    def warmup_no_image(self):
+        """Warm the image-less route (the zero image plane made on the
+        device); from then on image-less requests take it. Idempotent."""
+        self._per_fold(self._empty_host(self.batch_size, with_image=False))
+        self._sync()
+        self._no_image_ready = True
 
     def _fill_row(self, host, i, rnaseq=None, age=None, volume=None,
                   nifti_path=None):
@@ -158,28 +222,9 @@ class RiskScorer:
                 raise ValueError(
                     f"model '{self.cfg.name}' has no image modality")
             device_zero_image = not wants_image and self._no_image_ready
-            host = {
-                "rnaseq": np.zeros((b, self.rna_dim), np.float32),
-                "clinical": np.zeros((b, 1), np.float32),
-                "mask": np.zeros((b, 3), np.float32),
-            }
-            if not device_zero_image:
-                host["image"] = np.zeros((b, *self.image_shape, 1),
-                                         np.float32)
+            host = self._empty_host(b, with_image=not device_zero_image)
             masks = [self._fill_row(host, i, **p) for i, p in enumerate(chunk)]
-            with torch.inference_mode():
-                batch = {k: torch.from_numpy(v).to(self.device)
-                         for k, v in host.items()}
-                if device_zero_image:
-                    batch["image"] = torch.zeros(
-                        (b, *self.image_shape, 1), device=self.device)
-                zeros = torch.zeros(b, device=self.device)
-                batch.update(time=zeros, event=zeros, svalid=zeros,
-                             valid=torch.ones(b, device=self.device))
-                per_fold = torch.stack([
-                    self._hazard_and_aux(
-                        m(*self._batch_to_inputs(batch)), batch)[0]
-                    for m in self.models]).float().cpu().numpy()  # (F, B)
+            per_fold = self._per_fold(host)  # (F, B)
             if self._cal_mu is not None:
                 per_fold = ((per_fold - self._cal_mu[:, None])
                             / self._cal_sd[:, None])
@@ -273,25 +318,62 @@ def make_server(scorer: RiskScorer, host: str = "127.0.0.1", port: int = 0):
 def main(argv=None) -> None:
     """Serve fold checkpoints over HTTP until interrupted."""
     import argparse
+    import json
+
+    from .utils import parse_hu_window
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="partial_modality",
                     choices=sorted(ALL_CONFIGS))
     ap.add_argument("--checkpoint", nargs="+", required=True,
-                    help="fold checkpoint(s); several = fold ensemble")
+                    help="fold checkpoint(s) (.pt, .msgpack or .pth); "
+                         "several = fold ensemble")
+    ap.add_argument("--backbone", default=None,
+                    choices=["densenet121", "simple_cnn"],
+                    help="default: the checkpoint's .meta.json, else "
+                         "densenet121")
+    ap.add_argument("--rna-dim", type=int, default=None,
+                    help="default: the checkpoint's .meta.json, else 5005")
+    ap.add_argument("--image-shape", default=None,
+                    help="D,H,W; default: the checkpoint's .meta.json, else "
+                         "64,64,32")
+    ap.add_argument("--calibration", default=None,
+                    help="calibration.json from python -m "
+                         "multimodal_survival_prediction_tpu_torch.tools."
+                         "calibrate: per-fold (mu, sd) applied before the "
+                         "ensemble average, as predict_risk combines folds")
+    ap.add_argument("--warm-no-image", action="store_true",
+                    help="also warm the image-less route at start-up; "
+                         "image-less requests then make their zero CT "
+                         "plane on the device")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
     ap.add_argument("--batch-size", type=int, default=1)
-    ap.add_argument("--hu-window", type=float, nargs=2, default=None)
+    ap.add_argument("--hu-window", default=None,
+                    help="CT Hounsfield window 'lo,hi', as the checkpoint "
+                         "was trained (the = form for negative bounds: "
+                         "--hu-window=-150,250)")
+    ap.add_argument("--aot-cache", default=None, metavar="DIR",
+                    help="not ported (ROADMAP.md Queue 1 item 12); raises")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     print(f"[serve] {pin_fp32_policy()}", flush=True)
-    scorer = RiskScorer(args.model, args.checkpoint,
-                        batch_size=args.batch_size, hu_window=args.hu_window,
-                        device=args.device)
+    fold_calibration = None
+    if args.calibration:
+        cal = json.loads(Path(args.calibration).read_text())
+        fold_calibration = [tuple(s) for s in cal["stats"]]
+    scorer = RiskScorer(
+        args.model, args.checkpoint, backbone=args.backbone,
+        batch_size=args.batch_size, rna_dim=args.rna_dim,
+        image_shape=(tuple(int(x) for x in args.image_shape.split(","))
+                     if args.image_shape else None),
+        hu_window=parse_hu_window(args.hu_window),
+        fold_calibration=fold_calibration,
+        no_image_variant=args.warm_no_image, aot_cache_dir=args.aot_cache,
+        device=args.device)
     server = make_server(scorer, host=args.host, port=args.port)
-    print(f"[serve] {scorer.cfg.display_name} on "
-          f"http://{args.host}:{server.server_address[1]}")
+    print(f"[serve] {scorer.cfg.display_name} loaded and warmed on "
+          f"http://{args.host}:{server.server_address[1]}", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

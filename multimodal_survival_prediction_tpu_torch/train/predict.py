@@ -3,8 +3,10 @@
 Port of ``multimodal_survival_prediction_tpu/train/predict.py``
 (``predict_risk``, ``fold_checkpoints``) with the same semantics — meta
 defaults, the ``use_pallas_resample`` pin, the fold-ensemble z-score — over
-port fold checkpoints (``fold_K_best.pt``). It returns a dict of numpy
-columns instead of a DataFrame:
+fold checkpoints in any of the three formats of ``io/checkpoint.py``
+(``fold_K_best.pt``, the JAX package's ``.msgpack``, the reference's
+``.pth``; an ensemble may mix them). It returns a dict of numpy columns
+instead of a DataFrame:
 
     pred = predict_risk(cfg, "models/partial_modality/fold_1_best.pt",
                         load_matching_table(csv), rnaseq_csv)
@@ -21,7 +23,7 @@ import torch
 
 from ..config import ModelRunConfig
 from ..data.datasets import build_cohort_arrays, load_rnaseq_matrix, select_cohort
-from ..io.checkpoint import load_checkpoint, load_fold_meta
+from ..io.checkpoint import SUFFIXES, load_checkpoint, load_fold_meta
 from ..utils.device import resolve_device
 from .adapters import make_model_and_adapters
 
@@ -92,7 +94,8 @@ def predict_risk(
     per_ckpt = np.empty((len(paths), n), np.float32)
     with torch.inference_mode():
         for ci, cp in enumerate(paths):
-            model.load_state_dict(load_checkpoint(cp, dev), strict=True)
+            model.load_state_dict(
+                load_checkpoint(cp, dev, model_name=cfg.name), strict=True)
             for start in range(0, n, batch_size):
                 end = min(start + batch_size, n)
                 batch = {k: torch.from_numpy(v[start:end]).to(dev)
@@ -128,10 +131,27 @@ def predict_risk(
 
 
 def fold_checkpoints(models_dir, name: str):
-    """All models/<name>/fold_K_best.pt paths, fold-ordered."""
+    """All models/<name>/fold_K_best.{pt,msgpack,pth} paths, fold-ordered;
+    raises if one fold has files of two formats."""
     d = Path(models_dir) / name
-    paths = sorted(d.glob("fold_*_best.pt"),
-                   key=lambda p: int(re.findall(r"\d+", p.name)[0]))
-    if not paths:
+    by_fold: dict = {}
+    for p in d.glob("fold_*_best.*"):
+        m = re.fullmatch(r"fold_(\d+)_best(\.\w+)", p.name)
+        if m and m[2] in SUFFIXES:
+            by_fold.setdefault(int(m[1]), []).append(p)
+    if not by_fold:
         raise FileNotFoundError(f"no fold checkpoints under {d}")
-    return paths
+    twice = {k: sorted(v) for k, v in by_fold.items() if len(v) > 1}
+    if twice:
+        raise ValueError(f"folds with checkpoints in two formats under {d}: "
+                         f"{ {k: [p.name for p in v] for k, v in twice.items()} }")
+    return [by_fold[k][0] for k in sorted(by_fold)]
+
+
+def fold_checkpoint(models_dir, name: str, fold: int):
+    """models/<name>/fold_<fold>_best in whichever format it was written."""
+    for p in fold_checkpoints(models_dir, name):
+        if p.name.startswith(f"fold_{fold}_best."):
+            return p
+    raise FileNotFoundError(
+        f"no checkpoint of fold {fold} under {Path(models_dir) / name}")

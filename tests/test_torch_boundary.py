@@ -2,7 +2,8 @@
 and ``chip_smoke.py`` import neither JAX (``jax``, ``flax``, ``optax``) nor
 the JAX package ``multimodal_survival_prediction_tpu``, and nothing outside
 torch, numpy, scipy and the standard library — the machine with the card
-has no pandas, msgpack, flax or nibabel."""
+has no pandas, msgpack, matplotlib, flax or nibabel (the fold-checkpoint
+codec ``io/msgpack.py`` is the port's own)."""
 
 import ast
 import json
@@ -14,8 +15,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "multimodal_survival_prediction_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax",
-             "multimodal_survival_prediction_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "pandas",
+             "matplotlib", "multimodal_survival_prediction_tpu"}
 ALLOWED = {"torch", "numpy", "scipy",
            "multimodal_survival_prediction_tpu_torch"}
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -51,8 +52,7 @@ def test_whole_port_imports_without_jax():
         "p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', "
-        "'multimodal_survival_prediction_tpu'))\n"
+        f"{tuple(sorted(FORBIDDEN))!r})\n"
         "print(json.dumps({'modules': mods, 'bad': bad}))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300,
@@ -61,6 +61,9 @@ def test_whole_port_imports_without_jax():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
     for mod in ("serving", "ops.resample", "ops.fused_dense", "ops.cindex",
-                "train.engine"):
+                "train.engine", "io.msgpack", "io.torch_import", "ops.km",
+                "analysis.evaluate", "analysis.generate_km_curves",
+                "analysis.evaluate_model", "tools.convert_torch_checkpoint",
+                "tools.export_torch_checkpoint", "tools.calibrate"):
         assert f"multimodal_survival_prediction_tpu_torch.{mod}" in \
             out["modules"]

@@ -560,3 +560,65 @@ def test_family_bf16_forward_on_card_matches_cpu(cuda_device, name):
                else 0.0)
         excess = float(((card.float() - cpu.float()).abs() - ulp).max())
         assert excess <= 2 * gap, (excess, gap)
+
+
+# ---------------------------------------------------------------------------
+# fold checkpoints in every format (io/checkpoint.py) scored on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_fold_formats_score_alike_on_card(cuda_device, tmp_path):
+    """A partial_modality fold (simple_cnn, 16x16x8) written as .pt, as
+    .msgpack and exported to .pth: predict_risk on the card, through the
+    W-pass kernel that the meta pins (one launch per imaging patient a
+    call), gives each format's log-hazards within 1e-6 of the .pt's."""
+    from multimodal_survival_prediction_tpu_torch.config import ALL_CONFIGS
+    from multimodal_survival_prediction_tpu_torch.data.synthetic import (
+        SyntheticCohortSpec,
+        generate_synthetic_cohort,
+    )
+    from multimodal_survival_prediction_tpu_torch.io.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+        save_fold_meta,
+    )
+    from multimodal_survival_prediction_tpu_torch.tools import (
+        export_torch_checkpoint,
+    )
+    from multimodal_survival_prediction_tpu_torch.train.adapters import (
+        make_model_and_adapters,
+    )
+    from multimodal_survival_prediction_tpu_torch.train.predict import (
+        predict_risk,
+    )
+
+    table, paths = generate_synthetic_cohort(tmp_path / "c", SyntheticCohortSpec(
+        n_patients=10, rna_dim=40, seed=3, p_imaging=0.7,
+        image_shapes=((24, 40, 40),), image_dtype="int16"))
+    cfg = ALL_CONFIGS["partial_modality"]
+    model = make_model_and_adapters(
+        cfg, rna_dim=40, backbone="simple_cnn",
+        generator=torch.Generator().manual_seed(2))[0]
+    meta = dict(model=cfg.name, backbone="simple_cnn", image_shape=[16, 16, 8],
+                rna_dim=40, use_pallas_resample=True, resample_mode="device")
+    pt = tmp_path / "a" / "fold_1_best.pt"
+    save_checkpoint(pt, model.state_dict())
+    save_fold_meta(pt, **meta)
+    mpk = tmp_path / "b" / "fold_1_best.msgpack"
+    save_checkpoint(mpk, load_checkpoint(pt), model_name=cfg.name)
+    save_fold_meta(mpk, **meta)
+    pth = tmp_path / "c2" / "fold_1_best.pth"
+    assert export_torch_checkpoint.main(["--checkpoint", str(mpk),
+                                         "--out", str(pth)]) == 0
+    n_img = sum(bool(r["has_imaging"]) for r in table)
+    assert n_img > 0
+    risks = []
+    for ckpt in (pt, mpk, pth):
+        before = tr.wpass.launches
+        pred = predict_risk(cfg, ckpt, table, rnaseq_csv=paths["rnaseq_csv"],
+                            labeled_only=False, device=cuda_device)
+        assert tr.wpass.launches - before == n_img
+        risks.append(pred["risk_score"])
+    assert np.all(np.isfinite(risks[0]))
+    for r in risks[1:]:
+        np.testing.assert_allclose(r, risks[0], rtol=0, atol=1e-6)
