@@ -110,6 +110,27 @@ result then):
      .meta.json names no dtype; predict_risk (float32) on each reproduces
      the fold's best_c_index but for the pairs whose hazards lie within
      twice the fold's bf16-vs-f32 hazard gap.
+  9c. fold-parallel, streaming, sweep (run right after phase 9, on its
+     cohort and arguments): the partial_modality CLI's main([...,
+     "--fold-parallel", "1", "--epochs", "2"]) trains both folds in one
+     vmapped step (train/cv_parallel.py); W-pass launches in the ingest =
+     imaging patients, no fused launch, cv_results.json in the standard
+     schema, both .pt folds with a .meta.json pinning use_pallas_resample,
+     each fold's learning rates equal to phase 9's, its per-step losses
+     held to phase 9's by phase 8's rule (step 1 within 1e-5 relative,
+     later steps within 2e-2), and predict_risk on each .pt reproducing
+     its best_c_index. Then the sequential CLI with --streaming for one
+     epoch (losses held to phase 9's epoch 1; every batch copied on the
+     prefetcher's side stream), the fold-parallel CLI with --streaming for
+     one epoch (losses held to the device-resident vmapped run's epoch 1;
+     every stacked train and eval batch copied on the side stream) and the
+     sweep CLI (seeds 42, 43 x lrs base,
+     3 x base, one epoch on fold 1; 4 candidates in sweep_results.json,
+     the (42, base) one held to phase 9's fold-1 epoch 1). Prints the
+     walls, each vmapped epoch's ms by CUDA events beside the sum of phase
+     9's two folds', fold-steps per second of both drivers, and a profile
+     (device busy, launches, top kernels) of one vmapped two-fold step
+     beside one sequential step.
   10. families: one 32-patient cohort (seed 15; CTs 48-64x256x256 int16,
      p_imaging 0.75, p_rnaseq 0.9, p_dead 0.75, one labeled patient with no
      modality at all), then each of the seven other families' training CLI
@@ -1714,25 +1735,51 @@ CV_HAZARD_MARGIN = 1e-5  # a pair this close may count either way
 
 
 def _drive_cli(main, argv, device):
-    """Run a training CLI's ``main(argv)`` in-process. The W-pass and fused
-    launch counts are reset just before it and read just after; the W-pass
-    count is read again right after the ingest (``prepare_cv_data``).
-    Returns the payload, the walls, the counts (the fused kernels' per
-    dtype), the driver's outcomes, the prepared arrays and splits, each
-    train epoch's (ms by CUDA events, steps), each evaluation's (hazards,
-    rows), and the messages the train package logged."""
+    """Run a training CLI's ``main(argv)`` in-process (the sweep CLI's
+    too). The W-pass and fused launch counts are reset just before it and
+    read just after; the W-pass count is read again right after the ingest
+    (``prepare_cv_data``). Returns the payload, the walls, the counts (the
+    fused kernels' per dtype), the driver's outcomes, the prepared arrays
+    and splits, each sequential train epoch's (ms by CUDA events, steps,
+    step losses; streaming epochs too), each vmapped epoch's dict (ms,
+    (steps, K) losses, step validity), each evaluation's (hazards, rows),
+    and the messages the train package logged."""
     import logging
 
     import torch
 
     from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
     from multimodal_survival_prediction_tpu_torch.ops import resample as rs
-    from multimodal_survival_prediction_tpu_torch.train import cli, cv, engine
+    from multimodal_survival_prediction_tpu_torch.train import (
+        cli,
+        cv,
+        cv_parallel,
+        engine,
+        sweep,
+    )
 
     sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
-    kept, epochs, messages, evals = {}, [], [], []
+    kept, epochs, messages, evals, par_epochs = {}, [], [], [], []
     prepare, run = cv.prepare_cv_data, cli.run_cross_validation
+    run_par = cli.run_cross_validation_parallel
     train_epoch, evaluate = engine.Trainer.train_epoch, engine.Trainer.evaluate
+    train_streaming = engine.Trainer.train_epoch_streaming
+    build_epoch = cv_parallel._build_parallel_train_epoch
+
+    def events():
+        if device == "cpu":
+            return None
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        return start, end
+
+    def elapsed(ev):
+        if ev is None:
+            return None
+        ev[1].record()
+        ev[1].synchronize()
+        return ev[0].elapsed_time(ev[1])
 
     def prepare_and_keep(*a, **k):  # the ingest's wall and launches
         t = time.perf_counter()
@@ -1746,19 +1793,31 @@ def _drive_cli(main, argv, device):
         payload, kept["outcomes"] = out = run(*a, **k)
         return out
 
-    def timed_epoch(self, *a, **k):  # each epoch's ms by CUDA events
-        if device != "cpu":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-        out = train_epoch(self, *a, **k)
-        ms = None
-        if device != "cpu":
-            end.record()
-            end.synchronize()
-            ms = start.elapsed_time(end)
-        epochs.append((ms, len(self.step_losses)))
+    def run_par_and_keep(*a, **k):
+        payload, kept["outcomes"] = out = run_par(*a, **k)
         return out
+
+    def timed(fn):  # each epoch's ms by CUDA events, and its step losses
+        def epoch(self, *a, **k):
+            ev = events()
+            out = fn(self, *a, **k)
+            epochs.append((elapsed(ev), len(self.step_losses),
+                           self.step_losses.float().tolist()))
+            return out
+        return epoch
+
+    def timed_build(trainer):  # each vmapped epoch's ms and losses
+        epoch = build_epoch(trainer)
+
+        def timed_epoch(state, batches, step_valid, lrs):
+            ev = events()
+            losses, mean = epoch(state, batches, step_valid, lrs)
+            par_epochs.append(dict(ms=elapsed(ev),
+                                   losses=losses.float().cpu().tolist(),
+                                   valid=step_valid.tolist()))
+            return losses, mean
+
+        return timed_epoch
 
     def kept_evaluation(self, state, data, indices):
         out = evaluate(self, state, data, indices)
@@ -1775,7 +1834,11 @@ def _drive_cli(main, argv, device):
     logger.setLevel(logging.INFO)
     cv.prepare_cv_data, cli.run_cross_validation = prepare_and_keep, \
         run_and_keep
-    engine.Trainer.train_epoch = timed_epoch
+    cv_parallel.prepare_cv_data = sweep.prepare_cv_data = prepare_and_keep
+    cli.run_cross_validation_parallel = run_par_and_keep
+    cv_parallel._build_parallel_train_epoch = timed_build
+    engine.Trainer.train_epoch = timed(train_epoch)
+    engine.Trainer.train_epoch_streaming = timed(train_streaming)
     engine.Trainer.evaluate = kept_evaluation
     try:
         rs.wpass.launches = 0  # the CLI's counts start here
@@ -1788,25 +1851,32 @@ def _drive_cli(main, argv, device):
         fused_bf16 = [k.launches_bf16 for k in fd.KERNELS]
     finally:
         cv.prepare_cv_data, cli.run_cross_validation = prepare, run
+        cv_parallel.prepare_cv_data = sweep.prepare_cv_data = prepare
+        cli.run_cross_validation_parallel = run_par
+        cv_parallel._build_parallel_train_epoch = build_epoch
         engine.Trainer.train_epoch = train_epoch
+        engine.Trainer.train_epoch_streaming = train_streaming
         engine.Trainer.evaluate = evaluate
         logger.removeHandler(handler)
         logger.setLevel(level)
     return dict(kept, payload=payload, wall_s=wall, fused=fused,
-                fused_bf16=fused_bf16, epochs=epochs, evals=evals,
-                messages=messages)
+                fused_bf16=fused_bf16, epochs=epochs, par_epochs=par_epochs,
+                evals=evals, messages=messages)
 
 
 def _per_fold(outcomes, epochs, stage1_epochs=0):
-    """Each fold's wall, epochs' ms (CUDA events; stage 1's first) and its
-    last epoch's steps and ms/step, from ``_drive_cli``'s epoch list."""
+    """Each fold's wall, epochs' ms (CUDA events; stage 1's first) and step
+    losses, and its last epoch's steps and ms/step, from ``_drive_cli``'s
+    epoch list."""
     per_fold, i = [], 0
     for o in outcomes:
         n = stage1_epochs + o.epochs_run
         fold_epochs, i = epochs[i:i + n], i + n
-        ms, steps = fold_epochs[-1]
+        ms, steps, _ = fold_epochs[-1]
         per_fold.append(dict(fold=o.fold, wall_s=o.wall_s, steps=steps,
                              epoch_ms=[e[0] for e in fold_epochs],
+                             step_losses=[e[2] for e in fold_epochs],
+                             lrs=[h["lr"] for h in o.history],
                              ms_per_step_last_epoch=(
                                  ms / steps if ms is not None else None),
                              best_epoch=o.best_epoch,
@@ -1944,6 +2014,297 @@ def phase_cv(work, table, paths, n_img, smi="", device="cuda", extra_argv=(),
                 fused_launches=dict(zip(FUSED_NAMES, fused)),
                 folds=per_fold, c_index_mean=payload["c_index_mean"],
                 ckpts=ckpts, arrays=arrays)
+
+
+# --------------------------------------------------------------------------
+# 9c: fold-parallel CV, streaming epochs and the sweep (vmapped folds)
+# --------------------------------------------------------------------------
+
+def _losses_held(label, got, want):
+    """Phase 8's rule on two runs' per-step losses from the same weights,
+    batches and dropout masks: the first step within FIRST_LOSS_RTOL
+    relative, later steps within LOSS_DRIFT_RTOL. Returns the largest
+    relative gap of each."""
+    check(len(got) == len(want) and got,
+          f"{label}: {len(got)} steps against {len(want)}")
+    gaps = [abs(g - w) / max(abs(w), 1e-12) for g, w in zip(got, want)]
+    first, later = gaps[0], max(gaps[1:], default=0.0)
+    check(first <= FIRST_LOSS_RTOL and later <= LOSS_DRIFT_RTOL,
+          f"{label}: step losses {got} against {want} (gaps {gaps})")
+    return first, later
+
+
+def _profile_once(fn, label, top=6):
+    """One call of ``fn`` (after one outside the window) under
+    torch.profiler: its device busy time and device launches, and the top
+    kernels by device time, logged."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with _profiled() as window:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(window.events, key=lambda e: e.self_device_time_total,
+                     reverse=True)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    log(f"profile {label}: wall {wall_ms:.1f} ms (under the profiler), "
+        f"device busy {busy:.2f} ms, {launches} device launches; top:")
+    for e in kernels[:top]:
+        log(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
+            f"{e.key[:90]}")
+    return dict(device_busy_ms=busy, device_launches=launches,
+                wall_ms=wall_ms)
+
+
+def _profile_steps(arrays, splits, device):
+    """One train step of two stacked folds (the vmapped step) and one of a
+    single fold (the sequential step) of the CV driver's model on the
+    phase-4 cohort's first batch, each profiled (lr 0)."""
+    import numpy as np
+    import torch
+
+    from multimodal_survival_prediction_tpu_torch.config import (
+        PARTIAL_MODALITY as CFG,
+    )
+    from multimodal_survival_prediction_tpu_torch.train import cv_parallel
+    from multimodal_survival_prediction_tpu_torch.train.cv import (
+        make_trainers,
+    )
+
+    rna_dim = arrays.arrays["rnaseq"].shape[1]
+    tr = make_trainers(CFG, rna_dim, "densenet121", None, device)[0]
+    data = arrays.to_device(device)
+    rows = [s[0] for s in splits]
+    idx, bv = cv_parallel._stack_fold_indices(rows, CFG.batch_size,
+                                              [None] * len(rows))
+    batch = next(iter(cv_parallel.stacked_batches(tr, data, idx[:, :1],
+                                                  bv[:, :1])))
+    stacked = cv_parallel.StackedState(
+        [tr.init_state(fold=f) for f in range(1, len(rows) + 1)])
+    step = cv_parallel._build_parallel_train_step(tr)
+    zero = torch.zeros(len(rows), 1, device=device)
+    valid = np.ones(len(rows), bool)
+    par = _profile_once(lambda: step(stacked, batch, zero, valid),
+                        f"vmapped step, {len(rows)} folds")
+    del stacked
+    state = tr.init_state(fold=1)
+    one = {k: v[0] for k, v in batch.items()}
+    seq = _profile_once(lambda: tr.train_step(state, one, 0.0),
+                        "sequential step, one fold")
+    return par, seq
+
+
+def phase_cv_parallel(work, table, paths, n_img, cv_run, smi="",
+                      device="cuda", extra_argv=(), expect_launches=True,
+                      profile=True):
+    """9c: the partial_modality CLI's ``main([... "--fold-parallel", "1"])``
+    with phase 9's arguments (both folds in one vmapped step), the
+    sequential CLI with ``--streaming`` for one epoch, and the sweep CLI
+    (seeds 42, 43 x lrs base, 3 x base, one epoch, fold 1), each on the
+    phase-4 cohort at full width. Each is held to phase 9's sequential run
+    (``cv_run``) by phase 8's rule on the per-step losses; W-pass launches
+    in each ingest, no fused launch, the artifacts' schema, each fold's
+    best_c_index from its .pt. Prints the walls, the vmapped epochs' ms
+    beside phase 9's, fold-steps per second of both drivers and a profile
+    of one vmapped step beside a sequential one."""
+    import numpy as np
+    import torch
+
+    from multimodal_survival_prediction_tpu_torch.config import (
+        PARTIAL_MODALITY as CFG,
+    )
+    from multimodal_survival_prediction_tpu_torch.data.pipeline import (
+        BatchPrefetcher,
+    )
+    from multimodal_survival_prediction_tpu_torch.io.checkpoint import (
+        load_fold_meta,
+    )
+    from multimodal_survival_prediction_tpu_torch.io.results import (
+        load_cv_results,
+    )
+    from multimodal_survival_prediction_tpu_torch.ops import resample as rs
+    from multimodal_survival_prediction_tpu_torch.train import (
+        partial_modality_training as pmt,
+    )
+    from multimodal_survival_prediction_tpu_torch.train import sweep
+    from multimodal_survival_prediction_tpu_torch.train.engine import (
+        TrainConfig,
+    )
+    from multimodal_survival_prediction_tpu_torch.train.predict import (
+        fold_checkpoints,
+        predict_risk,
+    )
+
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    t_phase = time.perf_counter()
+    seq_folds = cv_run["folds"]
+    want_img = n_img if expect_launches else 0
+
+    def argv(tag, *extra):
+        return ["--data-root", str(paths["root"]), "--results-dir",
+                str(work / f"{tag}_results"), "--models-dir",
+                str(work / f"{tag}_models"), "--pallas-resample",
+                "--n-folds", "2", "--device", device, *extra_argv, *extra]
+
+    def common_checks(label, run):
+        fused = run["fused"] + run["fused_bf16"]
+        check(run["ingest_launches"] == want_img,
+              f"{label}: the ingest launched the W-pass kernel "
+              f"{run['ingest_launches']} times, expected {want_img}")
+        check(fused == [0] * len(fused),
+              f"{label}: the unfused model launched fused kernels {fused}")
+
+    # ---- fold-parallel: both folds in one vmapped step ----
+    results, models = work / "cvp_results", work / "cvp_models"
+    run = _drive_cli(pmt.main, argv("cvp", "--epochs", "2",
+                                    "--fold-parallel", "1"), device)
+    common_checks("fold-parallel CLI", run)
+    payload, outcomes, arrays = run["payload"], run["outcomes"], run["arrays"]
+    par_epochs = run["par_epochs"]
+    check(len(par_epochs) == 2 and not run["epochs"],
+          f"the fold-parallel CLI ran {len(par_epochs)} vmapped epochs and "
+          f"{len(run['epochs'])} sequential ones")
+    loaded = load_cv_results(results / CFG.name)
+    check(set(loaded["raw"]) == CV_STANDARD_KEYS and loaded["raw"] == payload
+          and len(payload["fold_results"]) == 2,
+          f"fold-parallel cv_results.json: {sorted(loaded['raw'])}")
+    ckpts = fold_checkpoints(models, CFG.name)
+    check([c.name for c in ckpts] == ["fold_1_best.pt", "fold_2_best.pt"],
+          f"fold-parallel checkpoints {ckpts}")
+    gaps, scored = [], []
+    for k, (o, sf, ckpt) in enumerate(zip(outcomes, seq_folds, ckpts)):
+        check([h["lr"] for h in o.history] == sf["lrs"],
+              f"fold {o.fold}: learning rates {[h['lr'] for h in o.history]}"
+              f" against phase 9's {sf['lrs']}")
+        got = [l[k] for e in par_epochs
+               for l, ok in zip(e["losses"], e["valid"][k]) if ok]
+        gaps.append(_losses_held(f"fold-parallel fold {o.fold}", got,
+                                 [x for e in sf["step_losses"] for x in e]))
+        meta = load_fold_meta(ckpt)
+        check(meta is not None and meta["use_pallas_resample"] is True
+              and meta["resample_mode"] == "device",
+              f"fold-parallel {ckpt.name}.meta.json: {meta}")
+        rs.wpass.launches = 0
+        pred = predict_risk(CFG, ckpt, table, rnaseq_csv=paths["rnaseq_csv"],
+                            labeled_only=False, device=device)
+        sync()
+        scored.append(rs.wpass.launches)
+        check(scored[-1] == want_img,
+              f"predict_risk on the fold-parallel {ckpt.name} launched the "
+              f"W-pass kernel {scored[-1]} times, expected {want_img}")
+        c, tol, pairs, fragile = _fold_c_index(pred, arrays,
+                                               run["splits"][k][1])
+        log(f"fold-parallel {ckpt.name}: C-index from predict_risk {c:.6f} "
+            f"vs best_c_index {o.best_c_index:.6f} (tol {tol:.3e}); step "
+            f"losses {got} vs phase 9's {sf['step_losses']} (gaps step 1 "
+            f"{gaps[-1][0]:.2e}, later {gaps[-1][1]:.2e})")
+        check(abs(c - o.best_c_index) <= tol,
+              f"predict_risk on the fold-parallel {ckpt.name}: C-index {c},"
+              f" best_c_index {o.best_c_index}")
+    fold_steps = [sum(sum(v) for v in e["valid"]) for e in par_epochs]
+    par_ms = [e["ms"] for e in par_epochs]
+    seq_ms = [None if device == "cpu" else
+              sum(f["epoch_ms"][i] for f in seq_folds) for i in range(2)]
+    seq_steps = [sum(len(f["step_losses"][i]) for f in seq_folds)
+                 for i in range(2)]
+
+    def rate(steps, ms):
+        return steps / ms * 1e3 if ms else None
+
+    log(f"fold-parallel CLI ({smi}): wall {run['wall_s']:.2f} s, ingest "
+        f"{run['ingest_s']:.2f} s ({run['ingest_launches']} W-pass "
+        f"launches); vmapped epoch ms {par_ms} for {fold_steps} fold-steps "
+        f"vs phase 9's two folds' epoch ms summed {seq_ms} for {seq_steps}; "
+        f"fold-steps/s epoch 2: vmapped {rate(fold_steps[1], par_ms[1])}, "
+        f"sequential {rate(seq_steps[1], seq_ms[1])}")
+
+    # ---- streaming: the sequential driver from a host-resident cohort ----
+    BatchPrefetcher.side_stream_copies = 0
+    srun = _drive_cli(pmt.main, argv("stream", "--epochs", "1",
+                                     "--streaming"), device)
+    common_checks("streaming CLI", srun)
+    copies = BatchPrefetcher.side_stream_copies
+    eval_batch = TrainConfig().eval_batch_size
+    eval_steps = sum(-(-len(v) // eval_batch) for _, v, _ in srun["splits"])
+    train_steps = sum(e[1] for e in srun["epochs"])
+    check(copies == ((train_steps + eval_steps) if device != "cpu" else 0),
+          f"streaming: {copies} batches copied on a side stream, expected "
+          f"{train_steps} train + {eval_steps} eval batches")
+    for f, sf in zip(_per_fold(srun["outcomes"], srun["epochs"]),
+                     seq_folds):
+        _losses_held(f"streaming fold {f['fold']}", f["step_losses"][0],
+                     sf["step_losses"][0])
+    log(f"streaming CLI ({smi}): wall {srun['wall_s']:.2f} s, "
+        f"{copies} batches copied on the prefetcher's side stream, epoch ms "
+        f"{[e[0] for e in srun['epochs']]}")
+
+    # ---- fold-parallel from a host-resident cohort: each step's stacked
+    # (K, B, ...) batch gathered on the host and prefetched ----
+    BatchPrefetcher.side_stream_copies = 0
+    prun = _drive_cli(pmt.main, argv("cvps", "--epochs", "1",
+                                     "--fold-parallel", "1", "--streaming"),
+                      device)
+    common_checks("fold-parallel streaming CLI", prun)
+    pcopies = BatchPrefetcher.side_stream_copies
+    (pepoch,) = prun["par_epochs"]
+    stacked_steps = len(pepoch["valid"][0]) + max(
+        -(-len(v) // eval_batch) for _, v, _ in prun["splits"])
+    check(pcopies == (stacked_steps if device != "cpu" else 0),
+          f"fold-parallel streaming: {pcopies} stacked batches copied on a "
+          f"side stream, expected {stacked_steps} (train + eval steps)")
+    # each fold's losses held to the device-resident vmapped run's epoch 1
+    pgaps = [_losses_held(
+        f"fold-parallel streaming fold {k + 1}",
+        [l[k] for l, ok in zip(pepoch["losses"], pepoch["valid"][k]) if ok],
+        [l[k] for l, ok in zip(par_epochs[0]["losses"],
+                               par_epochs[0]["valid"][k]) if ok])
+        for k in range(len(seq_folds))]
+    log(f"fold-parallel streaming CLI ({smi}): wall {prun['wall_s']:.2f} s, "
+        f"{pcopies} stacked batches copied on the prefetcher's side stream, "
+        f"vmapped epoch {pepoch['ms']} ms against {par_ms[0]} ms "
+        f"device-resident; loss gaps to it {pgaps}")
+
+    # ---- the sweep: 4 candidates on fold 1 ----
+    lr = CFG.learning_rate
+    wrun = _drive_cli(sweep.main, argv(
+        "sweep", "--epochs", "1", "--model", CFG.name, "--seeds", "42,43",
+        "--lrs", f"{lr!r},{3 * lr!r}", "--fold", "1"), device)
+    common_checks("sweep CLI", wrun)
+    board = json.loads((work / "sweep_results" / CFG.name
+                        / "sweep_results.json").read_text())
+    check(len(board["candidates"]) == 4
+          and board["fold"] == 1 and board["num_epochs"] == 1,
+          f"sweep_results.json: {board}")
+    (sweep_epoch,) = wrun["par_epochs"]
+    points = [(s, x) for s in (42, 43) for x in (lr, 3 * lr)]
+    anchor = points.index((42, lr))
+    _losses_held("sweep candidate (42, base lr)",
+                 [l[anchor] for l in sweep_epoch["losses"]],
+                 seq_folds[0]["step_losses"][0])
+    log(f"sweep CLI ({smi}): wall {wrun['wall_s']:.2f} s, one vmapped epoch "
+        f"of 4 candidates {sweep_epoch['ms']} ms; leaderboard "
+        f"{[(c['seed'], c['learning_rate'], round(c['best_c_index'], 4)) for c in board['candidates']]}")
+
+    prof = _profile_steps(arrays, run["splits"], device) if profile else None
+    wall = time.perf_counter() - t_phase
+    log(f"phase 9c ({smi}): wall {wall:.2f} s")
+    return dict(wall_s=wall, ingest_launches=run["ingest_launches"],
+                predict_launches=scored,
+                streaming_ingest_launches=srun["ingest_launches"],
+                sweep_ingest_launches=wrun["ingest_launches"],
+                fused_launches=run["fused"], epoch_ms=par_ms,
+                seq_epoch_ms=seq_ms, fold_steps=fold_steps,
+                seq_fold_steps=seq_steps, sweep_wall_s=wrun["wall_s"],
+                streaming_wall_s=srun["wall_s"], cli_wall_s=run["wall_s"],
+                side_stream_copies=copies, loss_gaps=gaps, profile=prof,
+                par_streaming_ingest_launches=prun["ingest_launches"],
+                par_streaming_wall_s=prun["wall_s"],
+                par_streaming_copies=pcopies,
+                par_streaming_loss_gaps=pgaps)
 
 
 # --------------------------------------------------------------------------
@@ -2646,6 +3007,8 @@ def main() -> int:
             "8b train bf16", phase_train, table, paths, 5005,
             dtype=torch.bfloat16, f32=train)
         cv_run = timed("9 cv", phase_cv, work, table, paths, n_img, smi=smi)
+        cv_par = timed("9c cv parallel", phase_cv_parallel, work, table,
+                       paths, n_img, cv_run, smi=smi)
         cli_bf16 = timed("9b cli bf16", phase_cli_bf16, work, table, paths,
                          n_img, smi=smi)
         families, fam_table, fam_paths = timed(
@@ -2673,6 +3036,12 @@ def main() -> int:
             "predict_risk": launches,
             "cv_ingest": cv_run["ingest_launches"],
             "cv_predict_risk": cv_run["predict_launches"],
+            "cv_parallel_ingest": cv_par["ingest_launches"],
+            "cv_parallel_predict_risk": cv_par["predict_launches"],
+            "streaming_ingest": cv_par["streaming_ingest_launches"],
+            "cv_parallel_streaming_ingest":
+                cv_par["par_streaming_ingest_launches"],
+            "sweep_ingest": cv_par["sweep_ingest_launches"],
             "families_ingest": {k: v["ingest_launches"]
                                 for k, v in families.items()},
             "checkpoints": checkpoints["launches"]},
@@ -2701,7 +3070,9 @@ def main() -> int:
             "library_call": FUSED_LIBRARY[name],
             "launches_by_path": {
                 "train": fused_launches[name],
-                "cv": cv_run["fused_launches"][name]},
+                "cv": cv_run["fused_launches"][name],
+                "cv_parallel": dict(zip(FUSED_NAMES,
+                                        cv_par["fused_launches"]))[name]},
             "call_ms": t["call_ms"],
             "timed_shape": t["shape"],
             "bound_cuda_core_ms": t["bound_cuda_core_ms"],
@@ -2741,6 +3112,15 @@ def main() -> int:
         f"{train['ms_per_step_fused']}, {train['ms_per_step_unfused']}); "
         f"--bf16 CLI walls s "
         f"{ {k: round(v['wall_s'], 2) for k, v in cli_bf16.items()} }")
+    prof = cv_par["profile"]
+    log(f"fold-parallel ({smi}): vmapped epoch ms {cv_par['epoch_ms']} "
+        f"(fold-steps {cv_par['fold_steps']}) vs sequential "
+        f"{cv_par['seq_epoch_ms']} (fold-steps {cv_par['seq_fold_steps']});"
+        f" one vmapped step of 2 folds: device busy "
+        f"{prof[0]['device_busy_ms']:.2f} ms, {prof[0]['device_launches']} "
+        f"launches; one sequential step: {prof[1]['device_busy_ms']:.2f} "
+        f"ms, {prof[1]['device_launches']} launches; sweep wall "
+        f"{cv_par['sweep_wall_s']:.2f} s")
     log(f"phase walls s {walls}")
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,10 @@
-"""CT ingest: NIfTI decode on a host thread pool, resample on the device.
+"""Host-to-device pipelines: CT ingest (NIfTI decode on a host thread pool,
+resample on the device) and the batch prefetcher of streaming epochs.
 
-Port of ``VolumePrefetcher`` in
-``multimodal_survival_prediction_tpu/data/pipeline.py``, with the same duck
-type (``run(jobs, out_shape, use_pallas, hu_window=, resample=)`` plus
-``last_mode``). Each volume is decoded once on a worker thread while the
+Port of ``VolumePrefetcher`` and ``BatchPrefetcher`` in
+``multimodal_survival_prediction_tpu/data/pipeline.py``.
+``VolumePrefetcher`` has the same duck type (``run(jobs, out_shape,
+use_pallas, hu_window=, resample=)`` plus ``last_mode``). Each volume is decoded once on a worker thread while the
 device resamples the previous one; every launch stays on the consuming
 thread.
 
@@ -17,15 +18,24 @@ thread.
   * 'host' — the host C++ engine (``data/native.py`` + ``csrc/`` in the JAX
     package); not ported, raises (ROADMAP.md Queue 1 item 7).
 
-``BatchPrefetcher`` and ``probe_link_bandwidth`` are not ported yet.
+``BatchPrefetcher`` keeps ``depth`` host batches in flight to the device:
+a background thread copies each one into pinned host memory and enqueues its
+host-to-device copies on a side CUDA stream; the consumer's stream waits on
+that batch's event. ``probe_link_bandwidth`` is not ported yet (ROADMAP.md
+Queue 1 item 7, which needs it for ``resample='auto'``).
 """
 
 from __future__ import annotations
 
 import logging
+import queue
 import struct
+import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
 
 log = logging.getLogger(__name__)
 
@@ -116,3 +126,91 @@ class VolumePrefetcher:
                     yield j, o.cpu().numpy()  # waits for the device
             for j, o in inflight:
                 yield j, o.cpu().numpy()
+
+
+class BatchPrefetcher:
+    """Wrap an iterator of host batches (dicts of numpy arrays) with a
+    ``depth``-deep queue of batches on ``device``.
+
+    A background thread pulls a batch, copies each array into pinned host
+    memory and enqueues its copy to the device with ``non_blocking=True`` on
+    a side CUDA stream, then records an event there. ``__next__`` makes the
+    consumer's current stream wait on that event and marks the tensors as
+    used on it (``record_stream``), so the copy of batch i+1 overlaps the
+    step on batch i. At most ``depth`` batches are pulled from the iterator
+    and not yet handed to the consumer. An exception in the iterator or in
+    a copy is raised by the consumer's ``__next__``. With ``device="cpu"``
+    it is a plain queue of tensors that share the batches' memory.
+
+    ``side_stream_copies`` counts the batches copied on a side stream, over
+    every instance (a check that streaming epochs used the pipeline)."""
+
+    side_stream_copies = 0
+
+    def __init__(self, iterator, depth: int = 2, device="cuda"):
+        from ..utils.device import resolve_device
+
+        self.device = resolve_device(device)
+        self.depth = max(1, depth)
+        self.stream = (torch.cuda.Stream(self.device)
+                       if self.device.type == "cuda" else None)
+        self._slots = threading.Semaphore(self.depth)
+        self._q: queue.Queue = queue.Queue()
+        self._done = object()
+        self._closed = False
+        self._err: list = []
+        self._thread = threading.Thread(target=self._fill,
+                                        args=(iter(iterator),), daemon=True)
+        self._thread.start()
+
+    def _to_device(self, batch: dict):
+        tensors = {k: torch.from_numpy(np.ascontiguousarray(v))
+                   for k, v in batch.items()}
+        if self.stream is None:
+            return tensors, None
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            out = {k: t.pin_memory().to(self.device, non_blocking=True)
+                   for k, t in tensors.items()}
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        BatchPrefetcher.side_stream_copies += 1
+        return out, event
+
+    def _fill(self, it):
+        try:
+            while True:
+                self._slots.acquire()
+                if self._closed:
+                    break
+                batch = next(it, self._done)
+                if batch is self._done:
+                    break
+                self._q.put(self._to_device(batch))
+        except Exception as e:  # surfaced by the consumer's __next__
+            self._err.append(e)
+        finally:
+            self._q.put((self._done, None))
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item, event = self._q.get()
+        if item is self._done:
+            self._q.put((self._done, None))  # a later __next__ stops too
+            if self._err:
+                raise self._err[0]
+            raise StopIteration
+        self._slots.release()
+        if event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            for t in item.values():
+                t.record_stream(stream)
+        return item
+
+    def close(self):
+        """Stop pulling batches (the thread ends at its next slot); safe to
+        call after the iterator is exhausted."""
+        self._closed = True
+        self._slots.release()

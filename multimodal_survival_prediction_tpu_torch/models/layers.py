@@ -16,7 +16,10 @@ variance (torch would use the unbiased one, which moves eval outputs).
 
 ``Dropout`` draws its masks from a generator the caller owns (the trainer
 owns one per fold), so two seeded runs draw the same masks whatever the
-global RNG holds.
+global RNG holds. Inside :func:`dropout_uniforms` it takes its uniforms
+from the caller instead (the fold-parallel step draws each fold's from that
+fold's generator outside ``torch.func.vmap``, which cannot vmap a
+generator).
 
 Compute dtype (flax's ``dtype`` of ``Dense``, ``Conv`` and ``BatchNorm``):
 the layers built here take ``dtype``. When it is set, input, weight and
@@ -32,6 +35,8 @@ casting points.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -202,19 +207,43 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0:
             return x
-        if self.generator is None:
+        source = _UNIFORMS.get()
+        if source is not None:
+            u = source(x)
+            if u.shape != x.shape:
+                raise RuntimeError(
+                    f"dropout uniforms of shape {tuple(u.shape)} for an "
+                    f"input of shape {tuple(x.shape)}")
+        elif self.generator is None:
             raise RuntimeError(
                 "Dropout in train mode needs a generator: call "
                 "set_dropout_generator(model, generator)")
-        # the uniforms in float32 whatever x's type (flax draws its
-        # bernoulli mask in float32): bf16 uniforms take ~1,700 values and
-        # would move the keep rate
-        u = torch.rand(x.shape, generator=self.generator, device=x.device,
-                       dtype=torch.float32)
+        else:
+            # the uniforms in float32 whatever x's type (flax draws its
+            # bernoulli mask in float32): bf16 uniforms take ~1,700 values
+            # and would move the keep rate
+            u = torch.rand(x.shape, generator=self.generator,
+                           device=x.device, dtype=torch.float32)
         return torch.where(u >= self.p, x / (1 - self.p), 0.0)
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
+
+
+_UNIFORMS: contextvars.ContextVar = contextvars.ContextVar(
+    "dropout_uniforms", default=None)
+
+
+@contextlib.contextmanager
+def dropout_uniforms(source):
+    """Within the block, every train-mode :class:`Dropout` with ``p > 0``
+    takes its float32 uniforms from ``source(x)`` (a tensor of ``x``'s
+    shape), in forward order, instead of drawing them from its generator."""
+    token = _UNIFORMS.set(source)
+    try:
+        yield
+    finally:
+        _UNIFORMS.reset(token)
 
 
 def set_dropout_generator(model: nn.Module, generator: torch.Generator):

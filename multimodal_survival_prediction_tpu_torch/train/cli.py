@@ -11,9 +11,12 @@ The CLI pins the precision policy of the process
 convolutions and products run in true fp32 as the JAX reference computes
 them) and logs both flags. Library functions set no global flags.
 
-Flags of the JAX scripts that have no port yet stay in the parser and raise
-``NotImplementedError`` naming their ROADMAP.md item; ``--device`` (default
-``cuda``) is the port's own.
+``--fold-parallel 1`` trains every fold in one vmapped step
+(``train/cv_parallel.py``) and ``--streaming`` keeps the cohort on the host
+(either driver). Flags of the JAX scripts that have no port yet stay in the
+parser and raise ``NotImplementedError`` naming their ROADMAP.md item
+(``--fold-parallel`` N > 1 too: a fold mesh over N devices); ``--device``
+(default ``cuda``) is the port's own.
 """
 
 from __future__ import annotations
@@ -30,19 +33,15 @@ from ..data.synthetic import SyntheticCohortSpec, generate_synthetic_cohort
 from ..utils import parse_hu_window
 from ..utils.device import pin_fp32_policy
 from .cv import run_cross_validation
+from .cv_parallel import make_fold_mesh, run_cross_validation_parallel
 
 log = logging.getLogger(__name__)
 
 # (flag, attribute, value when unused, ROADMAP.md item)
 _NOT_PORTED = (
     ("--mesh", "mesh", 0, "Queue 1 item 10 (multi-device paths)"),
-    ("--fold-parallel", "fold_parallel", 0,
-     "Queue 1 item 9 (fold-parallel CV)"),
-    ("--fold-dp", "fold_dp", 1, "Queue 1 item 9 (fold-parallel CV)"),
     ("--tp", "tp", 1, "Queue 1 item 10 (multi-device paths)"),
     ("--remat", "remat", False, "Queue 1 item 16 (remat)"),
-    ("--streaming", "streaming", False,
-     "Queue 1 item 11 (streaming epochs)"),
     ("--sharded-risk-set", "sharded_risk_set", False,
      "Queue 1 item 10 (multi-device paths)"),
     ("--multihost", "multihost", False,
@@ -97,6 +96,17 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                         "float32)")
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
+    p.add_argument("--fold-parallel", type=int, default=0,
+                   help="train all folds in one vmapped step on one device "
+                        "(1; N > 1 devices is not ported yet: ROADMAP.md "
+                        "Queue 1 item 10)")
+    p.add_argument("--fold-dp", type=int, default=1,
+                   help="data parallelism inside each fold of a "
+                        "--fold-parallel N mesh (not ported yet: ROADMAP.md "
+                        "Queue 1 item 10)")
+    p.add_argument("--streaming", action="store_true",
+                   help="keep the cohort on the host and prefetch each "
+                        "batch to the device (pinned memory, a side stream)")
     for flag, dest, unused, item in _NOT_PORTED:
         kw = ({"action": "store_true"} if unused is False
               else {"type": int if isinstance(unused, int) else str,
@@ -110,6 +120,21 @@ def run_training(args, cfg):
     cv_results payload."""
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
+    if args.fold_dp > 1 and args.fold_parallel <= 1:
+        # the inner 'data' axis only exists on a fold-parallel mesh
+        raise SystemExit(
+            "--fold-dp needs --fold-parallel N with N > 1 (N total devices "
+            "= N/M folds x M-way DP); use --mesh M for plain data "
+            "parallelism with the sequential driver")
+    if args.fold_parallel and (args.mesh or args.tp > 1 or args.resume
+                               or args.profile_dir
+                               or args.sharded_risk_set):
+        raise SystemExit(
+            "--fold-parallel is mutually exclusive with --mesh/--tp/"
+            "--resume/--profile-dir/--sharded-risk-set "
+            "(use the sequential driver for those). --streaming DOES "
+            "compose: host-resident cohort, stacked per-step batches "
+            "(train/cv_parallel.py module docstring)")
     for flag, dest, unused, item in _NOT_PORTED:
         if getattr(args, dest) != unused:
             raise NotImplementedError(
@@ -118,6 +143,9 @@ def run_training(args, cfg):
         raise SystemExit(
             f"--stage1-epochs only applies to two-stage models (SimMLM); "
             f"'{cfg.name}' has no stage 1")
+    fold_mesh = (make_fold_mesh(args.fold_parallel,
+                                data_parallel=args.fold_dp)
+                 if args.fold_parallel else None)
     log.info(pin_fp32_policy())
 
     cfg = dataclasses.replace(cfg, **{k: v for k, v in dict(
@@ -128,6 +156,36 @@ def run_training(args, cfg):
                      if args.image_shape else None),
     ).items() if v is not None})
 
+    table, rnaseq_csv = load_cohort(args, cfg)
+    common = dict(
+        rnaseq_csv=rnaseq_csv, results_dir=args.results_dir,
+        models_dir=args.models_dir, backbone=args.backbone,
+        dtype=torch.bfloat16 if args.bf16 else None,
+        use_pallas_resample=args.pallas_resample,
+        hu_window=parse_hu_window(args.hu_window), streaming=args.streaming,
+        device=args.device)
+    if args.fold_parallel:
+        payload, outcomes = run_cross_validation_parallel(
+            cfg, table, mesh=fold_mesh, **common)
+        title = f"{cfg.display_name} (fold-parallel)"
+    else:
+        payload, outcomes = run_cross_validation(
+            cfg, table, resume=args.resume,
+            checkpoint_every=args.checkpoint_every, **common)
+        title = cfg.display_name
+    print(f"\n{title}: C-index "
+          f"{payload['c_index_mean']:.4f} ± {payload['c_index_std']:.4f}")
+    for o in outcomes:
+        print(f"  fold {o.fold}: best {o.best_c_index:.4f} "
+              f"@ epoch {o.best_epoch} ({o.epochs_run} epochs run)")
+    return payload
+
+
+def load_cohort(args, cfg, final_table: bool = True):
+    """``(table, rnaseq_csv)`` as the parsed ``args`` say: a synthetic
+    cohort written under ``--data-root``, or the matching table and RNA
+    matrix under ``<data-root>/data/processed`` (final_multimodal's own
+    table when ``final_table`` and it exists)."""
     root = Path(args.data_root)
     if args.synthetic:
         table, paths = generate_synthetic_cohort(
@@ -135,7 +193,7 @@ def run_training(args, cfg):
         rnaseq_csv = paths["rnaseq_csv"]
     else:
         table_csv = root / "data" / "processed" / "full_matching_table.csv"
-        if cfg.name == "final":
+        if final_table and cfg.name == "final":
             # final_multimodal reads the 109-patient table while every other
             # trainer reads the 608-patient one (reference
             # final_multimodal.py:205, SURVEY §2.13)
@@ -146,17 +204,4 @@ def run_training(args, cfg):
         rnaseq_csv = root / "data" / "processed" / "rnaseq_normalized_mapped.csv"
         if not rnaseq_csv.exists():
             rnaseq_csv = None
-
-    payload, outcomes = run_cross_validation(
-        cfg, table, rnaseq_csv=rnaseq_csv, results_dir=args.results_dir,
-        models_dir=args.models_dir, backbone=args.backbone,
-        dtype=torch.bfloat16 if args.bf16 else None,
-        use_pallas_resample=args.pallas_resample,
-        hu_window=parse_hu_window(args.hu_window), resume=args.resume,
-        checkpoint_every=args.checkpoint_every, device=args.device)
-    print(f"\n{cfg.display_name}: C-index "
-          f"{payload['c_index_mean']:.4f} ± {payload['c_index_std']:.4f}")
-    for o in outcomes:
-        print(f"  fold {o.fold}: best {o.best_c_index:.4f} "
-              f"@ epoch {o.best_epoch} ({o.epochs_run} epochs run)")
-    return payload
+    return table, rnaseq_csv

@@ -27,8 +27,12 @@ dtype, as the JAX driver's ``dtype``: parameters, optimizer state and fold
 checkpoints stay float32, and the checkpoints' ``.meta.json`` records no
 dtype (``predict_risk`` scores them in float32, as JAX does).
 
+``streaming`` keeps the cohort on the host and feeds each epoch through
+the Trainer's streaming methods (``BatchPrefetcher``); the trajectory is
+the device-resident one.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``streaming``, meshes / tensor parallelism / the sharded risk set,
+item): meshes / tensor parallelism / the sharded risk set,
 ``aot_cache_dir``, ``profile_dir`` and ``remat``.
 """
 
@@ -74,8 +78,6 @@ log = logging.getLogger(__name__)
 
 # option -> the ROADMAP.md item that brings it
 _NOT_PORTED = {
-    "streaming": "streaming epochs are not ported yet: ROADMAP.md Queue 1 "
-                 "item 11",
     "mesh": "meshes, tensor parallelism and the sharded risk set are not "
             "ported yet: ROADMAP.md Queue 1 item 10",
     "aot_cache_dir": "aot_cache_dir is not ported yet: ROADMAP.md Queue 1 "
@@ -147,6 +149,30 @@ def prepare_cv_data(cfg: ModelRunConfig, table, rnaseq_csv=None,
     return arrays, splits
 
 
+def make_trainers(cfg: ModelRunConfig, rna_dim: int, backbone: str, dtype,
+                  device):
+    """The driver's Trainer for ``cfg`` and, for two-stage models, SimMLM's
+    stage-1 Trainer (the same batches and optimizer, the experts' loss);
+    None when ``cfg`` has no stage 1."""
+    batch_to_inputs, hazard_and_aux = make_adapters(cfg)
+    tcfg = TrainConfig(
+        batch_size=cfg.batch_size, learning_rate=cfg.learning_rate,
+        weight_decay=cfg.weight_decay, optimizer=cfg.optimizer,
+        grad_clip=cfg.grad_clip, seed=cfg.seed, ties=cfg.ties)
+
+    def model_fn(gen):
+        return make_model_and_adapters(cfg, rna_dim=rna_dim,
+                                       backbone=backbone, generator=gen,
+                                       dtype=dtype)[0]
+
+    trainer = Trainer(model_fn, batch_to_inputs, hazard_and_aux, tcfg,
+                      device=device)
+    stage1_trainer = (Trainer(model_fn, batch_to_inputs,
+                              simmlm_stage1_adapter(), tcfg, device=device)
+                      if cfg.stage1_epochs else None)
+    return trainer, stage1_trainer
+
+
 def _compute_dtype(dtype) -> torch.dtype | None:
     """The models' compute dtype from ``run_cross_validation``'s ``dtype``:
     None (float32) or ``torch.bfloat16`` (the JAX driver's
@@ -157,10 +183,9 @@ def _compute_dtype(dtype) -> torch.dtype | None:
                      "or torch.bfloat16")
 
 
-def _refuse_unported(*, streaming, mesh, tensor_parallel, sharded_risk_set,
+def _refuse_unported(*, mesh, tensor_parallel, sharded_risk_set,
                      aot_cache_dir, profile_dir, remat):
-    given = {"streaming": streaming,
-             "mesh": (mesh is not None or tensor_parallel
+    given = {"mesh": (mesh is not None or tensor_parallel
                       or sharded_risk_set),
              "aot_cache_dir": bool(aot_cache_dir),
              "profile_dir": bool(profile_dir), "remat": remat}
@@ -204,7 +229,7 @@ def run_cross_validation(
     after each fold's ``init_state``; a returned TrainState replaces the
     fold's initial state (the tests start each fold from the JAX driver's
     initial weights through it)."""
-    _refuse_unported(streaming=streaming, mesh=mesh,
+    _refuse_unported(mesh=mesh,
                      tensor_parallel=tensor_parallel,
                      sharded_risk_set=sharded_risk_set,
                      aot_cache_dir=aot_cache_dir, profile_dir=profile_dir,
@@ -220,25 +245,16 @@ def run_cross_validation(
         device=dev)
     rna_dim = arrays.arrays["rnaseq"].shape[1]
 
-    batch_to_inputs, hazard_and_aux = make_adapters(cfg)
-    tcfg = TrainConfig(
-        batch_size=cfg.batch_size, learning_rate=cfg.learning_rate,
-        weight_decay=cfg.weight_decay, optimizer=cfg.optimizer,
-        grad_clip=cfg.grad_clip, seed=cfg.seed, ties=cfg.ties)
-    data = arrays.to_device(dev)
-
     # ONE Trainer for all folds, as the JAX driver keeps one
-    def model_fn(gen):
-        return make_model_and_adapters(cfg, rna_dim=rna_dim,
-                                       backbone=backbone, generator=gen,
-                                       dtype=dtype)[0]
-
-    trainer = Trainer(model_fn, batch_to_inputs, hazard_and_aux, tcfg,
-                      device=dev)
-    # SimMLM's stage 1: the same batches and optimizer, another loss
-    stage1_trainer = (Trainer(model_fn, batch_to_inputs,
-                              simmlm_stage1_adapter(), tcfg, device=dev)
-                      if cfg.stage1_epochs else None)
+    trainer, stage1_trainer = make_trainers(cfg, rna_dim, backbone, dtype,
+                                            dev)
+    if streaming:  # the cohort stays on the host
+        data = {k: np.asarray(v) for k, v in arrays.arrays.items()}
+        train_epoch = Trainer.train_epoch_streaming
+        evaluate = Trainer.evaluate_streaming
+    else:
+        data = arrays.to_device(dev)
+        train_epoch, evaluate = Trainer.train_epoch, Trainer.evaluate
 
     outcomes: list[FoldOutcome] = []
     t_start = time.monotonic()
@@ -282,8 +298,9 @@ def run_cross_validation(
         # before the first stage-2 checkpoint)
         if stage1_trainer is not None and start_epoch == 1:
             for epoch in range(1, cfg.stage1_epochs + 1):
-                state, s1_loss = stage1_trainer.train_epoch(
-                    state, data, train_rows, shuffle_rng, cfg.learning_rate)
+                state, s1_loss = train_epoch(
+                    stage1_trainer, state, data, train_rows, shuffle_rng,
+                    cfg.learning_rate)
                 if epoch % 10 == 0 or epoch == 1:
                     log.info("[%s fold %d] stage1 epoch %d loss %.4f", name,
                              fold, epoch, s1_loss)
@@ -292,9 +309,9 @@ def run_cross_validation(
         for epoch in range(start_epoch, num_epochs + 1):
             if cfg.scheduler == "cosine":
                 lr = cosine_annealing(cfg.learning_rate, epoch - 1, num_epochs)
-            state, tr_loss = trainer.train_epoch(state, data, train_rows,
-                                                 shuffle_rng, lr)
-            val_c, val_loss, _ = trainer.evaluate(state, data, val_rows)
+            state, tr_loss = train_epoch(trainer, state, data, train_rows,
+                                         shuffle_rng, lr)
+            val_c, val_loss, _ = evaluate(trainer, state, data, val_rows)
             if cfg.scheduler == "plateau":
                 lr = plateau.step(val_c)
             history.append(dict(epoch=epoch, train_loss=tr_loss,
@@ -328,15 +345,11 @@ def run_cross_validation(
                     "history": history}))
 
         if write_outputs and best_params is not None:
-            ckpt_path = Path(models_dir) / name / f"fold_{fold}_best.pt"
-            save_checkpoint(ckpt_path, best_params)
-            save_fold_meta(
-                ckpt_path, model=name, fold=fold, backbone=backbone,
-                image_shape=list(cfg.image_shape), rna_dim=rna_dim,
-                hu_window=(list(hu_window) if hu_window else None),
-                use_pallas_resample=use_pallas_resample, ties=cfg.ties,
-                resample_mode=arrays.ingest_mode,
-                best_epoch=best_epoch, best_c_index=float(best_c))
+            save_fold(models_dir, cfg, fold, best_params, backbone=backbone,
+                      rna_dim=rna_dim, hu_window=hu_window,
+                      use_pallas_resample=use_pallas_resample,
+                      resample_mode=arrays.ingest_mode,
+                      best_epoch=best_epoch, best_c_index=best_c)
 
         outcome = FoldOutcome(
             fold=fold, best_c_index=float(best_c), best_epoch=best_epoch,
@@ -354,6 +367,22 @@ def run_cross_validation(
     log.info("[%s] CV done: %.1fs, %d steps, %.2f steps/s", name, elapsed,
              total_steps, total_steps / max(elapsed, 1e-9))
     return payload, outcomes
+
+
+def save_fold(models_dir, cfg: ModelRunConfig, fold: int, best_params: dict,
+              *, backbone, rna_dim, hu_window, use_pallas_resample,
+              resample_mode, best_epoch, best_c_index):
+    """``<models_dir>/<model>/fold_K_best.pt`` and the ``.meta.json`` that
+    ``train/predict.py`` reads."""
+    ckpt_path = Path(models_dir) / cfg.name / f"fold_{fold}_best.pt"
+    save_checkpoint(ckpt_path, best_params)
+    save_fold_meta(
+        ckpt_path, model=cfg.name, fold=fold, backbone=backbone,
+        image_shape=list(cfg.image_shape), rna_dim=rna_dim,
+        hu_window=(list(hu_window) if hu_window else None),
+        use_pallas_resample=use_pallas_resample, ties=cfg.ties,
+        resample_mode=resample_mode, best_epoch=int(best_epoch),
+        best_c_index=float(best_c_index))
 
 
 def build_and_write_cv_payload(cfg, outcomes, num_epochs, dataset_size,

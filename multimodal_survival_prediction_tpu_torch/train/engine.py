@@ -16,9 +16,15 @@ Python loop over shuffled, padded batch indices with one host read-back
 The parameters and BatchNorm buffers live in the model module; the
 optimizer's moments are updated in place (``torch._foreach_*``).
 
+Streaming epochs (``train_epoch_streaming``, ``evaluate_streaming``) keep
+the cohort on the host as numpy arrays: each batch is gathered there and
+copied to the device by ``data.pipeline.BatchPrefetcher`` while the previous
+step runs. Batch order, dropout draws and arithmetic are those of the
+device-resident methods, so both give the same trajectory.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): streaming epochs, meshes / tensor parallelism / the sharded risk
-set, and the compiled-executable cache.
+item): meshes / tensor parallelism / the sharded risk set, and the
+compiled-executable cache.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..data.pipeline import BatchPrefetcher
 from ..models.layers import set_dropout_generator
 from ..ops.cindex import concordance_index
 from ..ops.cox import cox_partial_likelihood
@@ -37,8 +44,6 @@ from ..utils.device import resolve_device
 
 _MULTI_DEVICE_TODO = ("meshes, tensor parallelism and the sharded risk set "
                       "are not ported yet: ROADMAP.md Queue 1 item 10")
-_STREAMING_TODO = ("streaming epochs (host-resident cohort, BatchPrefetcher) "
-                   "are not ported yet: ROADMAP.md Queue 1 item 11")
 _AOT_TODO = ("aot_cache_dir is not ported yet: ROADMAP.md Queue 1 item 12")
 
 
@@ -80,34 +85,80 @@ class Optimizer:
         return AdamState(mu=[torch.zeros_like(p) for p in params],
                          nu=[torch.zeros_like(p) for p in params])
 
+    @torch.no_grad()
     def update(self, grads: list, state: AdamState, params: list,
                lr: float):
-        """``(updates, state)``; ``state``'s moments are updated in place."""
+        """``(updates, state)``; ``state``'s moments are updated in place.
+        Under ``no_grad``: the decay term reads the parameters, and autograd
+        would otherwise chain every step's moments to the last."""
         g = list(grads)
+        norm = (torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+                if self.grad_clip is not None else None)
+        state.count += 1
+        updates = self._adam(g, state.mu, state.nu, params, norm,
+                             1 - self.b1 ** state.count,
+                             1 - self.b2 ** state.count)
+        torch._foreach_mul_(updates, -lr)
+        return updates, state
+
+    @torch.no_grad()
+    def update_stacked(self, grads: torch.Tensor, mu: torch.Tensor,
+                       nu: torch.Tensor, params: torch.Tensor, count,
+                       lr: torch.Tensor, sizes: list):
+        """:meth:`update` of K states stacked on dim 0 of flat (K, P)
+        tensors, each with its own global-norm clip, Adam count and
+        learning rate: ``count`` holds the K counts after this step (host
+        ints), ``lr`` is a (K, 1) tensor, ``sizes`` the parameters' numels
+        in order (each row's clip norm is reduced as :meth:`update`'s, over
+        the norms of its parameters). ``mu``, ``nu`` and ``params`` are
+        updated in place."""
+        norm = None
         if self.grad_clip is not None:
+            rows = [t for row in grads for t in row.split(sizes)]
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(rows)).view(len(grads), -1),
+                dim=1, keepdim=True)
+        # the bias corrections in float64 on the host, as update computes
+        # them, then one per state in the moments' dtype
+        bc = torch.tensor([[1 - self.b1 ** c, 1 - self.b2 ** c]
+                           for c in count],
+                          dtype=mu.dtype).to(mu.device, non_blocking=True)
+        (updates,) = self._adam([grads], [mu], [nu], [params], norm,
+                                [bc[:, :1]], [bc[:, 1:]])
+        params.add_(updates.mul_(-lr))
+
+    def _adam(self, g: list, mu: list, nu: list, params: list, norm,
+              bc1, bc2) -> list:
+        """The unscaled updates of both :meth:`update` (lists of the
+        parameters' tensors; ``norm`` a 0-dim tensor, ``bc1`` and ``bc2``
+        floats) and :meth:`update_stacked` (lists of one flat (K, P)
+        tensor; ``norm`` (K, 1), ``bc1`` and ``bc2`` lists of one (K, 1)
+        tensor). ``mu`` and ``nu`` are updated in place."""
+        if norm is not None:
             # optax: where(‖g‖ < max, g, (g / ‖g‖) · max), without a host
             # sync (dividing and multiplying by 1 is exact)
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
             under = norm < self.grad_clip
-            g = torch._foreach_div(g, torch.where(under, 1.0, norm))
-            torch._foreach_mul_(g, torch.where(under, 1.0, self.grad_clip))
+            div = torch.where(under, 1.0, norm)
+            mul = torch.where(under, 1.0, self.grad_clip)
+            if norm.dim():  # a (K, 1) scale for each row
+                div, mul = [div], [mul]
+            g = torch._foreach_div(g, div)
+            torch._foreach_mul_(g, mul)
         if self.kind == "adam" and self.weight_decay:
             g = torch._foreach_add(g, params, alpha=self.weight_decay)
         b1, b2 = self.b1, self.b2
-        torch._foreach_mul_(state.mu, b1)
-        torch._foreach_add_(state.mu, g, alpha=1 - b1)
-        torch._foreach_mul_(state.nu, b2)
-        torch._foreach_addcmul_(state.nu, g, g, value=1 - b2)
-        state.count += 1
-        mu_hat = torch._foreach_div(state.mu, 1 - b1 ** state.count)
-        nu_hat = torch._foreach_div(state.nu, 1 - b2 ** state.count)
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, g, alpha=1 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, g, g, value=1 - b2)
+        mu_hat = torch._foreach_div(mu, bc1)
+        nu_hat = torch._foreach_div(nu, bc2)
         denom = torch._foreach_sqrt(nu_hat)
         torch._foreach_add_(denom, self.eps)
         updates = torch._foreach_div(mu_hat, denom)
         if self.kind == "adamw" and self.weight_decay:
             torch._foreach_add_(updates, params, alpha=self.weight_decay)
-        torch._foreach_mul_(updates, -lr)
-        return updates, state
+        return updates
 
 
 def make_optimizer(cfg: TrainConfig) -> Optimizer:
@@ -278,11 +329,32 @@ class Trainer:
         return (idx.reshape(steps, batch_size),
                 bvalid.reshape(steps, batch_size))
 
+    @staticmethod
+    def _host_batches(host_data: dict, idx: np.ndarray, bvalid: np.ndarray):
+        """``_gather_batch`` on the host: one dict of numpy arrays a row
+        of ``idx``."""
+        for bidx, bv in zip(idx, bvalid):
+            batch = {k: v[bidx] for k, v in host_data.items()}
+            batch["valid"] = bv
+            batch["svalid"] = batch["svalid"] * bv
+            yield batch
+
     def _device_indices(self, idx: np.ndarray, bvalid: np.ndarray):
         return (torch.from_numpy(idx.astype(np.int64)).to(self.device),
                 torch.from_numpy(bvalid).to(self.device))
 
+    def _device_batches(self, data: dict, idx: np.ndarray,
+                        bvalid: np.ndarray):
+        idx, bvalid = self._device_indices(idx, bvalid)
+        for i, bv in zip(idx, bvalid):
+            yield self._gather_batch(data, i, bv)
+
     # ---------------- host-side API ----------------
+
+    def _train_batches(self, state: TrainState, batches, lr: float):
+        self.step_losses = torch.stack([self.train_step(state, batch, lr)
+                                        for batch in batches])
+        return state, float(self.step_losses.mean())
 
     def train_epoch(self, state: TrainState, data: dict, indices,
                     shuffle_rng: np.random.Generator, lr: float):
@@ -290,25 +362,30 @@ class Trainer:
         of tensors on the device). Returns ``(state, mean loss)``."""
         perm, bvalid = self._pad_indices(indices, self.cfg.batch_size,
                                          shuffle_rng)
-        perm, bvalid = self._device_indices(perm, bvalid)
-        self.step_losses = torch.stack([
-            self.train_step(state, self._gather_batch(data, i, bv), lr)
-            for i, bv in zip(perm, bvalid)])
-        return state, float(self.step_losses.mean())
+        return self._train_batches(
+            state, self._device_batches(data, perm, bvalid), lr)
 
-    def evaluate(self, state: TrainState, data: dict, indices):
-        """Pooled C-index, mean loss and per-sample hazards over
-        ``indices`` (reference final_multimodal.py:268-305): eval batches of
-        ``cfg.eval_batch_size`` in index order, their hazards pooled into
-        one C-index."""
-        idx, bvalid = self._pad_indices(indices, self.cfg.eval_batch_size,
-                                        None)
-        idx, bvalid = self._device_indices(idx, bvalid)
+    def train_epoch_streaming(self, state: TrainState, host_data: dict,
+                              indices, shuffle_rng: np.random.Generator,
+                              lr: float, depth: int = 2):
+        """:meth:`train_epoch` with the cohort on the host (``host_data``, a
+        dict of numpy arrays): the same batches, gathered on the host and
+        prefetched ``depth`` deep onto the device. One read-back (the mean
+        loss) an epoch."""
+        perm, bvalid = self._pad_indices(indices, self.cfg.batch_size,
+                                         shuffle_rng)
+        batches = BatchPrefetcher(self._host_batches(host_data, perm, bvalid),
+                                  depth=depth, device=self.device)
+        try:
+            return self._train_batches(state, batches, lr)
+        finally:
+            batches.close()
+
+    def _evaluate_batches(self, state: TrainState, batches, n: int):
         model = state.model.eval()
         hs, ts, es, svs, losses = [], [], [], [], []
         with torch.inference_mode():
-            for bidx, bv in zip(idx, bvalid):
-                batch = self._gather_batch(data, bidx, bv)
+            for batch in batches:
                 out = model(*self.batch_to_inputs(batch))
                 hazard = self.hazard_and_aux(out, batch)[0]
                 losses.append(cox_partial_likelihood(
@@ -322,11 +399,28 @@ class Trainer:
             cindex = concordance_index(h, torch.cat(ts), torch.cat(es),
                                        valid=torch.cat(svs))
             loss = torch.stack(losses).mean()
-        return (float(cindex), float(loss),
-                h[: len(indices)].float().cpu().numpy())
+        return float(cindex), float(loss), h[:n].float().cpu().numpy()
 
-    def train_epoch_streaming(self, *args, **kwargs):
-        raise NotImplementedError(_STREAMING_TODO)
+    def evaluate(self, state: TrainState, data: dict, indices):
+        """Pooled C-index, mean loss and per-sample hazards over
+        ``indices`` (reference final_multimodal.py:268-305): eval batches of
+        ``cfg.eval_batch_size`` in index order, their hazards pooled into
+        one C-index."""
+        idx, bvalid = self._pad_indices(indices, self.cfg.eval_batch_size,
+                                        None)
+        return self._evaluate_batches(
+            state, self._device_batches(data, idx, bvalid), len(indices))
 
-    def evaluate_streaming(self, *args, **kwargs):
-        raise NotImplementedError(_STREAMING_TODO)
+    def evaluate_streaming(self, state: TrainState, host_data: dict, indices,
+                           depth: int = 2):
+        """:meth:`evaluate` with the cohort on the host: the same eval
+        batches, prefetched onto the device; the pooled C-index is the
+        port's ``concordance_index`` over all the pooled hazards."""
+        idx, bvalid = self._pad_indices(indices, self.cfg.eval_batch_size,
+                                        None)
+        batches = BatchPrefetcher(self._host_batches(host_data, idx, bvalid),
+                                  depth=depth, device=self.device)
+        try:
+            return self._evaluate_batches(state, batches, len(indices))
+        finally:
+            batches.close()

@@ -64,6 +64,7 @@ def test_whole_port_imports_without_jax():
                 "train.engine", "io.msgpack", "io.torch_import", "ops.km",
                 "analysis.evaluate", "analysis.generate_km_curves",
                 "analysis.evaluate_model", "tools.convert_torch_checkpoint",
-                "tools.export_torch_checkpoint", "tools.calibrate"):
+                "tools.export_torch_checkpoint", "tools.calibrate",
+                "train.cv_parallel", "train.sweep", "data.pipeline"):
         assert f"multimodal_survival_prediction_tpu_torch.{mod}" in \
             out["modules"]

@@ -622,3 +622,106 @@ def test_fold_formats_score_alike_on_card(cuda_device, tmp_path):
     assert np.all(np.isfinite(risks[0]))
     for r in risks[1:]:
         np.testing.assert_allclose(r, risks[0], rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Fold-parallel training and the batch prefetcher on the card
+# ---------------------------------------------------------------------------
+
+def _pm_data(n=30, rna_dim=24, seed=5, shape=(16, 16, 8)):
+    rng = np.random.default_rng(seed)
+    mask = (rng.uniform(size=(n, 3)) < 0.8).astype(np.float32)
+    svalid = (rng.uniform(size=n) < 0.85).astype(np.float32)
+    return {
+        "image": (rng.normal(size=(n, *shape, 1))
+                  * mask[:, 0, None, None, None, None]).astype(np.float32),
+        "rnaseq": (rng.normal(size=(n, rna_dim)) * mask[:, 1:2]).astype(
+            np.float32),
+        "clinical": (rng.uniform(0.3, 0.8, (n, 1)) * mask[:, 2:3]).astype(
+            np.float32),
+        "mask": mask,
+        "time": rng.exponential(300.0, n).astype(np.float32),
+        "event": ((rng.uniform(size=n) < 0.7) * svalid).astype(np.float32),
+        "svalid": svalid,
+    }
+
+
+@pytest.mark.cuda
+def test_vmapped_epoch_matches_sequential_on_card(cuda_device):
+    """Two folds of partial_modality (simple_cnn, 16x16x8, dropout on) with
+    unequal step counts (2 vs 3 at batch 8): one vmapped epoch against two
+    sequential epochs on the card. Losses rtol 1e-5 (the first epoch's
+    steps differ only by the order of float32 sums: grouped vs plain
+    cuDNN convolutions); Adam's count, the step and each fold's generator
+    state exact; BatchNorm running means 1e-4 of their largest |value|."""
+    import dataclasses
+
+    from multimodal_survival_prediction_tpu_torch.config import (
+        PARTIAL_MODALITY,
+    )
+    from multimodal_survival_prediction_tpu_torch.train import cv_parallel
+    from multimodal_survival_prediction_tpu_torch.train.cv import (
+        make_trainers,
+    )
+
+    cfg = dataclasses.replace(PARTIAL_MODALITY, batch_size=8,
+                              image_shape=(16, 16, 8))
+    data = {k: torch.from_numpy(v).to(cuda_device)
+            for k, v in _pm_data().items()}
+    rows = [np.arange(15), np.arange(10, 30)]
+    seq = []
+    for f, r in zip((1, 2), rows):
+        tr = make_trainers(cfg, 24, "simple_cnn", None, cuda_device)[0]
+        state = tr.init_state(fold=f)
+        tr.train_epoch(state, data, r, np.random.default_rng(100 + f),
+                       cfg.learning_rate)
+        seq.append((tr.step_losses.cpu(), state))
+    tr = make_trainers(cfg, 24, "simple_cnn", None, cuda_device)[0]
+    stacked = cv_parallel.StackedState([tr.init_state(fold=1),
+                                         tr.init_state(fold=2)])
+    idx, bv = cv_parallel._stack_fold_indices(
+        rows, 8, [np.random.default_rng(101), np.random.default_rng(102)])
+    step_valid = bv.max(axis=2) > 0
+    losses = cv_parallel._build_parallel_train_epoch(tr)(
+        stacked, cv_parallel.stacked_batches(tr, data, idx, bv), step_valid,
+        np.full(2, cfg.learning_rate))[0].cpu()
+    assert step_valid.tolist() == [[True, True, False], [True, True, True]]
+    for k, (want, state) in enumerate(seq):
+        got = losses[: len(want), k]
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+        assert float(losses[len(want):, k].abs().sum()) == 0.0
+        saved = stacked.fold_train_state(k)
+        assert saved["opt_count"] == state.opt_state.count
+        assert saved["step"] == state.step
+        assert torch.equal(saved["dropout_rng"],
+                           state.dropout_generator.get_state())
+        for name, v in state.model.state_dict().items():
+            if name.endswith("running_mean"):
+                scale = float(v.abs().max()) or 1.0
+                assert float((saved["model"][name] - v.cpu()).abs().max()) \
+                    <= 1e-4 * scale, name
+
+
+@pytest.mark.cuda
+def test_prefetcher_on_pinned_memory_and_a_side_stream(cuda_device):
+    """BatchPrefetcher copies each host batch from pinned memory on its own
+    stream; the consumer's batches equal the host gather, bit for bit."""
+    from multimodal_survival_prediction_tpu_torch.data.pipeline import (
+        BatchPrefetcher,
+    )
+
+    rng = np.random.default_rng(3)
+    host = {"x": rng.normal(size=(64, 4, 8, 8)).astype(np.float32),
+            "t": rng.integers(0, 9, 64).astype(np.int64)}
+    idx = rng.permutation(64).reshape(8, 8)
+    before = BatchPrefetcher.side_stream_copies
+    it = BatchPrefetcher(({k: v[i] for k, v in host.items()} for i in idx),
+                         depth=2, device=cuda_device)
+    assert it.stream is not None
+    assert it.stream != torch.cuda.current_stream(cuda_device)
+    got = list(it)
+    assert BatchPrefetcher.side_stream_copies - before == len(idx)
+    for i, batch in zip(idx, got):
+        for k, v in host.items():
+            assert batch[k].device.type == "cuda"
+            assert torch.equal(batch[k].cpu(), torch.from_numpy(v[i]))

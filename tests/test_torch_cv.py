@@ -465,7 +465,6 @@ def test_resume_is_bit_equal(cohort, tmp_path, monkeypatch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("option,item", [
-    (dict(streaming=True), "Queue 1 item 11"),
     (dict(mesh=object()), "Queue 1 item 10"),
     (dict(tensor_parallel=True), "Queue 1 item 10"),
     (dict(sharded_risk_set=True), "Queue 1 item 10"),
@@ -480,23 +479,76 @@ def test_driver_refuses_what_is_not_ported(tmp_path, option, item):
     assert not any(tmp_path.iterdir())
 
 
+def test_driver_runs_streaming(cohort, tmp_path):
+    """``streaming=True`` (a refusal until the streaming epochs were
+    ported) runs: one epoch of both folds from the host-resident cohort,
+    the fold checkpoints written (tests/test_torch_streaming.py holds it
+    bit-equal to the device-resident run)."""
+    tarr, splits = cohort["tprepared"]
+    payload, out = cv.run_cross_validation(
+        CFG, None, results_dir=tmp_path, models_dir=tmp_path,
+        backbone="simple_cnn", prepared=(tarr, splits), num_epochs=1,
+        streaming=True, device="cpu")
+    assert [o.epochs_run for o in out] == [1, 1]
+    assert len(payload["fold_results"]) == 2
+    assert [c.name for c in fold_checkpoints(tmp_path, CFG.name)] == \
+        ["fold_1_best.pt", "fold_2_best.pt"]
+
+
 @pytest.mark.parametrize("flag,item", [
     (["--mesh", "4"], "Queue 1 item 10"),
-    (["--fold-parallel", "2"], "Queue 1 item 9"),
-    (["--fold-dp", "2"], "Queue 1 item 9"),
+    (["--fold-parallel", "2"], "Queue 1 item 10"),
+    (["--fold-dp", "2"], "--fold-dp needs --fold-parallel N with N > 1"),
     (["--tp", "2"], "Queue 1 item 10"),
     (["--remat"], "Queue 1 item 16"),
-    (["--streaming"], "Queue 1 item 11"),
     (["--sharded-risk-set"], "Queue 1 item 10"),
     (["--multihost"], "Queue 1 item 10"),
     (["--aot-cache", "aot"], "Queue 1 item 12"),
     (["--profile-dir", "prof"], "Queue 1 item 11"),
 ], ids=lambda v: v[0] if isinstance(v, list) else None)
 def test_cli_refuses_what_is_not_ported(tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """Each flag without a port raises NotImplementedError naming its
+    ROADMAP item; ``--fold-dp`` without ``--fold-parallel`` N > 1 exits
+    with the JAX scripts' usage message."""
+    raises = SystemExit if flag[0] == "--fold-dp" else NotImplementedError
+    with pytest.raises(raises, match=item):
         pmt.main(["--data-root", str(tmp_path), "--synthetic", "--device",
                   "cpu", *flag])
     assert not any(tmp_path.iterdir())
+
+
+def test_cli_streaming_end_to_end_on_cpu(tmp_path):
+    """``--streaming`` (a refusal until the streaming epochs were ported)
+    trains both folds from the host-resident cohort and writes
+    cv_results.json and the fold checkpoints, whose scores reproduce each
+    fold's best_c_index."""
+    models = tmp_path / "models"
+    payload = pmt.main([
+        "--data-root", str(tmp_path), "--results-dir",
+        str(tmp_path / "results"), "--models-dir", str(models),
+        "--synthetic", "--synthetic-patients", "16", "--backbone",
+        "simple_cnn", "--image-shape", "16,16,8", "--epochs", "1",
+        "--n-folds", "2", "--device", "cpu", "--streaming"])
+    assert json.loads((tmp_path / "results" / "partial_modality"
+                       / "cv_results.json").read_text()) == payload
+    ckpts = fold_checkpoints(models, "partial_modality")
+    processed = tmp_path / "data" / "processed"
+    table = load_matching_table(processed / "full_matching_table.csv")
+    cfg = dataclasses.replace(CFG, n_folds=2)
+    arrays, splits = cv.prepare_cv_data(
+        cfg, table, rnaseq_csv=processed / "rnaseq_normalized_mapped.csv",
+        device="cpu")
+    for ckpt, fr, (_, val, _) in zip(ckpts, payload["fold_results"],
+                                     splits):
+        pred = predict_risk(cfg, ckpt, table, rnaseq_csv=processed
+                            / "rnaseq_normalized_mapped.csv",
+                            labeled_only=False, device="cpu")
+        h = pred["risk_score"][val]
+        c = float(concordance_index(
+            torch.from_numpy(h).float(), arrays.arrays["time"][val],
+            arrays.arrays["event"][val], valid=arrays.arrays["svalid"][val]))
+        tol = _c_index_tolerance(arrays.arrays, val, h.astype(np.float64))
+        assert abs(c - fr["best_c_index"]) <= tol
 
 
 # ---------------------------------------------------------------------------

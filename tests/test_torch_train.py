@@ -216,11 +216,25 @@ def test_trainer_refuses_what_is_not_ported():
         engine.Trainer(lambda g: None, None, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         engine.Trainer(lambda g: None, None, aot_cache_dir="x", device="cpu")
-    tr = engine.Trainer(lambda g: None, None, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tr.train_epoch_streaming()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tr.evaluate_streaming()
+    # the streaming epochs are ported: they run (tests/test_torch_streaming.py
+    # holds them bit-equal to the device-resident ones)
+    from multimodal_survival_prediction_tpu_torch.models import (
+        RNASeqSurvivalModel,
+    )
+
+    tr = engine.Trainer(lambda g: RNASeqSurvivalModel(rna_dim=8, generator=g),
+                        lambda b: (b["rnaseq"],), device="cpu")
+    rng = np.random.default_rng(0)
+    host = {"rnaseq": rng.normal(size=(20, 8)).astype(np.float32),
+            "time": rng.uniform(1, 100, 20).astype(np.float32),
+            "event": (rng.uniform(size=20) < 0.6).astype(np.float32),
+            "svalid": np.ones(20, np.float32)}
+    state = tr.init_state(fold=1)
+    state, loss = tr.train_epoch_streaming(state, host, np.arange(20),
+                                           np.random.default_rng(1), 1e-3)
+    assert np.isfinite(loss) and tuple(tr.step_losses.shape) == (2,)
+    c, loss, hazards = tr.evaluate_streaming(state, host, np.arange(20))
+    assert 0.0 <= c <= 1.0 and np.isfinite(loss) and hazards.shape == (20,)
 
 
 # ---------------------------------------------------------------------------
