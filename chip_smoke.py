@@ -168,7 +168,27 @@ result then):
      with JAX's keys, its c_index equal to concordance_index_np on the
      predictions CSV within 1e-12, numbers finite or null exactly where
      JAX writes null. Prints the phase's wall.
-  12. summary: one JSON line of per-kernel numbers, then the final line
+  12. host ingest engine and both ends of the pipeline: builds the host
+     C++ engine (csrc/msp_native.cpp, g++ -O3 -march=native; prints the
+     compiler, whether zlib was found and the build seconds; a failed
+     build ends the run). The phase-4 CTs through resample='host' (0
+     W-pass launches), 'device' with the kernel (one a CT) and 'auto'
+     (the link probe's MB/s, the host and link ms for the probe volume,
+     the mode it chose; its cohort bit-equal to that mode's run): host vs
+     kernel within 2e-5 per volume; read_nifti_fast under MSP_NATIVE_IO=1
+     bit-equal to read_nifti on the .nii files and a .nii.gz slab. Phase
+     9's fold 1 copied with a .meta.json pinning resample_mode "host":
+     predict_risk makes 0 W-pass launches and agrees with the
+     device-ingest scoring within 1e-4, RiskScorer.score (decoded by
+     read_nifti_fast) with it within 1e-4. Then raw to report: a 16-slice
+     DICOM series at 512x512 for each imaging patient and STAR TSVs for
+     all 12, the two preprocessing entry points, the matching table, and
+     run_all --models rnaseq_only,partial_modality --n-folds 2 --epochs 1
+     --pallas-resample --profile-dir (full width): W-pass launches = the
+     imaging patients, no fused launch, both cv_results.json with 2 folds,
+     SUMMARY.md and results.json with the payloads' means, a trace per
+     family (partial_modality's naming wpass_kernel); each step's wall.
+  13. summary: one JSON line of per-kernel numbers, then the final line
      {"ok": true, "device": {...}}.
 
 Everything it writes goes under build/ in this checkout (kernel build,
@@ -2969,6 +2989,391 @@ def phase_checkpoints(work, cv_run, cv_table, cv_paths, cv_n_img,
                 scorer_build_s=build_s, c_index=written["c_index"])
 
 
+# --------------------------------------------------------------------------
+# 12: the host ingest engine and both ends of the pipeline (data/native.py,
+#     data/pipeline.py, preprocess/, run_all + analysis/comparison.py)
+# --------------------------------------------------------------------------
+
+HOST_TOL = 2e-5  # host engine vs the W-pass kernel (JAX's host-vs-device)
+DICOM_SLICES = 16  # slices a phase-4 CT keeps as a DICOM series
+STAR_GENES = 5100  # genes a STAR TSV lists; 5,005 of them are selected
+
+
+def _engine_build(device):
+    """12a: build the host engine from this checkout (a failed build raises
+    here with g++'s stderr) and report the toolchain."""
+    from multimodal_survival_prediction_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    _, info = native.build_native()
+    wall = time.perf_counter() - t0
+    log(f"host engine: {info['compiler']}, machine {info['machine']}, "
+        f"-march=native = {info['march']}, zlib "
+        f"{'found' if info['zlib'] else 'NOT found (-DMSP_NO_ZLIB)'}; "
+        f"g++ {info['build_sec']:.2f} s (fresh={info['built']}), "
+        f"{wall:.2f} s with the toolchain probe; {info['library']}")
+    check(native.native_available(), "native_available() is False after "
+          "the engine built")
+    return dict(info, wall_s=wall)
+
+
+def _ingest_paths(work, table, device, expect_launches):
+    """12b: the phase-4 CTs through 'host', 'device' + the kernel, and
+    'auto'; read_nifti_fast against read_nifti."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from multimodal_survival_prediction_tpu_torch.data import native
+    from multimodal_survival_prediction_tpu_torch.data import pipeline
+    from multimodal_survival_prediction_tpu_torch.data.nifti import (
+        read_nifti,
+        write_nifti,
+    )
+    from multimodal_survival_prediction_tpu_torch.ops import resample as rs
+
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    jobs = [(i, r["nifti_path"]) for i, r in enumerate(table)
+            if r["has_imaging"]]
+    out = (64, 64, 32)
+    pf = pipeline.VolumePrefetcher(device=device)
+    runs, walls, launches = {}, {}, {}
+    for label, kw in (("host", dict(resample="host")),
+                      ("kernel", dict(resample="device", use_pallas=True)),
+                      ("auto", dict(resample="auto")),
+                      ("device", dict(resample="device"))):
+        rs.wpass.launches = 0
+        t0 = time.perf_counter()
+        runs[label] = dict(pf.run(jobs, out, **kw))
+        sync()
+        walls[label] = time.perf_counter() - t0
+        launches[label] = rs.wpass.launches
+        runs[label + "_mode"] = pf.last_mode
+        if label == "auto":
+            probe = dict(pf.last_probe)
+    n = len(jobs)
+    check(runs["host_mode"] == "host" and launches["host"] == 0,
+          f"resample='host' ran {runs['host_mode']} with "
+          f"{launches['host']} W-pass launches, expected host and 0")
+    want = n if expect_launches else 0
+    check(runs["kernel_mode"] == "device" and launches["kernel"] == want,
+          f"resample='device' + use_pallas: {launches['kernel']} W-pass "
+          f"launches, expected {want}")
+    diffs = [float(np.abs(runs["host"][i] - runs["kernel"][i]).max())
+             for i, _ in jobs]
+    check(max(diffs) <= HOST_TOL, f"host vs kernel max |d| {max(diffs)} > "
+          f"{HOST_TOL}")
+    mode = runs["auto_mode"]
+    same = runs["host"] if mode == "host" else runs["device"]
+    check(all(np.array_equal(runs["auto"][i], same[i]) for i, _ in jobs),
+          f"'auto' chose {mode} but its cohort is not that path's alone")
+    log(f"ingest of the {n} phase-4 CTs (-> {out}): host "
+        f"{walls['host']:.3f} s (0 launches), kernel {walls['kernel']:.3f} s"
+        f" ({launches['kernel']} launches), plain device "
+        f"{walls['device']:.3f} s; host vs kernel max |d| per volume "
+        f"{[f'{d:.2e}' for d in diffs]} (tol {HOST_TOL})")
+    log(f"'auto': link probe {probe['link_mb_s']:.1f} MB/s, host "
+        f"{probe['host_ms']:.2f} ms/vol vs link {probe['link_ms']:.2f} ms/vol"
+        f" for the probe volume -> {mode}; cohort single-path (bit-equal to "
+        f"resample='{mode}'); wall {walls['auto']:.3f} s")
+
+    # read_nifti_fast (the engine under MSP_NATIVE_IO=1) against read_nifti
+    first = read_nifti(jobs[0][1]).data
+    gz = work / "ct_slab.nii.gz"
+    write_nifti(gz, first[:DICOM_SLICES])
+    paths = [p for _, p in jobs] + [str(gz)]
+    old = os.environ.get("MSP_NATIVE_IO")
+    os.environ["MSP_NATIVE_IO"] = "1"
+    try:
+        t0 = time.perf_counter()
+        fast = [native.read_nifti_fast(p).data for p in paths]
+        fast_s = time.perf_counter() - t0
+    finally:
+        if old is None:
+            os.environ.pop("MSP_NATIVE_IO")
+        else:
+            os.environ["MSP_NATIVE_IO"] = old
+    t0 = time.perf_counter()
+    slow = [read_nifti(p).data for p in paths]
+    slow_s = time.perf_counter() - t0
+    for p, a, b in zip(paths, fast, slow):
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"read_nifti_fast vs read_nifti differ on {p}")
+    log(f"read_nifti_fast (engine) vs read_nifti on {len(jobs)} .nii + 1 "
+        f".nii.gz ({first[:DICOM_SLICES].shape}): bit-equal; "
+        f"{fast_s:.3f} s vs {slow_s:.3f} s")
+    return dict(launches=launches, walls=walls, max_d=max(diffs),
+                probe=probe, auto_mode=mode)
+
+
+def _host_pinned_fold(work, table, paths, cv_run, device, expect_launches):
+    """12c: phase 9's fold 1 with its .meta.json pinning the host engine,
+    scored by predict_risk (no W-pass launch) and by RiskScorer's /score
+    path (decoded through read_nifti_fast)."""
+    import os
+
+    import numpy as np
+
+    from multimodal_survival_prediction_tpu_torch.config import (
+        PARTIAL_MODALITY as CFG,
+    )
+    from multimodal_survival_prediction_tpu_torch.data import native
+    from multimodal_survival_prediction_tpu_torch.data.datasets import (
+        load_rnaseq_matrix,
+    )
+    from multimodal_survival_prediction_tpu_torch.io.checkpoint import (
+        load_fold_meta,
+        save_fold_meta,
+    )
+    from multimodal_survival_prediction_tpu_torch.ops import resample as rs
+    from multimodal_survival_prediction_tpu_torch.serving import RiskScorer
+    from multimodal_survival_prediction_tpu_torch.train.predict import (
+        predict_risk,
+    )
+
+    src = cv_run["ckpts"][0]
+    ckpt = work / "host_fold" / CFG.name / src.name
+    ckpt.parent.mkdir(parents=True)
+    shutil.copyfile(src, ckpt)
+    meta = dict(load_fold_meta(src), resample_mode="host",
+                use_pallas_resample=False)
+    save_fold_meta(ckpt, **meta)
+    rs.wpass.launches = 0
+    t0 = time.perf_counter()
+    host = predict_risk(CFG, ckpt, table, rnaseq_csv=paths["rnaseq_csv"],
+                        labeled_only=False, device=device)
+    host_s = time.perf_counter() - t0
+    launches = rs.wpass.launches
+    check(launches == 0, f"predict_risk on a host-pinned fold launched the "
+          f"W-pass kernel {launches} times")
+    rs.wpass.launches = 0
+    dev = predict_risk(CFG, src, table, rnaseq_csv=paths["rnaseq_csv"],
+                       labeled_only=False, device=device)
+    dev_launches = rs.wpass.launches
+    check(list(host["patient_id"]) == list(dev["patient_id"]),
+          "host- and device-ingest scoring ordered patients differently")
+    d = float(np.abs(host["risk_score"] - dev["risk_score"]).max())
+    check(d <= RISK_TOL, f"host-pinned vs device-ingest log-hazards max |d| "
+          f"{d} > {RISK_TOL}")
+
+    full = [r for r in table if r["has_imaging"] and r["has_rnaseq"]
+            and r["has_clinical"]]
+    p = full[0]
+    calls = []
+    fast = native.read_nifti_fast
+
+    def counted(path):
+        calls.append(path)
+        return fast(path)
+
+    scorer = RiskScorer(CFG.name, ckpt, device=device)
+    rna = load_rnaseq_matrix(paths["rnaseq_csv"])
+    old = os.environ.get("MSP_NATIVE_IO")
+    os.environ["MSP_NATIVE_IO"] = "1"
+    native.read_nifti_fast = counted
+    try:
+        t0 = time.perf_counter()
+        out = scorer.score(rnaseq=rna.row(p["patient_id"]), age=p["age"],
+                           nifti_path=p["nifti_path"])
+        score_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        native.read_nifti_fast = fast
+        if old is None:
+            os.environ.pop("MSP_NATIVE_IO")
+        else:
+            os.environ["MSP_NATIVE_IO"] = old
+    i = list(host["patient_id"]).index(p["patient_id"])
+    ds = abs(out["risk_score"] - float(host["risk_score"][i]))
+    check(calls == [p["nifti_path"]], f"RiskScorer decoded {calls}, not "
+          "through read_nifti_fast once")
+    check(ds <= RISK_TOL, f"/score vs host-pinned predict_risk |d| {ds}")
+    log(f"host-pinned fold ({ckpt.name}, resample_mode host): predict_risk "
+        f"{host_s:.2f} s with {launches} W-pass launches (device-ingest "
+        f"scoring: {dev_launches}); log-hazards vs device ingest max |d| "
+        f"{d:.3e} (tol {RISK_TOL}); RiskScorer.score({p['patient_id']}, "
+        f"decoded by read_nifti_fast) {out['risk_score']:.6f} vs "
+        f"{float(host['risk_score'][i]):.6f}, |d| {ds:.3e}, {score_ms:.1f} ms")
+    want = cv_run["ingest_launches"] if expect_launches else 0
+    check(dev_launches == want, f"device-ingest scoring launched "
+          f"{dev_launches}, expected {want}")
+    return dict(launches=launches, max_d=d, score_d=ds)
+
+
+def _write_raw_tree(raw, table, paths, seed=12):
+    """12d's raw inputs: a DICOM series of DICOM_SLICES slices at full
+    in-plane size for each imaging patient (a slab of its phase-4 CT),
+    STAR TSVs (STAR_GENES genes) for every patient, and phase 4's clinical
+    CSV."""
+    import numpy as np
+
+    from multimodal_survival_prediction_tpu_torch.data.nifti import (
+        read_nifti,
+    )
+    from multimodal_survival_prediction_tpu_torch.preprocess.dicom import (
+        write_dicom_slice,
+    )
+
+    rng = np.random.default_rng(seed)
+    data = raw / "data"
+    n_slices = 0
+    for r in table:
+        if not r["has_imaging"]:
+            continue
+        vol = read_nifti(r["nifti_path"]).data
+        z0 = (vol.shape[0] - DICOM_SLICES) // 2
+        sdir = data / "imaging" / "dicom" / r["patient_id"] / "s1"
+        sdir.mkdir(parents=True)
+        for z in range(DICOM_SLICES):
+            write_dicom_slice(sdir / f"{z:03d}.dcm", vol[z0 + z], instance=z,
+                              position=(0.0, 0.0, 2.5 * z),
+                              spacing=(0.7, 0.7), thickness=2.5)
+            n_slices += 1
+    genes = [f"ENSG{j:011d}.{j % 5 + 1}" for j in range(STAR_GENES)]
+    for r in table:
+        d = data / "genomic" / "rnaseq" / r["patient_id"]
+        d.mkdir(parents=True)
+        counts = rng.negative_binomial(5, 0.01, size=STAR_GENES)
+        tpm = rng.gamma(1.0, 20.0, size=STAR_GENES)
+        lines = ["# gene-model: GENCODE v36",
+                 "gene_id\tgene_name\tunstranded\ttpm_unstranded",
+                 "N_unmapped\t\t1234\t", "N_multimapping\t\t567\t"]
+        lines += [f"{g}\tG{j}\t{c}\t{t:.4f}"
+                  for j, (g, c, t) in enumerate(zip(genes, counts, tpm))]
+        (d / "counts.tsv").write_text("\n".join(lines) + "\n")
+    (data / "clinical").mkdir(parents=True)
+    shutil.copyfile(paths["clinical_csv"], data / "clinical" / "clinical.csv")
+    return n_slices
+
+
+def _raw_to_report(work, table, paths, n_img, device, extra_argv,
+                   expect_launches):
+    """12d: raw DICOM + STAR files -> the two preprocessing entry points ->
+    matching table -> run_all (two families, --profile-dir) ->
+    SUMMARY.md / results.json."""
+    import contextlib
+    import io
+
+    import torch
+
+    from multimodal_survival_prediction_tpu_torch import run_all
+    from multimodal_survival_prediction_tpu_torch.data.matching_table import (
+        build_full_matching_table,
+    )
+    from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
+    from multimodal_survival_prediction_tpu_torch.ops import resample as rs
+    from multimodal_survival_prediction_tpu_torch.preprocess import (
+        convert_dicom_to_nifti,
+        preprocess_genomic,
+    )
+
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    raw = work / "raw"
+    walls = {}
+    t0 = time.perf_counter()
+    n_slices = _write_raw_tree(raw, table, paths)
+    walls["write raw"] = time.perf_counter() - t0
+    log_out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log_out):
+        convert_dicom_to_nifti.main(["--data-root", str(raw)])
+    walls["convert_dicom_to_nifti"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log_out):
+        preprocess_genomic.main(["--data-root", str(raw), "--top-k", "5005"])
+    walls["preprocess_genomic"] = time.perf_counter() - t0
+    proc = raw / "data" / "processed"
+    converted = log_out.getvalue()
+    check(f"converted {n_img}/{n_img} series" in converted,
+          f"DICOM conversion: {converted[-500:]}")
+    genes = (proc / "selected_genes.txt").read_text().split()
+    check(len(genes) == 5005, f"{len(genes)} selected genes, expected 5005")
+    # the STAR directories carry the patient ids: the GDC UUID mapping
+    # (scripts/preprocessing/map_rnaseq_via_gdc_api.py) is the identity
+    mapped = proc / "rnaseq_normalized_mapped.csv"
+    shutil.copyfile(proc / "rnaseq_normalized.csv", mapped)
+    t0 = time.perf_counter()
+    new_table = build_full_matching_table(
+        raw / "data" / "clinical" / "clinical.csv",
+        raw / "data" / "imaging" / "nifti", mapped,
+        out_csv=proc / "full_matching_table.csv")
+    walls["matching table"] = time.perf_counter() - t0
+    img = sum(bool(r["has_imaging"]) for r in new_table)
+    check(img == n_img and all(r["has_rnaseq"] for r in new_table),
+          f"matching table: {img} with imaging (expected {n_img}), RNA "
+          f"{sum(bool(r['has_rnaseq']) for r in new_table)}")
+
+    results, models, prof = raw / "results", raw / "models", raw / "prof"
+    argv = ["--models", "rnaseq_only,partial_modality", "--n-folds", "2",
+            "--epochs", "1", "--pallas-resample", "--profile-dir", str(prof),
+            "--data-root", str(raw), "--results-dir", str(results),
+            "--models-dir", str(models), "--device", device, *extra_argv]
+    rs.wpass.launches = 0  # run_all's counts start here
+    fd.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log_out):
+        failed = run_all.main(argv)
+    sync()
+    walls["run_all"] = time.perf_counter() - t0
+    launches = rs.wpass.launches  # ... and are read here
+    fused = [k.launches for k in fd.KERNELS]
+    check(failed == [], f"run_all failed steps {failed}")
+    want = n_img if expect_launches else 0
+    check(launches == want, f"run_all's ingest launched the W-pass kernel "
+          f"{launches} times, expected {want} (partial_modality's CTs)")
+    check(fused == [0] * len(fused), f"run_all launched fused kernels "
+          f"{fused}")
+    means = {}
+    for key in ("rnaseq_only", "partial_modality"):
+        payload = json.loads((results / key / "cv_results.json").read_text())
+        check(len(payload["fold_results"]) == 2,
+              f"{key}: {len(payload['fold_results'])} folds")
+        means[payload["model"]] = payload["c_index_mean"]
+    summary = results / "final_comparison" / "SUMMARY.md"
+    report = json.loads((results / "final_comparison" / "results.json")
+                        .read_text())
+    check(summary.exists(), "no SUMMARY.md")
+    got = {m["model"]: m["c_index_mean"] for m in report["models"]}
+    check(got == means, f"results.json means {got}, payloads {means}")
+    md = summary.read_text()
+    check(all(f"{m:.4f}" in md for m in means.values()),
+          "SUMMARY.md lacks a payload's mean")
+    traces = sorted(prof.glob("*.pt.trace.json"))
+    check(len(traces) == 2, f"{len(traces)} traces under --profile-dir")
+    named = [t.name for t in traces if b"wpass_kernel" in t.read_bytes()]
+    if expect_launches:
+        check(len(named) == 1, f"traces naming wpass_kernel: {named}")
+    sizes = [round(t.stat().st_size / 1e6, 1) for t in traces]
+    log(f"raw to report: {n_slices} DICOM slices ({img} series of "
+        f"{DICOM_SLICES} x 512x512) + {len(table)} STAR TSVs "
+        f"({STAR_GENES} genes) -> {len(genes)} genes, matching table of "
+        f"{len(new_table)}; run_all rnaseq_only + partial_modality: "
+        f"{launches} W-pass launches, C-index means {means}; traces MB "
+        f"{sizes} ({len(named)} naming wpass_kernel); walls s "
+        f"{ {k: round(v, 2) for k, v in walls.items()} }")
+    return dict(walls=walls, launches=launches, means=means,
+                trace_mb=sizes)
+
+
+def phase_ingest_and_report(work, table, paths, n_img, cv_run, smi="",
+                            device="cuda", extra_argv=(),
+                            expect_launches=True):
+    """Phase 12: the host engine (build, the three ingest modes against the
+    kernel, read_nifti_fast), a fold pinned to the host engine scored, and
+    raw files to SUMMARY.md. Returns the phase's numbers."""
+    t0 = time.perf_counter()
+    build = _engine_build(device)
+    ingest = _ingest_paths(work, table, device, expect_launches)
+    pinned = _host_pinned_fold(work, table, paths, cv_run, device,
+                               expect_launches)
+    report = _raw_to_report(work, table, paths, n_img, device, extra_argv,
+                            expect_launches)
+    wall = time.perf_counter() - t0
+    log(f"ingest + report phase ({smi}): wall {wall:.2f} s")
+    return dict(wall_s=wall, build=build, ingest=ingest, pinned=pinned,
+                report=report)
+
+
 def main() -> int:
     import torch
 
@@ -3016,6 +3421,8 @@ def main() -> int:
         checkpoints = timed("11 checkpoints", phase_checkpoints, work, cv_run,
                             table, paths, n_img, families, fam_table,
                             fam_paths, smi=smi)
+        report = timed("12 ingest + report", phase_ingest_and_report, work,
+                       table, paths, n_img, cv_run, smi=smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3044,7 +3451,12 @@ def main() -> int:
             "sweep_ingest": cv_par["sweep_ingest_launches"],
             "families_ingest": {k: v["ingest_launches"]
                                 for k, v in families.items()},
-            "checkpoints": checkpoints["launches"]},
+            "checkpoints": checkpoints["launches"],
+            "host_ingest": report["ingest"]["launches"]["host"],
+            "kernel_ingest": report["ingest"]["launches"]["kernel"],
+            "auto_ingest": report["ingest"]["launches"]["auto"],
+            "host_pinned_predict_risk": report["pinned"]["launches"],
+            "run_all": report["report"]["launches"]},
         "kernel_ms": timing["kernel_ms"],
         "call_ms": timing["call_ms"],
         "bound_us": timing["bound_ms"] * 1e3,
@@ -3121,6 +3533,14 @@ def main() -> int:
         f"launches; one sequential step: {prof[1]['device_busy_ms']:.2f} "
         f"ms, {prof[1]['device_launches']} launches; sweep wall "
         f"{cv_par['sweep_wall_s']:.2f} s")
+    build, probe = report["build"], report["ingest"]["probe"]
+    log(f"host engine ({smi}): {build['compiler']}, zlib {build['zlib']}, "
+        f"build {build['build_sec']:.2f} s; 'auto' chose "
+        f"{report['ingest']['auto_mode']} (link {probe['link_mb_s']:.1f} "
+        f"MB/s, host {probe['host_ms']:.2f} ms/vol, link "
+        f"{probe['link_ms']:.2f} ms/vol); host vs kernel max |d| "
+        f"{report['ingest']['max_d']:.2e}; run_all wall "
+        f"{report['report']['walls']['run_all']:.2f} s")
     log(f"phase walls s {walls}")
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

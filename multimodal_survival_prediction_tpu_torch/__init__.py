@@ -28,7 +28,11 @@ Ported: all eight model families of the JAX package (``models/``:
     ``io.msgpack``, ``io.torch_import``), with the converters and the
     ensemble calibration under ``tools/``;
   * evaluation — ``ops.km`` and ``analysis`` (``evaluate_predictions``, the
-    ``generate_km_curves`` and ``evaluate_model`` entry points).
+    ``generate_km_curves`` and ``evaluate_model`` entry points);
+  * the host ingest engine (``csrc/msp_native.cpp`` via ``data.native``,
+    ``resample='host'``/``'auto'`` in ``data.pipeline``), preprocessing of
+    raw DICOM and STAR files (``preprocess``), and the comparison
+    (``analysis.comparison``, ``analysis.final_comparison``, ``run_all``).
 ROADMAP.md lists what is still to come.
 """
 

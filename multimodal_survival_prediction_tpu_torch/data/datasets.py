@@ -41,8 +41,9 @@ def _isnan(x) -> bool:
 class CohortArrays:
     patient_ids: list
     arrays: dict  # str -> np.ndarray, all leading dim N
-    # where the CT resample ran ('device'; None = no imaging) — recorded
-    # into fold .meta.json so scoring-time ingest matches training-time
+    # where the CT resample ran ('host' or 'device'; None = no imaging) —
+    # recorded into fold .meta.json so scoring-time ingest matches
+    # training-time
     ingest_mode: str | None = None
     index: dict = field(init=False)
 

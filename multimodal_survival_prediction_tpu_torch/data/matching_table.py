@@ -159,3 +159,18 @@ def load_matching_table(path) -> list[dict]:
             row[c] = float(raw[c]) if raw[c].strip() else float("nan")
         rows.append(row)
     return rows
+
+
+def cohort_stats(table) -> dict:
+    """The dataset_info block of results/final_comparison/results.json."""
+    rows = list(table)
+    count = lambda *cols: int(sum(all(bool(r[c]) for c in cols)  # noqa: E731
+                                  for r in rows))
+    return {
+        "total_patients": len(rows),
+        "with_imaging": count("has_imaging"),
+        "with_rnaseq": count("has_rnaseq"),
+        "with_clinical": count("has_clinical"),
+        "with_survival": count("has_survival"),
+        "complete_multimodal": count(*_BOOL_COLUMNS),
+    }

@@ -1,28 +1,30 @@
 """Host-to-device pipelines: CT ingest (NIfTI decode on a host thread pool,
-resample on the device) and the batch prefetcher of streaming epochs.
+resample on the host or the device), the link probe that chooses between
+them, and the batch prefetcher of streaming epochs.
 
-Port of ``VolumePrefetcher`` and ``BatchPrefetcher`` in
-``multimodal_survival_prediction_tpu/data/pipeline.py``.
+Port of ``probe_link_bandwidth``, ``VolumePrefetcher`` and
+``BatchPrefetcher`` in ``multimodal_survival_prediction_tpu/data/pipeline.py``.
 ``VolumePrefetcher`` has the same duck type (``run(jobs, out_shape,
-use_pallas, hu_window=, resample=)`` plus ``last_mode``). Each volume is decoded once on a worker thread while the
-device resamples the previous one; every launch stays on the consuming
-thread.
+use_pallas, hu_window=, resample=)`` plus ``last_mode``). Each volume is
+decoded once (``data.native.read_nifti_fast``) on a worker thread; every
+device launch stays on the consuming thread.
 
-``resample`` placement:
+``resample`` placement, as in JAX:
   * 'device' — ship the raw volume in its native dtype and resample on the
     device: the fused CUDA kernel when ``use_pallas`` is set, else the plain
     bucketed torch path.
-  * 'auto' (default) — resolves to 'device' and records that in
-    ``last_mode``: the host C++ resample engine is not ported, and 'auto'
-    resolves the same way in JAX when that engine is absent.
-  * 'host' — the host C++ engine (``data/native.py`` + ``csrc/`` in the JAX
-    package); not ported, raises (ROADMAP.md Queue 1 item 7).
+  * 'host' — the host C++ engine (``data/native.py``) resamples inside the
+    decode workers and nothing crosses to the device. Without the engine a
+    'host' pin logs a warning and takes 'device'.
+  * 'auto' (default) — times one host resample of the first decoded volume
+    against that volume's crossing of the measured link
+    (:func:`probe_link_bandwidth`) and picks one path for the whole cohort;
+    ``use_pallas`` pins 'device' without probing.
 
 ``BatchPrefetcher`` keeps ``depth`` host batches in flight to the device:
 a background thread copies each one into pinned host memory and enqueues its
 host-to-device copies on a side CUDA stream; the consumer's stream waits on
-that batch's event. ``probe_link_bandwidth`` is not ported yet (ROADMAP.md
-Queue 1 item 7, which needs it for ``resample='auto'``).
+that batch's event.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import logging
 import queue
 import struct
 import threading
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -39,13 +42,93 @@ import torch
 
 log = logging.getLogger(__name__)
 
+_BW_CACHE: dict = {}  # device string -> bytes/s
+_BW_PENDING: dict = {}  # device string -> (done event, result dict, nbytes)
+
+
+def _round_trip(buf: np.ndarray, dev: torch.device):
+    """One host -> device -> host copy of ``buf`` (pageable memory, as JAX's
+    ``device_put`` takes it), fenced on the device. On the CPU there is no
+    link and no copy."""
+    back = torch.from_numpy(buf).to(dev).cpu()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return back
+
+
+def probe_link_bandwidth(nbytes: int = 8 << 20, timeout_sec: float = 15.0,
+                         device="cuda") -> float:
+    """Measured host <-> device link bandwidth (bytes/s), cached per device.
+
+    Times one round trip of an ``nbytes`` ``uint8`` buffer (two transfers)
+    after a warm one, which pays for the CUDA context in a fresh process.
+    The round trip runs in a watchdog thread: when it has not finished
+    within ``timeout_sec`` the probe returns the pessimistic
+    ``2 * nbytes / timeout_sec`` (which makes 'auto' prefer the host path on
+    exactly such a link) and leaves the thread to finish; a later call then
+    caches its real measurement, as the JAX probe does."""
+    from ..utils.device import resolve_device
+
+    dev = resolve_device(device)
+    key = str(dev)
+    if key in _BW_CACHE:
+        return _BW_CACHE[key]
+
+    pending = _BW_PENDING.get(key)
+    if pending is not None:
+        done, result, pn = pending
+        if not done.is_set():
+            return 2 * pn / timeout_sec  # still stalled: pessimistic bound
+        del _BW_PENDING[key]
+        if "dt" in result:  # the stall ended; the timed round trip stands
+            bw = 2 * pn / max(result["dt"], 1e-9)
+            _BW_CACHE[key] = bw
+            log.info("link bandwidth probe (late): %.1f MB/s", bw / 1e6)
+            return bw
+        # the probe thread failed: measure again below
+
+    buf = np.ones(nbytes, np.uint8)
+    done = threading.Event()
+    result: dict = {}
+
+    def roundtrip():
+        try:
+            _round_trip(buf, dev)  # warm: the CUDA context, first copies
+            t0 = time.perf_counter()
+            _round_trip(buf, dev)
+            result["dt"] = time.perf_counter() - t0
+        except Exception as e:  # re-raised by the caller below
+            result["err"] = e
+        finally:
+            done.set()
+
+    threading.Thread(target=roundtrip, daemon=True,
+                     name="msp-link-probe").start()
+    if not done.wait(timeout_sec):
+        _BW_PENDING[key] = (done, result, nbytes)
+        bw = 2 * nbytes / timeout_sec
+        log.warning("link bandwidth probe stalled > %.0f s; assuming < %.1f "
+                    "MB/s until it completes", timeout_sec, bw / 1e6)
+        return bw
+    if "err" in result:
+        raise result["err"]
+    bw = 2 * nbytes / max(result["dt"], 1e-9)
+    _BW_CACHE[key] = bw
+    log.info("link bandwidth probe: %.1f MB/s", bw / 1e6)
+    return bw
+
 
 class VolumePrefetcher:
-    """Decode NIfTIs on a host thread pool, resample on ``device``.
+    """Decode NIfTIs on a host thread pool, resample on the host or on
+    ``device``.
 
-    ``run(jobs, out_shape)`` yields ``(job_id, volume_np)``; order follows
-    the jobs. Failed decodes yield ``(job_id, None)`` after logging (the
-    reference's failure->missing-modality semantics)."""
+    ``run(jobs, out_shape)`` yields ``(job_id, volume_np)`` in job order,
+    except that in 'auto' mode the failed decodes before the first good
+    volume come first. Failed decodes yield ``(job_id, None)`` after logging
+    (the reference's failure->missing-modality semantics). ``last_mode``
+    records the path the last run took ('host' or 'device'), and
+    ``last_probe`` what the last 'auto' choice measured (mode, host ms and
+    link ms for the probe volume, link MB/s)."""
 
     def __init__(self, num_workers: int = 4, depth: int = 2,
                  resample: str = "auto", device="cuda"):
@@ -54,6 +137,7 @@ class VolumePrefetcher:
         self.resample = resample
         self.device = device
         self.last_mode: str | None = None
+        self.last_probe: dict | None = None
 
     def run(self, jobs, out_shape, use_pallas: bool = False,
             hu_window=None, resample: str | None = None):
@@ -62,20 +146,25 @@ class VolumePrefetcher:
             resample_normalize_cuda,
         )
         from ..utils.device import resolve_device
-        from .nifti import read_nifti
+        from . import native
 
         mode = resample or self.resample
-        if mode == "host":
-            raise NotImplementedError(
-                "resample='host' needs the host C++ resample engine, which "
-                "is not ported yet (ROADMAP.md Queue 1 item 7); use "
-                "'device' or 'auto'")
-        if mode not in ("auto", "device"):
+        self.last_probe = None
+        if mode not in ("auto", "device", "host"):
             raise ValueError(f"unknown resample mode {mode!r}")
-        mode = "device"  # 'auto' has no host engine to choose
+        if mode == "auto" and use_pallas:
+            # an explicit device-kernel request (a checkpoint's .meta.json
+            # pin) is not rerouted: host and device agree only to float
+            # tolerance, and scoring-time ingest must match training-time
+            mode = "device"
+        if mode == "host" and not native.native_available():
+            log.warning(
+                "resample='host' requested but the host C++ engine did not "
+                "build; using the bucketed device resample instead (the two "
+                "agree within 2e-5)")
+            mode = "device"
         dev = resolve_device(self.device)
         out_shape = tuple(out_shape)
-        self.last_mode = mode
 
         def preprocess(vol):
             # use_pallas = the fused single-pass kernel (exact shape);
@@ -89,17 +178,55 @@ class VolumePrefetcher:
         def decode(job):
             i, path = job
             try:
-                return i, read_nifti(path).data
+                return i, native.read_nifti_fast(path).data
             except (OSError, EOFError, ValueError, TypeError,
                     struct.error) as e:  # unreadable/corrupt -> missing
                 log.warning("decode failed for %s: %s", path, e)
                 return i, None
 
+        def decode_and_host_resample(job):
+            i, vol = decode(job)
+            if vol is None:
+                return i, None
+            try:
+                return i, native.resample_normalize_host(
+                    vol, out_shape, hu_window=hu_window)
+            except ValueError as e:
+                log.warning("host resample failed for job %s: %s", i, e)
+                return i, None
+
+        jobs = list(jobs)
+        first = None  # (job_id, volume) of the probe volume
+        if mode == "auto":
+            if not native.native_available():
+                mode = "device"  # no engine: the host path has none
+            else:
+                head = None
+                for j, job in enumerate(jobs):
+                    i, vol = decode(job)
+                    if vol is not None:
+                        head, jobs = (i, vol), jobs[j + 1:]
+                        break
+                    yield i, None  # failed decodes before the probe volume
+                if head is None:
+                    self.last_mode = "device"
+                    return
+                mode, first = self._choose(head, out_shape, hu_window, dev,
+                                           preprocess)
+        self.last_mode = mode
+        if first is not None:
+            yield first
+
         with ThreadPoolExecutor(self.num_workers) as pool:
+            if mode == "host":
+                # resample inside the GIL-free decode workers; nothing
+                # crosses to the device
+                yield from pool.map(decode_and_host_resample, jobs)
+                return
             # depth-limited on both sides: at most `depth` resamples in
             # flight on the device, at most num_workers + depth decodes
             # outstanding on the host (raw CTs are ~80 MB each)
-            job_iter = iter(list(jobs))
+            job_iter = iter(jobs)
             futures: deque = deque()
 
             def submit_more():
@@ -126,6 +253,42 @@ class VolumePrefetcher:
                     yield j, o.cpu().numpy()  # waits for the device
             for j, o in inflight:
                 yield j, o.cpu().numpy()
+
+    def _choose(self, head, out_shape, hu_window, dev, preprocess):
+        """'auto': time one host resample of the decoded probe volume
+        against its crossing of the measured link. Returns the mode and the
+        probe volume's result from that mode's path, so the cohort is
+        single-path (host and device agree only to float tolerance)."""
+        from . import native
+
+        i, vol = head
+        try:
+            t0 = time.perf_counter()
+            host_out = native.resample_normalize_host(vol, out_shape,
+                                                      hu_window=hu_window)
+            host_sec = time.perf_counter() - t0
+        except ValueError as e:
+            # the volume decoded fine: the device path keeps it
+            log.warning("host resample failed for probe job %s: %s (device "
+                        "path keeps the volume)", i, e)
+            return "device", (i, preprocess(vol).cpu().numpy())
+        try:
+            bw = probe_link_bandwidth(device=dev)
+        except Exception:  # a failed probe must not abort the ingest
+            log.warning("link bandwidth probe failed; using device "
+                        "resample", exc_info=True)
+            return "device", (i, preprocess(vol).cpu().numpy())
+        transfer_sec = vol.nbytes / bw
+        mode = "host" if host_sec < transfer_sec else "device"
+        log.info("resample auto-select: %s (host %.1f ms/vol vs link "
+                 "transfer %.1f ms/vol at %.1f MB/s)", mode, host_sec * 1e3,
+                 transfer_sec * 1e3, bw / 1e6)
+        self.last_probe = dict(mode=mode, host_ms=host_sec * 1e3,
+                               link_ms=transfer_sec * 1e3,
+                               link_mb_s=bw / 1e6)
+        if mode == "host":
+            return mode, (i, host_out)
+        return mode, (i, preprocess(vol).cpu().numpy())
 
 
 class BatchPrefetcher:

@@ -57,7 +57,8 @@ class RiskScorer:
         ported (eager torch compiles nothing) — raises if given.
       device: where the models run and CTs are resampled (default 'cuda').
 
-    Ingest is the plain bucketed resample, as in the JAX server.
+    Ingest decodes with ``data.native.read_nifti_fast`` and resamples
+    with the plain bucketed resample, as in the JAX server.
     """
 
     def __init__(self, model_name: str, checkpoint_path,
@@ -177,9 +178,9 @@ class RiskScorer:
         modality mask."""
         mask = np.zeros(3, np.float32)
         if nifti_path is not None and volume is None:
-            from .data.nifti import read_nifti
+            from .data.native import read_nifti_fast
 
-            volume = read_nifti(nifti_path).data
+            volume = read_nifti_fast(nifti_path).data
         if volume is not None:
             host["image"][i, ..., 0] = resample_normalize_bucketed(
                 volume, self.image_shape, hu_window=self.hu_window,

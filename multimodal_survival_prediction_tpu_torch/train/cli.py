@@ -12,8 +12,9 @@ convolutions and products run in true fp32 as the JAX reference computes
 them) and logs both flags. Library functions set no global flags.
 
 ``--fold-parallel 1`` trains every fold in one vmapped step
-(``train/cv_parallel.py``) and ``--streaming`` keeps the cohort on the host
-(either driver). Flags of the JAX scripts that have no port yet stay in the
+(``train/cv_parallel.py``), ``--streaming`` keeps the cohort on the host
+(either driver) and ``--profile-dir`` traces a sequential run
+(``utils/profiling.py``). Flags of the JAX scripts that have no port yet stay in the
 parser and raise ``NotImplementedError`` naming their ROADMAP.md item
 (``--fold-parallel`` N > 1 too: a fold mesh over N devices); ``--device``
 (default ``cuda``) is the port's own.
@@ -47,8 +48,6 @@ _NOT_PORTED = (
     ("--multihost", "multihost", False,
      "Queue 1 item 10 (multi-device paths)"),
     ("--aot-cache", "aot_cache", None, "Queue 1 item 12 (io/aot_cache.py)"),
-    ("--profile-dir", "profile_dir", None,
-     "Queue 1 item 11 (utils/profiling.py)"),
 )
 
 
@@ -104,6 +103,9 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                    help="data parallelism inside each fold of a "
                         "--fold-parallel N mesh (not ported yet: ROADMAP.md "
                         "Queue 1 item 10)")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of the CV run (ingest "
+                        "and folds) into this directory")
     p.add_argument("--streaming", action="store_true",
                    help="keep the cohort on the host and prefetch each "
                         "batch to the device (pinned memory, a side stream)")
@@ -171,7 +173,8 @@ def run_training(args, cfg):
     else:
         payload, outcomes = run_cross_validation(
             cfg, table, resume=args.resume,
-            checkpoint_every=args.checkpoint_every, **common)
+            checkpoint_every=args.checkpoint_every,
+            profile_dir=args.profile_dir, **common)
         title = cfg.display_name
     print(f"\n{title}: C-index "
           f"{payload['c_index_mean']:.4f} ± {payload['c_index_std']:.4f}")

@@ -31,13 +31,17 @@ dtype (``predict_risk`` scores them in float32, as JAX does).
 the Trainer's streaming methods (``BatchPrefetcher``); the trajectory is
 the device-resident one.
 
+``profile_dir`` traces the run with ``torch.profiler``
+(``utils/profiling.py:profile_trace``), from the ingest to the last fold.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): meshes / tensor parallelism / the sharded risk set,
-``aot_cache_dir``, ``profile_dir`` and ``remat``.
+``aot_cache_dir`` and ``remat``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
@@ -59,6 +63,7 @@ from ..io.checkpoint import (
 )
 from ..io.results import build_cv_payload, write_cv_results
 from ..utils.device import resolve_device
+from ..utils.profiling import profile_trace
 from .adapters import (
     make_adapters,
     make_model_and_adapters,
@@ -82,8 +87,6 @@ _NOT_PORTED = {
             "ported yet: ROADMAP.md Queue 1 item 10",
     "aot_cache_dir": "aot_cache_dir is not ported yet: ROADMAP.md Queue 1 "
                      "item 12",
-    "profile_dir": "profile_dir needs utils/profiling.py, which is not "
-                   "ported yet: ROADMAP.md Queue 1 item 11",
     "remat": "remat is not ported yet: ROADMAP.md Queue 1 item 16 "
              "(recomputation would update BatchNorm running stats twice and "
              "draw a second dropout mask)",
@@ -184,11 +187,10 @@ def _compute_dtype(dtype) -> torch.dtype | None:
 
 
 def _refuse_unported(*, mesh, tensor_parallel, sharded_risk_set,
-                     aot_cache_dir, profile_dir, remat):
+                     aot_cache_dir, remat):
     given = {"mesh": (mesh is not None or tensor_parallel
                       or sharded_risk_set),
-             "aot_cache_dir": bool(aot_cache_dir),
-             "profile_dir": bool(profile_dir), "remat": remat}
+             "aot_cache_dir": bool(aot_cache_dir), "remat": remat}
     for option, on in given.items():
         if on:
             raise NotImplementedError(_NOT_PORTED[option])
@@ -232,141 +234,149 @@ def run_cross_validation(
     _refuse_unported(mesh=mesh,
                      tensor_parallel=tensor_parallel,
                      sharded_risk_set=sharded_risk_set,
-                     aot_cache_dir=aot_cache_dir, profile_dir=profile_dir,
-                     remat=remat)
-    name = cfg.name
-    num_epochs = num_epochs or cfg.num_epochs
-    dev = resolve_device(device)
-    dtype = _compute_dtype(dtype)
+                     aot_cache_dir=aot_cache_dir, remat=remat)
+    # the trace spans the ingest and every fold (JAX starts it after the
+    # ingest; here the W-pass launches of the ingest are in it too)
+    trace = (profile_trace(profile_dir) if profile_dir
+             else contextlib.nullcontext())
+    with trace:
+        name = cfg.name
+        num_epochs = num_epochs or cfg.num_epochs
+        dev = resolve_device(device)
+        dtype = _compute_dtype(dtype)
 
-    arrays, splits = prepared if prepared is not None else prepare_cv_data(
-        cfg, table, rnaseq_csv=rnaseq_csv,
-        use_pallas_resample=use_pallas_resample, hu_window=hu_window,
-        device=dev)
-    rna_dim = arrays.arrays["rnaseq"].shape[1]
+        arrays, splits = prepared if prepared is not None else prepare_cv_data(
+            cfg, table, rnaseq_csv=rnaseq_csv,
+            use_pallas_resample=use_pallas_resample, hu_window=hu_window,
+            device=dev)
+        rna_dim = arrays.arrays["rnaseq"].shape[1]
 
-    # ONE Trainer for all folds, as the JAX driver keeps one
-    trainer, stage1_trainer = make_trainers(cfg, rna_dim, backbone, dtype,
-                                            dev)
-    if streaming:  # the cohort stays on the host
-        data = {k: np.asarray(v) for k, v in arrays.arrays.items()}
-        train_epoch = Trainer.train_epoch_streaming
-        evaluate = Trainer.evaluate_streaming
-    else:
-        data = arrays.to_device(dev)
-        train_epoch, evaluate = Trainer.train_epoch, Trainer.evaluate
+        # ONE Trainer for all folds, as the JAX driver keeps one
+        trainer, stage1_trainer = make_trainers(cfg, rna_dim, backbone, dtype,
+                                                dev)
+        if streaming:  # the cohort stays on the host
+            data = {k: np.asarray(v) for k, v in arrays.arrays.items()}
+            train_epoch = Trainer.train_epoch_streaming
+            evaluate = Trainer.evaluate_streaming
+        else:
+            data = arrays.to_device(dev)
+            train_epoch, evaluate = Trainer.train_epoch, Trainer.evaluate
 
-    outcomes: list[FoldOutcome] = []
-    t_start = time.monotonic()
-    total_steps = 0
-    for fold, (train_rows, val_rows, train_survival_size) in enumerate(
-            splits, start=1):
-        t_fold = time.monotonic()
-        state = trainer.init_state(fold=fold)
-        if init_hook is not None:
-            state = init_hook(fold, state) or state
+        outcomes: list[FoldOutcome] = []
+        t_start = time.monotonic()
+        total_steps = 0
+        for fold, (train_rows, val_rows, train_survival_size) in enumerate(
+                splits, start=1):
+            t_fold = time.monotonic()
+            state = trainer.init_state(fold=fold)
+            if init_hook is not None:
+                state = init_hook(fold, state) or state
 
-        shuffle_rng = np.random.default_rng(cfg.seed + fold)
-        plateau = ReduceLROnPlateau(lr=cfg.learning_rate)
-        lr = cfg.learning_rate
-        best_c, best_epoch, best_params, bad = -math.inf, 0, None, 0
-        history: list = []
-        epochs_run = 0
-        start_epoch = 1
+            shuffle_rng = np.random.default_rng(cfg.seed + fold)
+            plateau = ReduceLROnPlateau(lr=cfg.learning_rate)
+            lr = cfg.learning_rate
+            best_c, best_epoch, best_params, bad = -math.inf, 0, None, 0
+            history: list = []
+            epochs_run = 0
+            start_epoch = 1
 
-        # ---- resume: the whole train state, a capability the reference
-        #      lacks (it keeps only best weights) ----
-        resume_dir = Path(models_dir) / name / f"fold_{fold}_resume"
-        if resume and (resume_dir / "progress.json").exists():
-            meta = json.loads((resume_dir / "progress.json").read_text())
-            load_train_state_dict(state,
-                                  load_train_state(resume_dir / "state.pt"))
-            shuffle_rng.bit_generator.state = meta["shuffle_rng"]
-            lr = plateau.lr = meta["lr"]
-            plateau.best = meta["plateau_best"]
-            plateau.num_bad = meta["plateau_num_bad"]
-            best_c, best_epoch = meta["best_c"], meta["best_epoch"]
-            bad, history = meta["bad"], meta["history"]
-            epochs_run = meta["epoch"]
-            start_epoch = meta["epoch"] + 1
-            if (resume_dir / "best.pt").exists():
-                best_params = load_checkpoint(resume_dir / "best.pt")
-            log.info("[%s fold %d] resumed at epoch %d", name, fold,
-                     start_epoch)
+            # ---- resume: the whole train state, a capability the reference
+            #      lacks (it keeps only best weights) ----
+            resume_dir = Path(models_dir) / name / f"fold_{fold}_resume"
+            if resume and (resume_dir / "progress.json").exists():
+                meta = json.loads((resume_dir / "progress.json").read_text())
+                load_train_state_dict(
+                    state, load_train_state(resume_dir / "state.pt"))
+                shuffle_rng.bit_generator.state = meta["shuffle_rng"]
+                lr = plateau.lr = meta["lr"]
+                plateau.best = meta["plateau_best"]
+                plateau.num_bad = meta["plateau_num_bad"]
+                best_c, best_epoch = meta["best_c"], meta["best_epoch"]
+                bad, history = meta["bad"], meta["history"]
+                epochs_run = meta["epoch"]
+                start_epoch = meta["epoch"] + 1
+                if (resume_dir / "best.pt").exists():
+                    best_params = load_checkpoint(resume_dir / "best.pt")
+                log.info("[%s fold %d] resumed at epoch %d", name, fold,
+                         start_epoch)
 
-        # stage 1: no model selection, fixed LR; skipped on resume (it ran
-        # before the first stage-2 checkpoint)
-        if stage1_trainer is not None and start_epoch == 1:
-            for epoch in range(1, cfg.stage1_epochs + 1):
-                state, s1_loss = train_epoch(
-                    stage1_trainer, state, data, train_rows, shuffle_rng,
-                    cfg.learning_rate)
-                if epoch % 10 == 0 or epoch == 1:
-                    log.info("[%s fold %d] stage1 epoch %d loss %.4f", name,
-                             fold, epoch, s1_loss)
+            # stage 1: no model selection, fixed LR; skipped on resume (it ran
+            # before the first stage-2 checkpoint)
+            if stage1_trainer is not None and start_epoch == 1:
+                for epoch in range(1, cfg.stage1_epochs + 1):
+                    state, s1_loss = train_epoch(
+                        stage1_trainer, state, data, train_rows, shuffle_rng,
+                        cfg.learning_rate)
+                    if epoch % 10 == 0 or epoch == 1:
+                        log.info("[%s fold %d] stage1 epoch %d loss %.4f",
+                                 name, fold, epoch, s1_loss)
+                    total_steps += -(-len(train_rows) // cfg.batch_size)
+
+            for epoch in range(start_epoch, num_epochs + 1):
+                if cfg.scheduler == "cosine":
+                    lr = cosine_annealing(cfg.learning_rate, epoch - 1,
+                                          num_epochs)
+                state, tr_loss = train_epoch(trainer, state, data, train_rows,
+                                             shuffle_rng, lr)
+                val_c, val_loss, _ = evaluate(trainer, state, data, val_rows)
+                if cfg.scheduler == "plateau":
+                    lr = plateau.step(val_c)
+                history.append(dict(epoch=epoch, train_loss=tr_loss,
+                                    val_loss=val_loss, val_c_index=val_c,
+                                    lr=lr))
+                epochs_run = epoch
                 total_steps += -(-len(train_rows) // cfg.batch_size)
 
-        for epoch in range(start_epoch, num_epochs + 1):
-            if cfg.scheduler == "cosine":
-                lr = cosine_annealing(cfg.learning_rate, epoch - 1, num_epochs)
-            state, tr_loss = train_epoch(trainer, state, data, train_rows,
-                                         shuffle_rng, lr)
-            val_c, val_loss, _ = evaluate(trainer, state, data, val_rows)
-            if cfg.scheduler == "plateau":
-                lr = plateau.step(val_c)
-            history.append(dict(epoch=epoch, train_loss=tr_loss,
-                                val_loss=val_loss, val_c_index=val_c, lr=lr))
-            epochs_run = epoch
-            total_steps += -(-len(train_rows) // cfg.batch_size)
+                if val_c > best_c:
+                    best_c, best_epoch = val_c, epoch
+                    best_params = best_weights(state)
+                    bad = 0
+                else:
+                    bad += 1
+                if cfg.patience is not None and bad >= cfg.patience:
+                    log.info("[%s fold %d] early stop at epoch %d", name, fold,
+                             epoch)
+                    break
+                if epoch % 10 == 0 or epoch == 1:
+                    log.info("[%s fold %d] epoch %d loss %.4f val C %.4f",
+                             name, fold, epoch, tr_loss, val_c)
+                if (resume and checkpoint_every
+                        and epoch % checkpoint_every == 0):
+                    save_train_state(resume_dir / "state.pt",
+                                     train_state_dict(state))
+                    if best_params is not None:
+                        save_checkpoint(resume_dir / "best.pt", best_params)
+                    (resume_dir / "progress.json").write_text(json.dumps({
+                        "epoch": epoch, "lr": lr, "plateau_best": plateau.best,
+                        "plateau_num_bad": plateau.num_bad, "best_c": best_c,
+                        "best_epoch": best_epoch, "bad": bad,
+                        "shuffle_rng": shuffle_rng.bit_generator.state,
+                        "history": history}))
 
-            if val_c > best_c:
-                best_c, best_epoch = val_c, epoch
-                best_params = best_weights(state)
-                bad = 0
-            else:
-                bad += 1
-            if cfg.patience is not None and bad >= cfg.patience:
-                log.info("[%s fold %d] early stop at epoch %d", name, fold,
-                         epoch)
-                break
-            if epoch % 10 == 0 or epoch == 1:
-                log.info("[%s fold %d] epoch %d loss %.4f val C %.4f",
-                         name, fold, epoch, tr_loss, val_c)
-            if resume and checkpoint_every and epoch % checkpoint_every == 0:
-                save_train_state(resume_dir / "state.pt",
-                                 train_state_dict(state))
-                if best_params is not None:
-                    save_checkpoint(resume_dir / "best.pt", best_params)
-                (resume_dir / "progress.json").write_text(json.dumps({
-                    "epoch": epoch, "lr": lr, "plateau_best": plateau.best,
-                    "plateau_num_bad": plateau.num_bad, "best_c": best_c,
-                    "best_epoch": best_epoch, "bad": bad,
-                    "shuffle_rng": shuffle_rng.bit_generator.state,
-                    "history": history}))
+            if write_outputs and best_params is not None:
+                save_fold(models_dir, cfg, fold, best_params,
+                          backbone=backbone, rna_dim=rna_dim,
+                          hu_window=hu_window,
+                          use_pallas_resample=use_pallas_resample,
+                          resample_mode=arrays.ingest_mode,
+                          best_epoch=best_epoch, best_c_index=best_c)
 
-        if write_outputs and best_params is not None:
-            save_fold(models_dir, cfg, fold, best_params, backbone=backbone,
-                      rna_dim=rna_dim, hu_window=hu_window,
-                      use_pallas_resample=use_pallas_resample,
-                      resample_mode=arrays.ingest_mode,
-                      best_epoch=best_epoch, best_c_index=best_c)
+            outcome = FoldOutcome(
+                fold=fold, best_c_index=float(best_c), best_epoch=best_epoch,
+                train_size=len(train_rows), val_size=len(val_rows),
+                train_survival_size=train_survival_size, epochs_run=epochs_run,
+                history=history, wall_s=time.monotonic() - t_fold)
+            outcomes.append(outcome)
+            log.info("[%s fold %d] best C-index %.4f @ epoch %d (%.1f s)",
+                     name, fold, best_c, best_epoch, outcome.wall_s)
 
-        outcome = FoldOutcome(
-            fold=fold, best_c_index=float(best_c), best_epoch=best_epoch,
-            train_size=len(train_rows), val_size=len(val_rows),
-            train_survival_size=train_survival_size, epochs_run=epochs_run,
-            history=history, wall_s=time.monotonic() - t_fold)
-        outcomes.append(outcome)
-        log.info("[%s fold %d] best C-index %.4f @ epoch %d (%.1f s)", name,
-                 fold, best_c, best_epoch, outcome.wall_s)
-
-    elapsed = time.monotonic() - t_start
-    payload = build_and_write_cv_payload(
-        cfg, outcomes, num_epochs, int(arrays.n), results_dir,
-        write_outputs=write_outputs)
-    log.info("[%s] CV done: %.1fs, %d steps, %.2f steps/s", name, elapsed,
-             total_steps, total_steps / max(elapsed, 1e-9))
-    return payload, outcomes
+        elapsed = time.monotonic() - t_start
+        payload = build_and_write_cv_payload(
+            cfg, outcomes, num_epochs, int(arrays.n), results_dir,
+            write_outputs=write_outputs)
+        log.info("[%s] CV done: %.1fs, %d steps, %.2f steps/s", name, elapsed,
+                 total_steps, total_steps / max(elapsed, 1e-9))
+        return payload, outcomes
 
 
 def save_fold(models_dir, cfg: ModelRunConfig, fold: int, best_params: dict,

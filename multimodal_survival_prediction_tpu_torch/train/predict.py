@@ -48,8 +48,8 @@ def predict_risk(
     ``table`` is a sequence of matching-table row dicts. ``backbone`` /
     ``hu_window`` / image shape / ``use_pallas`` (the fused CUDA CT
     resample) default from the checkpoint's ``.meta.json``; explicit
-    arguments win. A ``resample_mode`` of 'host' in the meta raises (the
-    host engine is not ported).
+    arguments win. The meta's ``resample_mode`` ('host': the host C++
+    engine, 'device') places the CT resample as training's ingest did.
 
     Returns ``{"patient_id", "risk_score", "survival_time", "event"}``
     numpy columns (labeled patients only unless ``labeled_only=False``);

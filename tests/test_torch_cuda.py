@@ -19,7 +19,8 @@ against float64 over the same bf16 operands, its relative error at most
 twice the float32 plain version's + 1e-6. The bf16 wgmma core alone: each
 output within K·2^-23 of the sum of its |products| (fp32 sums of exact
 bf16 products). The families' bf16 forward on the card: within twice the
-CPU's own bf16-vs-f32 gap + one bf16 ulp of the CPU's bf16 value.
+CPU's own bf16-vs-f32 gap + one bf16 ulp of the CPU's bf16 value. The host
+C++ engine against the W-pass kernel: 2e-5 (JAX's host-vs-device limit).
 """
 
 import numpy as np
@@ -109,6 +110,36 @@ def test_kernel_in_the_pipeline_on_card(cuda_device, tmp_path):
     assert tr.wpass.launches == before + 3
     for i in fused:
         np.testing.assert_allclose(fused[i], plain[i], atol=2e-6)
+
+
+@pytest.mark.cuda
+def test_host_engine_matches_the_kernel_on_card(cuda_device, tmp_path):
+    """The host C++ engine (resample='host') against the W-pass kernel
+    (resample='device', use_pallas) on a 128x512x512 int16 CT and a ragged
+    one: within 2e-5 (JAX's host-vs-device limit), no kernel launch on the
+    host path, one a volume on the kernel's."""
+    from multimodal_survival_prediction_tpu_torch.data import native
+    from multimodal_survival_prediction_tpu_torch.data.nifti import write_nifti
+    from multimodal_survival_prediction_tpu_torch.data.pipeline import (
+        VolumePrefetcher,
+    )
+
+    native.build_native()  # a failed build raises with g++'s stderr
+    jobs = []
+    for i, shape in enumerate(((128, 512, 512), (97, 500, 500))):
+        p = tmp_path / f"ct{i}.nii"
+        write_nifti(p, _volume(shape, np.int16, seed=10 + i))
+        jobs.append((i, str(p)))
+    pf = VolumePrefetcher(device=cuda_device)
+    before = tr.wpass.launches
+    host = dict(pf.run(jobs, (64, 64, 32), resample="host"))
+    assert pf.last_mode == "host" and tr.wpass.launches == before
+    dev = dict(pf.run(jobs, (64, 64, 32), use_pallas=True,
+                      resample="device"))
+    assert pf.last_mode == "device"
+    assert tr.wpass.launches == before + len(jobs)
+    for i in host:
+        np.testing.assert_allclose(host[i], dev[i], rtol=0, atol=2e-5)
 
 
 # ---------------------------------------------------------------------------

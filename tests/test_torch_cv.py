@@ -469,7 +469,6 @@ def test_resume_is_bit_equal(cohort, tmp_path, monkeypatch):
     (dict(tensor_parallel=True), "Queue 1 item 10"),
     (dict(sharded_risk_set=True), "Queue 1 item 10"),
     (dict(aot_cache_dir="aot"), "Queue 1 item 12"),
-    (dict(profile_dir="prof"), "Queue 1 item 11"),
     (dict(remat=True), "Queue 1 item 16"),
 ])
 def test_driver_refuses_what_is_not_ported(tmp_path, option, item):
@@ -495,6 +494,46 @@ def test_driver_runs_streaming(cohort, tmp_path):
         ["fold_1_best.pt", "fold_2_best.pt"]
 
 
+def _trace_names(prof_dir):
+    """The event names of the one Chrome trace under ``prof_dir``."""
+    traces = list(prof_dir.glob("*.pt.trace.json"))
+    assert len(traces) == 1, traces
+    return {e.get("name") for e in
+            json.loads(traces[0].read_text())["traceEvents"]}
+
+
+def test_driver_profile_dir_writes_a_trace(cohort, tmp_path):
+    """``profile_dir`` (a refusal until utils/profiling.py was ported)
+    traces the run with torch.profiler: one epoch of both folds, one Chrome
+    trace in the directory holding the training's ops, and the fold
+    checkpoints written as without it."""
+    tarr, splits = cohort["tprepared"]
+    prof = tmp_path / "prof"
+    payload, out = cv.run_cross_validation(
+        CFG, None, results_dir=tmp_path, models_dir=tmp_path,
+        backbone="simple_cnn", prepared=(tarr, splits), num_epochs=1,
+        profile_dir=str(prof), device="cpu")
+    assert [o.epochs_run for o in out] == [1, 1]
+    assert len(payload["fold_results"]) == 2
+    assert {"aten::convolution", "aten::matmul"} <= _trace_names(prof)
+
+
+def test_cli_profile_dir_writes_a_trace(tmp_path):
+    """``--profile-dir`` (a refusal until utils/profiling.py was ported)
+    reaches the driver: the CLI trains and the directory holds one trace
+    of the run, the ingest's resample included."""
+    prof = tmp_path / "prof"
+    payload = pmt.main([
+        "--data-root", str(tmp_path), "--results-dir",
+        str(tmp_path / "results"), "--models-dir", str(tmp_path / "models"),
+        "--synthetic", "--synthetic-patients", "16", "--backbone",
+        "simple_cnn", "--image-shape", "16,16,8", "--epochs", "1",
+        "--n-folds", "2", "--device", "cpu", "--profile-dir", str(prof)])
+    assert len(payload["fold_results"]) == 2
+    names = _trace_names(prof)
+    assert {"aten::convolution", "aten::matmul"} <= names
+
+
 @pytest.mark.parametrize("flag,item", [
     (["--mesh", "4"], "Queue 1 item 10"),
     (["--fold-parallel", "2"], "Queue 1 item 10"),
@@ -504,7 +543,6 @@ def test_driver_runs_streaming(cohort, tmp_path):
     (["--sharded-risk-set"], "Queue 1 item 10"),
     (["--multihost"], "Queue 1 item 10"),
     (["--aot-cache", "aot"], "Queue 1 item 12"),
-    (["--profile-dir", "prof"], "Queue 1 item 11"),
 ], ids=lambda v: v[0] if isinstance(v, list) else None)
 def test_cli_refuses_what_is_not_ported(tmp_path, flag, item):
     """Each flag without a port raises NotImplementedError naming its
