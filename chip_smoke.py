@@ -188,7 +188,31 @@ result then):
      imaging patients, no fused launch, both cv_results.json with 2 folds,
      SUMMARY.md and results.json with the payloads' means, a trace per
      family (partial_modality's naming wpass_kernel); each step's wall.
-  13. summary: one JSON line of per-kernel numbers, then the final line
+  13. multi-device on one card: a torch.distributed process group of one
+     rank under NCCL (init_method file:// under build/, device_id cuda:0),
+     then phase 9's CLI with --mesh 1 --sharded-risk-set in-process (the
+     group exists, so it runs there on a (1, 1) DeviceMesh: BatchNorm sums,
+     the gathered outputs and labels, the sharded Cox scan and the
+     gradients' all-reduce all go through NCCL collectives): per-step
+     losses held to phase 9's (step 1 within 1e-5 relative, later ones
+     within LOSS_DRIFT_RTOL), W-pass launches = imaging patients in the
+     ingest, no fused launch, collectives counted on every step (the count
+     reset just before the CLI), cv_results.json written once, each fold
+     checkpoint loaded strictly into the single-device model and the
+     ensemble's risks finite; then parallel/dryrun.py's
+     dryrun_multichip(1) on that group against the single-device
+     Trainer's step (loss within 1e-5 relative). Prints the phase's wall,
+     epoch-2 ms/step by CUDA events beside phase 9's, epoch 2's host
+     ms/step and garbage-collector pauses beside phase 9's, the
+     collectives a step, the host microseconds of one all-reduce of a
+     BatchNorm's sums, and a profile (wall, device busy, launches, top
+     kernels; then the ops with the most self host time) of one step on
+     the mesh of one beside one step on one device. More than one rank
+     needs more than one GPU (NCCL puts no two ranks on one): the
+     multi-rank arithmetic is held on the CPU under gloo by
+     tests/test_torch_{cox_distributed,parallel,tensor_parallel,
+     multidevice_cli}.py.
+  14. summary: one JSON line of per-kernel numbers, then the final line
      {"ok": true, "device": {...}}.
 
 Everything it writes goes under build/ in this checkout (kernel build,
@@ -197,6 +221,7 @@ temporary cohort); the cohort is removed at the end.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import shutil
@@ -393,6 +418,245 @@ def cuda_ms(fn, warmup=3, iters=20):
 # --------------------------------------------------------------------------
 # 1-2: device and build
 # --------------------------------------------------------------------------
+
+# --------------------------------------------------------------------------
+# 13: multi-device on one card (NCCL at world size 1)
+# --------------------------------------------------------------------------
+
+MESH_LOSS_RTOL = 1e-5  # the dry run's step on a mesh of one vs one device
+
+
+def _collective_host_us(group, device, calls=200):
+    """Host microseconds a call of ``collectives.all_reduce_tensor`` on a
+    BatchNorm's (2C + 1,) sums (C = 128) takes in ``group``: ``calls``
+    back to back after 10 outside the window, one synchronize at the
+    end."""
+    import torch
+
+    from multimodal_survival_prediction_tpu_torch.parallel import (
+        collectives,
+    )
+
+    x = torch.ones(257, device=device)
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    for _ in range(10):
+        collectives.all_reduce_tensor(x, group)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        collectives.all_reduce_tensor(x, group)
+    sync()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def _host_top(fn, label, top=6):
+    """One call of ``fn`` (after one outside the window) under
+    torch.profiler's CPU activity: the ops with the most self host time,
+    logged. Returns ``[(op, self host ms, calls), ...]``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    ops = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                 reverse=True)[:top]
+    rows = [(e.key, e.self_cpu_time_total / 1e3, e.count) for e in ops]
+    log(f"host profile {label}: " + "; ".join(
+        f"{k} {ms:.1f} ms x{n}" for k, ms, n in rows))
+    return rows
+
+
+def _profile_mesh_step(arrays, splits, device):
+    """One train step (lr 0) of the CV driver's model on the phase-4
+    cohort's first batch with the mesh of one and the sharded risk set,
+    then without a mesh, each profiled as phase 9c profiles its steps, and
+    the ops with the most self host time in each."""
+    import numpy as np
+
+    from multimodal_survival_prediction_tpu_torch.config import (
+        PARTIAL_MODALITY as CFG,
+    )
+    from multimodal_survival_prediction_tpu_torch.parallel.mesh import (
+        make_mesh,
+    )
+    from multimodal_survival_prediction_tpu_torch.train.cv import (
+        make_trainers,
+    )
+
+    rna_dim = arrays.arrays["rnaseq"].shape[1]
+    data = arrays.to_device(device)
+    out = {}
+    for label, kw in (("mesh of one", dict(mesh=make_mesh(1, device=device),
+                                          sharded_risk_set=True)),
+                      ("one device", {})):
+        tr = make_trainers(CFG, rna_dim, "densenet121", None, device, **kw)[0]
+        perm, bvalid = tr._pad_indices(splits[0][0], CFG.batch_size,
+                                       np.random.default_rng(0))
+        batch = next(tr._device_batches(data, perm, bvalid))
+        state = tr.init_state(fold=1)
+        out[label] = _profile_once(lambda: tr.train_step(state, batch, 0.0),
+                                   f"step on the {label}")
+        out[label]["host_top"] = _host_top(
+            lambda: tr.train_step(state, batch, 0.0), f"step on the {label}")
+    return out
+
+
+def phase_multidevice(work, table, paths, n_img, cv_run, smi="",
+                      device="cuda", extra_argv=(), expect_launches=True):
+    """Phase 13: a process group of one rank (NCCL on the card, gloo on the
+    CPU) over a file store under build/; phase 9's CLI with ``--mesh 1
+    --sharded-risk-set`` in-process, held to phase 9's run (per-step
+    losses by phase 8's rule, W-pass launches, no fused launch, collectives
+    on every step, cv_results.json written once, fold checkpoints that load
+    strictly into the single-device model and score finite risks), then
+    ``parallel/dryrun.py``'s ``dryrun_multichip(1)`` on that group
+    against the single-device Trainer's step. The collective count is
+    reset just before the CLI and read just after. Returns the phase's
+    numbers."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_survival_prediction_tpu_torch.config import (
+        PARTIAL_MODALITY as CFG,
+    )
+    from multimodal_survival_prediction_tpu_torch.io.checkpoint import (
+        load_checkpoint,
+        load_fold_meta,
+    )
+    from multimodal_survival_prediction_tpu_torch.models import (
+        PartialModalityNet,
+    )
+    from multimodal_survival_prediction_tpu_torch.ops import resample as rs
+    from multimodal_survival_prediction_tpu_torch.parallel import (
+        collectives,
+        dryrun,
+        multihost,
+    )
+    from multimodal_survival_prediction_tpu_torch.train import cv, engine
+    from multimodal_survival_prediction_tpu_torch.train import (
+        partial_modality_training as pmt,
+    )
+    from multimodal_survival_prediction_tpu_torch.train.predict import (
+        fold_checkpoints,
+        predict_risk,
+    )
+
+    t0 = time.perf_counter()
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    want_img = n_img if expect_launches else 0
+    store = work / "mesh_store"
+    store.unlink(missing_ok=True)
+    multihost.initialize_distributed(init_method=f"file://{store}",
+                                     num_processes=1, process_id=0,
+                                     device=device)
+    backend = dist.get_backend()
+    per_step, writes = [], []
+    train_step, write = engine.Trainer.train_step, cv.write_cv_results
+
+    def counted_step(self, *a, **k):  # the collectives each step launches
+        before = collectives.counter.calls
+        out = train_step(self, *a, **k)
+        per_step.append(collectives.counter.calls - before)
+        return out
+
+    def counted_write(*a, **k):
+        writes.append(a[0])
+        return write(*a, **k)
+
+    results, models = work / "mesh_results", work / "mesh_models"
+    argv = ["--data-root", str(paths["root"]), "--results-dir", str(results),
+            "--models-dir", str(models), "--pallas-resample", "--n-folds",
+            "2", "--epochs", "2", "--device", device, "--mesh", "1",
+            "--sharded-risk-set", *extra_argv]
+    try:
+        engine.Trainer.train_step, cv.write_cv_results = counted_step, \
+            counted_write
+        try:
+            collectives.counter.calls = 0  # the CLI's count starts here
+            run = _drive_cli(pmt.main, argv, device)
+            calls = collectives.counter.calls  # ... and is read here
+        finally:
+            engine.Trainer.train_step, cv.write_cv_results = train_step, \
+                write
+        per_fold = _per_fold(run["outcomes"], run["epochs"],
+                             host=run["epoch_host"])
+        on_mesh = dryrun.dryrun_multichip(1, device=device)
+        one = dryrun.dryrun_step(None, device=device,
+                                 batch=on_mesh["global_batch"])
+        host_us = _collective_host_us(dist.group.WORLD, device)
+        profile = (_profile_mesh_step(run["arrays"], run["splits"], device)
+                   if device != "cpu" else None)
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+    fused = run["fused"] + run["fused_bf16"]
+    check(run["ingest_launches"] == want_img,
+          f"--mesh 1: the ingest launched the W-pass kernel "
+          f"{run['ingest_launches']} times, expected {want_img}")
+    check(fused == [0] * len(fused),
+          f"--mesh 1: the unfused model launched fused kernels {fused}")
+    steps = sum(len(e[2]) for e in run["epochs"])
+    check(len(per_step) == steps and min(per_step, default=0) > 0,
+          f"--mesh 1: collectives a step {per_step} over {steps} steps")
+    check(len(writes) == 1, f"cv_results.json written {len(writes)} times")
+    gaps = []
+    for f, want in zip(per_fold, cv_run["folds"]):
+        gaps.append(_losses_held(
+            f"--mesh 1 fold {f['fold']}",
+            [x for e in f["step_losses"] for x in e],
+            [x for e in want["step_losses"] for x in e]))
+    ckpts = fold_checkpoints(models, CFG.name)
+    check([c.name for c in ckpts] == ["fold_1_best.pt", "fold_2_best.pt"],
+          f"--mesh 1 fold checkpoints {ckpts}")
+    rna_dim = run["arrays"].arrays["rnaseq"].shape[1]
+    for ckpt in ckpts:
+        PartialModalityNet(rna_dim=rna_dim,
+                           backbone=load_fold_meta(ckpt)["backbone"]
+                           ).load_state_dict(load_checkpoint(ckpt),
+                                             strict=True)
+    rs.wpass.launches = 0
+    pred = predict_risk(CFG, ckpts, table, rnaseq_csv=paths["rnaseq_csv"],
+                        labeled_only=False, device=device)
+    sync()
+    check(np.all(np.isfinite(pred["risk_score"]))
+          and rs.wpass.launches == want_img,
+          f"--mesh 1 ensemble: risks {pred['risk_score']}, "
+          f"{rs.wpass.launches} W-pass launches")
+    gap = abs(on_mesh["loss"] - one["loss"]) / max(abs(one["loss"]), 1e-12)
+    check(gap <= MESH_LOSS_RTOL and on_mesh["loss_sharded"] is not None,
+          f"dry run: the mesh-of-one step's loss {on_mesh['loss']} against "
+          f"the single-device step's {one['loss']} (gap {gap:.2e})")
+    wall = time.perf_counter() - t0
+    ms = [f["ms_per_step_last_epoch"] for f in per_fold]
+    ms9 = [f["ms_per_step_last_epoch"] for f in cv_run["folds"]]
+    host = [(round(f["host_ms_per_step_last_epoch"], 2),
+             round(f["gc_ms_last_epoch"], 2), f["gc_n_last_epoch"])
+            for f in per_fold]
+    host9 = [(round(f["host_ms_per_step_last_epoch"], 2),
+              round(f["gc_ms_last_epoch"], 2), f["gc_n_last_epoch"])
+             for f in cv_run["folds"]]
+    log(f"multi-device on one card ({smi}; {backend}, world size 1): phase "
+        f"wall {wall:.2f} s, CLI --mesh 1 --sharded-risk-set wall "
+        f"{run['wall_s']:.2f} s (phase 9: {cv_run['wall_s']:.2f} s); epoch-2"
+        f" ms/step {ms} (phase 9: {ms9}); epoch 2's host ms/step, GC ms "
+        f"and GC pauses {host} (phase 9: {host9}); collectives a step "
+        f"{per_step} "
+        f"({calls} in the CLI); W-pass launches {run['ingest_launches']}; "
+        f"step losses held to phase 9's (gaps step 1, later) {gaps}; dry run"
+        f" loss {on_mesh['loss']:.6f} (sharded risk set "
+        f"{on_mesh['loss_sharded']:.6f}) vs one device {one['loss']:.6f}; "
+        f"one all-reduce of a BatchNorm's sums {host_us:.1f} us of host "
+        f"time")
+    return dict(wall_s=wall, cli_wall_s=run["wall_s"], ms_per_step=ms,
+                host_gc=host, phase9_host_gc=host9,
+                collective_host_us=host_us, profile=profile,
+                phase9_ms_per_step=ms9, collectives_per_step=per_step,
+                collectives=calls, ingest_launches=run["ingest_launches"],
+                loss_gaps=gaps, dryrun=dict(mesh=on_mesh, one=one),
+                backend=backend)
+
 
 def phase_device():
     import torch
@@ -1780,6 +2044,8 @@ def _drive_cli(main, argv, device):
 
     sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
     kept, epochs, messages, evals, par_epochs = {}, [], [], [], []
+    epoch_host = []
+    pauses = _gc_pauses()
     prepare, run = cv.prepare_cv_data, cli.run_cross_validation
     run_par = cli.run_cross_validation_parallel
     train_epoch, evaluate = engine.Trainer.train_epoch, engine.Trainer.evaluate
@@ -1819,10 +2085,14 @@ def _drive_cli(main, argv, device):
 
     def timed(fn):  # each epoch's ms by CUDA events, and its step losses
         def epoch(self, *a, **k):
+            gc_s, gc_n, t = pauses.s, pauses.n, time.perf_counter()
             ev = events()
             out = fn(self, *a, **k)
             epochs.append((elapsed(ev), len(self.step_losses),
                            self.step_losses.float().tolist()))
+            epoch_host.append(dict(
+                host_ms=(time.perf_counter() - t) * 1e3,
+                gc_ms=(pauses.s - gc_s) * 1e3, gc_n=pauses.n - gc_n))
             return out
         return epoch
 
@@ -1880,14 +2150,41 @@ def _drive_cli(main, argv, device):
         logger.removeHandler(handler)
         logger.setLevel(level)
     return dict(kept, payload=payload, wall_s=wall, fused=fused,
-                fused_bf16=fused_bf16, epochs=epochs, par_epochs=par_epochs,
-                evals=evals, messages=messages)
+                fused_bf16=fused_bf16, epochs=epochs, epoch_host=epoch_host,
+                par_epochs=par_epochs, evals=evals, messages=messages)
 
 
-def _per_fold(outcomes, epochs, stage1_epochs=0):
+class _GCPauses:
+    """The seconds and the number of Python's garbage-collector pauses
+    since it was made (``gc.callbacks``)."""
+
+    def __init__(self):
+        self.s, self.n, self._t0 = 0.0, 0, None
+        gc.callbacks.append(self._pause)
+
+    def _pause(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.s += time.perf_counter() - self._t0
+            self.n += 1
+
+
+_PAUSES = []
+
+
+def _gc_pauses() -> _GCPauses:
+    """The one ``_GCPauses`` of this process."""
+    if not _PAUSES:
+        _PAUSES.append(_GCPauses())
+    return _PAUSES[0]
+
+
+def _per_fold(outcomes, epochs, stage1_epochs=0, host=None):
     """Each fold's wall, epochs' ms (CUDA events; stage 1's first) and step
     losses, and its last epoch's steps and ms/step, from ``_drive_cli``'s
-    epoch list."""
+    epoch list; with ``host`` (``_drive_cli``'s ``epoch_host``), its last
+    epoch's host ms/step and garbage-collector pauses too."""
     per_fold, i = [], 0
     for o in outcomes:
         n = stage1_epochs + o.epochs_run
@@ -1901,6 +2198,11 @@ def _per_fold(outcomes, epochs, stage1_epochs=0):
                                  ms / steps if ms is not None else None),
                              best_epoch=o.best_epoch,
                              best_c_index=o.best_c_index))
+        if host is not None:
+            last = host[i - 1]
+            per_fold[-1].update(
+                host_ms_per_step_last_epoch=last["host_ms"] / steps,
+                gc_ms_last_epoch=last["gc_ms"], gc_n_last_epoch=last["gc_n"])
     return per_fold
 
 
@@ -1964,7 +2266,8 @@ def phase_cv(work, table, paths, n_img, smi="", device="cuda", extra_argv=(),
     payload, wall, fused = run["payload"], run["wall_s"], run["fused"]
     arrays, splits = run["arrays"], run["splits"]
     ingest = run["ingest_launches"]
-    per_fold = _per_fold(run["outcomes"], run["epochs"])
+    per_fold = _per_fold(run["outcomes"], run["epochs"],
+                         host=run["epoch_host"])
     tf32 = [m for m in run["messages"] if "allow_tf32" in m]
     log(f"CV (train/partial_modality_training.py main, {smi}): wall "
         f"{wall:.2f} s, ingest {run['ingest_s']:.2f} s with "
@@ -3423,6 +3726,8 @@ def main() -> int:
                             fam_paths, smi=smi)
         report = timed("12 ingest + report", phase_ingest_and_report, work,
                        table, paths, n_img, cv_run, smi=smi)
+        multi = timed("13 multi-device", phase_multidevice, work, table,
+                      paths, n_img, cv_run, smi=smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3456,7 +3761,8 @@ def main() -> int:
             "kernel_ingest": report["ingest"]["launches"]["kernel"],
             "auto_ingest": report["ingest"]["launches"]["auto"],
             "host_pinned_predict_risk": report["pinned"]["launches"],
-            "run_all": report["report"]["launches"]},
+            "run_all": report["report"]["launches"],
+            "multidevice_ingest": multi["ingest_launches"]},
         "kernel_ms": timing["kernel_ms"],
         "call_ms": timing["call_ms"],
         "bound_us": timing["bound_ms"] * 1e3,
@@ -3541,6 +3847,21 @@ def main() -> int:
         f"{probe['link_ms']:.2f} ms/vol); host vs kernel max |d| "
         f"{report['ingest']['max_d']:.2e}; run_all wall "
         f"{report['report']['walls']['run_all']:.2f} s")
+    mprof = multi["profile"]
+    log(f"multi-device ({smi}): {multi['backend']} at world size 1, phase "
+        f"wall {multi['wall_s']:.2f} s, epoch-2 ms/step "
+        f"{multi['ms_per_step']} vs phase 9's "
+        f"{multi['phase9_ms_per_step']}, collectives a step "
+        f"{min(multi['collectives_per_step'])}-"
+        f"{max(multi['collectives_per_step'])}, "
+        f"{multi['collective_host_us']:.1f} us of host time each; one "
+        f"profiled step on the mesh of one: wall "
+        f"{mprof['mesh of one']['wall_ms']:.1f} ms, device busy "
+        f"{mprof['mesh of one']['device_busy_ms']:.2f} ms, "
+        f"{mprof['mesh of one']['device_launches']} launches; on one "
+        f"device: {mprof['one device']['wall_ms']:.1f} ms, "
+        f"{mprof['one device']['device_busy_ms']:.2f} ms, "
+        f"{mprof['one device']['device_launches']}")
     log(f"phase walls s {walls}")
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

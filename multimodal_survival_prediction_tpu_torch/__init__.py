@@ -33,6 +33,11 @@ Ported: all eight model families of the JAX package (``models/``:
     ``resample='host'``/``'auto'`` in ``data.pipeline``), preprocessing of
     raw DICOM and STAR files (``preprocess``), and the comparison
     (``analysis.comparison``, ``analysis.final_comparison``, ``run_all``).
+  * multi-device training over ``torch.distributed`` (``parallel``: data
+    and tensor parallelism on a (data, model) ``DeviceMesh``, multi-process
+    runs; ``ops.cox_distributed``: the sharded Cox risk set), behind the
+    Trainer's and the CV driver's ``mesh`` and the CLIs' ``--mesh``,
+    ``--tp``, ``--sharded-risk-set`` and ``--multihost``.
 ROADMAP.md lists what is still to come.
 """
 

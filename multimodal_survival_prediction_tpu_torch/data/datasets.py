@@ -57,14 +57,19 @@ class CohortArrays:
     def rows(self, patient_ids) -> np.ndarray:
         return np.asarray([self.index[p] for p in patient_ids], np.int32)
 
-    def to_device(self, device="cuda") -> dict:
-        """The arrays as tensors on ``device`` (the trainer's data dict)."""
-        import torch
-
+    def to_device(self, device="cuda", mesh=None) -> dict:
+        """The arrays as tensors on ``device`` (the trainer's data dict).
+        Under a ``mesh`` every rank calls it with its own device and holds
+        the whole cohort (replicated, as JAX's ``to_device(mesh=)``); the
+        device must be of the mesh's type."""
+        from ..parallel.sharding import replicate
         from ..utils.device import resolve_device
 
         dev = resolve_device(device)
-        return {k: torch.from_numpy(v).to(dev) for k, v in self.arrays.items()}
+        if mesh is not None and mesh.device_type != dev.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot hold a "
+                             f"cohort on {dev}")
+        return replicate(self.arrays, dev)
 
 
 @dataclass

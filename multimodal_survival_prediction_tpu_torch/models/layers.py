@@ -21,6 +21,13 @@ from the caller instead (the fold-parallel step draws each fold's from that
 fold's generator outside ``torch.func.vmap``, which cannot vmap a
 generator).
 
+Under a data-parallel mesh (``parallel/sharding.py:shard_module`` sets
+``data_group`` on both layers) each rank holds its rows of the global
+batch: ``BatchNorm`` takes Σx, Σx² and the row count over the group
+(``parallel.collectives.all_reduce_sum``) and ``Dropout`` draws the global
+batch's uniforms from its generator, seeded alike on every rank, and keeps
+its rows — statistics, running stats and masks are the single-device ones.
+
 Compute dtype (flax's ``dtype`` of ``Dense``, ``Conv`` and ``BatchNorm``):
 the layers built here take ``dtype``. When it is set, input, weight and
 bias are cast to it at use and the result is in it (flax
@@ -42,6 +49,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.collectives import all_reduce_sum, group_rank_size
 
 
 def default_generator(generator: torch.Generator | None) -> torch.Generator:
@@ -150,6 +159,8 @@ class BatchNorm(nn.Module):
     ``dtype``, or to the promotion of x's type and float32.
     """
 
+    data_group = None  # the data-parallel group (module docstring)
+
     def __init__(self, num_features: int, momentum: float = 0.9,
                  eps: float = 1e-5, dtype: torch.dtype | None = None):
         super().__init__()
@@ -168,8 +179,17 @@ class BatchNorm(nn.Module):
         if self.training:
             axes = [0, *range(2, x.dim())]
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            mean = xf.mean(axes)
-            var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+            if self.data_group is None:
+                mean = xf.mean(axes)
+                var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+            else:
+                c = xf.shape[1]
+                sums = all_reduce_sum(torch.cat([
+                    xf.sum(axes), (xf * xf).sum(axes),
+                    xf.new_full((1,), xf.numel() // c)]), self.data_group)
+                n = sums[-1]
+                mean = sums[:c] / n
+                var = (sums[c:2 * c] / n - mean * mean).clamp_min(0.0)
             self.update_running_stats(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -199,6 +219,8 @@ class Dropout(nn.Module):
     dropouts get theirs from :func:`set_dropout_generator`. Train mode with
     ``p > 0`` and no generator raises."""
 
+    data_group = None  # the data-parallel group (module docstring)
+
     def __init__(self, p: float, generator: torch.Generator | None = None):
         super().__init__()
         self.p = p
@@ -207,13 +229,17 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0:
             return x
+        rank, size = (0, 1) if self.data_group is None else \
+            group_rank_size(self.data_group)
+        b = x.shape[0]
+        shape = (b * size, *x.shape[1:])  # the global batch's
         source = _UNIFORMS.get()
         if source is not None:
-            u = source(x)
-            if u.shape != x.shape:
+            u = source(x if size == 1 else x.new_empty(shape))
+            if u.shape != shape:
                 raise RuntimeError(
                     f"dropout uniforms of shape {tuple(u.shape)} for an "
-                    f"input of shape {tuple(x.shape)}")
+                    f"input of shape {shape}")
         elif self.generator is None:
             raise RuntimeError(
                 "Dropout in train mode needs a generator: call "
@@ -222,8 +248,10 @@ class Dropout(nn.Module):
             # the uniforms in float32 whatever x's type (flax draws its
             # bernoulli mask in float32): bf16 uniforms take ~1,700 values
             # and would move the keep rate
-            u = torch.rand(x.shape, generator=self.generator,
+            u = torch.rand(shape, generator=self.generator,
                            device=x.device, dtype=torch.float32)
+        if size > 1:
+            u = u[rank * b:(rank + 1) * b]
         return torch.where(u >= self.p, x / (1 - self.p), 0.0)
 
     def extra_repr(self) -> str:

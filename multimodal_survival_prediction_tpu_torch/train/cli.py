@@ -14,8 +14,26 @@ them) and logs both flags. Library functions set no global flags.
 ``--fold-parallel 1`` trains every fold in one vmapped step
 (``train/cv_parallel.py``), ``--streaming`` keeps the cohort on the host
 (either driver) and ``--profile-dir`` traces a sequential run
-(``utils/profiling.py``). Flags of the JAX scripts that have no port yet stay in the
-parser and raise ``NotImplementedError`` naming their ROADMAP.md item
+(``utils/profiling.py``).
+
+Multi-device runs (``parallel/``; one process a device):
+  * ``--mesh N [--tp M] [--sharded-risk-set]`` trains on an (N/M, M)
+    mesh. Without a process group the CLI starts the N ranks itself
+    (``torch.multiprocessing.spawn``, a ``FileStore`` rendezvous under
+    ``--results-dir``): one a GPU under NCCL, or gloo ranks with
+    ``--device cpu``. With N = 1, or inside a group that already exists, it
+    runs in this process.
+  * ``--multihost`` joins a group from ``--coordinator``/
+    ``--num-processes``/``--process-id`` or from torchrun's environment
+    (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) and
+    trains on one mesh over every rank of every host; run the same command
+    in every process.
+Every rank builds the same cohort (a ``--synthetic`` one is written once,
+by the CLI's process or the coordinator, and read by the ranks); rank 0
+writes the artifacts and prints the summary.
+
+Flags of the JAX scripts that have no port yet stay in the parser and
+raise ``NotImplementedError`` naming their ROADMAP.md item
 (``--fold-parallel`` N > 1 too: a fold mesh over N devices); ``--device``
 (default ``cuda``) is the port's own.
 """
@@ -23,16 +41,29 @@ parser and raise ``NotImplementedError`` naming their ROADMAP.md item
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import json
 import logging
+import os
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from ..data.matching_table import load_matching_table
 from ..data.synthetic import SyntheticCohortSpec, generate_synthetic_cohort
+from ..parallel.mesh import best_mesh_shape, make_mesh
+from ..parallel.multihost import (
+    backend_for,
+    barrier,
+    initialize_distributed,
+    is_coordinator,
+    local_cuda_device,
+    make_global_mesh,
+)
 from ..utils import parse_hu_window
-from ..utils.device import pin_fp32_policy
+from ..utils.device import pin_fp32_policy, resolve_device
 from .cv import run_cross_validation
 from .cv_parallel import make_fold_mesh, run_cross_validation_parallel
 
@@ -40,13 +71,7 @@ log = logging.getLogger(__name__)
 
 # (flag, attribute, value when unused, ROADMAP.md item)
 _NOT_PORTED = (
-    ("--mesh", "mesh", 0, "Queue 1 item 10 (multi-device paths)"),
-    ("--tp", "tp", 1, "Queue 1 item 10 (multi-device paths)"),
     ("--remat", "remat", False, "Queue 1 item 16 (remat)"),
-    ("--sharded-risk-set", "sharded_risk_set", False,
-     "Queue 1 item 10 (multi-device paths)"),
-    ("--multihost", "multihost", False,
-     "Queue 1 item 10 (multi-device paths)"),
     ("--aot-cache", "aot_cache", None, "Queue 1 item 12 (io/aot_cache.py)"),
 )
 
@@ -95,14 +120,36 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                         "float32)")
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="train on an N-device data-parallel mesh (0 = one "
+                        "device; N ranks, started here unless a process "
+                        "group exists)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel factor within the mesh (wide RNA "
+                        "layers column-parallel over the 'model' axis)")
+    p.add_argument("--sharded-risk-set", action="store_true",
+                   help="with --mesh N: the train Cox loss through the "
+                        "sharded risk-set prefix scan "
+                        "(ops/cox_distributed.py); Breslow and Efron ties")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a multi-process run (--coordinator/"
+                        "--num-processes/--process-id, or torchrun's "
+                        "environment) and train on one mesh over every "
+                        "rank; run the same command in every process")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="with --multihost: rank 0's rendezvous address")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="with --multihost: the number of processes")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="with --multihost: this process's rank")
     p.add_argument("--fold-parallel", type=int, default=0,
                    help="train all folds in one vmapped step on one device "
                         "(1; N > 1 devices is not ported yet: ROADMAP.md "
-                        "Queue 1 item 10)")
+                        "Queue 1 item 17)")
     p.add_argument("--fold-dp", type=int, default=1,
                    help="data parallelism inside each fold of a "
                         "--fold-parallel N mesh (not ported yet: ROADMAP.md "
-                        "Queue 1 item 10)")
+                        "Queue 1 item 17)")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of the CV run (ingest "
                         "and folds) into this directory")
@@ -119,9 +166,37 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
 
 def run_training(args, cfg):
     """Train ``cfg`` under K-fold CV as the parsed ``args`` say; returns the
-    cv_results payload."""
+    cv_results payload (rank 0's on a mesh)."""
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
+    _validate(args, cfg)
+    fold_mesh = (make_fold_mesh(args.fold_parallel,
+                                data_parallel=args.fold_dp)
+                 if args.fold_parallel else None)
+    if args.multihost:
+        initialize_distributed(args.coordinator, args.num_processes,
+                               args.process_id, device=args.device)
+        table, rnaseq_csv = _load_cohort_once(args, cfg)
+        mesh = make_global_mesh(model_parallel=args.tp, device=args.device)
+        return _train(args, cfg, table, rnaseq_csv, mesh=mesh)
+    if args.mesh > 1 and not dist.is_initialized():
+        return _spawn_ranks(args, cfg)
+    with (_group_of_one(args) if args.mesh == 1 and not dist.is_initialized()
+          else contextlib.nullcontext()):
+        table, rnaseq_csv = _load_cohort_once(args, cfg)
+        mesh = (make_mesh(args.mesh, args.tp, device=args.device)
+                if args.mesh else None)
+        return _train(args, cfg, table, rnaseq_csv, mesh=mesh,
+                      fold_mesh=fold_mesh)
+
+
+def _validate(args, cfg):
+    """The JAX scripts' usage errors, before anything is built."""
+    if args.multihost and (args.mesh or args.fold_parallel):
+        raise SystemExit(
+            "--multihost builds its own global mesh over every device of "
+            "every host; drop --mesh/--fold-parallel (--tp still selects "
+            "tensor parallelism inside it)")
     if args.fold_dp > 1 and args.fold_parallel <= 1:
         # the inner 'data' axis only exists on a fold-parallel mesh
         raise SystemExit(
@@ -145,12 +220,21 @@ def run_training(args, cfg):
         raise SystemExit(
             f"--stage1-epochs only applies to two-stage models (SimMLM); "
             f"'{cfg.name}' has no stage 1")
-    fold_mesh = (make_fold_mesh(args.fold_parallel,
-                                data_parallel=args.fold_dp)
-                 if args.fold_parallel else None)
-    log.info(pin_fp32_policy())
+    if args.sharded_risk_set and not (args.mesh or args.multihost):
+        raise ValueError("sharded_risk_set requires a mesh")
+    if args.mesh:
+        best_mesh_shape(args.mesh, args.tp)
+        if (args.mesh > 1 and not dist.is_initialized()
+                and resolve_device(args.device).type == "cuda"
+                and args.mesh > torch.cuda.device_count()):
+            raise ValueError(
+                f"--mesh {args.mesh} needs {args.mesh} GPUs, one a rank "
+                f"(NCCL puts no two ranks on one GPU); this host has "
+                f"{torch.cuda.device_count()}")
 
-    cfg = dataclasses.replace(cfg, **{k: v for k, v in dict(
+
+def _with_overrides(args, cfg):
+    return dataclasses.replace(cfg, **{k: v for k, v in dict(
         num_epochs=args.epochs, n_folds=args.n_folds,
         batch_size=args.batch_size, learning_rate=args.learning_rate,
         seed=args.seed, stage1_epochs=args.stage1_epochs, ties=args.ties,
@@ -158,7 +242,91 @@ def run_training(args, cfg):
                      if args.image_shape else None),
     ).items() if v is not None})
 
-    table, rnaseq_csv = load_cohort(args, cfg)
+
+def _load_cohort_once(args, cfg):
+    """:func:`load_cohort` for every rank of a group: a synthetic cohort is
+    written by the coordinator alone, and after a barrier every rank reads
+    the files it wrote."""
+    if not (args.synthetic and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return load_cohort(args, _with_overrides(args, cfg))
+    if is_coordinator():
+        load_cohort(args, _with_overrides(args, cfg))
+    barrier("synthetic-cohort")
+    return load_cohort(argparse.Namespace(**{**vars(args),
+                                             "synthetic": False}),
+                       _with_overrides(args, cfg))
+
+
+@contextlib.contextmanager
+def _group_of_one(args):
+    """A process group of this process alone (``--mesh 1``), over a
+    ``FileStore`` under ``--results-dir``."""
+    store = _store_path(args)
+    initialize_distributed(init_method=f"file://{store}", num_processes=1,
+                           process_id=0, device=args.device)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
+def _store_path(args) -> Path:
+    results = Path(args.results_dir).resolve()
+    results.mkdir(parents=True, exist_ok=True)
+    store = results / f".rendezvous-{os.getpid()}"
+    store.unlink(missing_ok=True)
+    return store
+
+
+def _spawn_ranks(args, cfg):
+    """``--mesh N`` without a process group: N local ranks, each running
+    the CLI's training on its own device; returns rank 0's payload."""
+    import torch.multiprocessing as mp
+
+    table, rnaseq_csv = load_cohort(args, _with_overrides(args, cfg))
+    store = _store_path(args)
+    result = store.with_name(store.name + ".payload.json")
+    try:
+        mp.spawn(_rank_main, nprocs=args.mesh, join=True,
+                 args=(args, cfg, table, rnaseq_csv, str(store),
+                       str(result)))
+        return json.loads(result.read_text())
+    finally:
+        store.unlink(missing_ok=True)
+        result.unlink(missing_ok=True)
+
+
+def _rank_main(rank, args, cfg, table, rnaseq_csv, store, result):
+    """One rank of :func:`_spawn_ranks` (module level: spawn pickles it)."""
+    logging.basicConfig(level=logging.INFO,
+                        format=f"%(asctime)s rank {rank} %(levelname)s "
+                               "%(message)s")
+    if backend_for(args.device) == "gloo":
+        # CPU ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.mesh))
+    device = (local_cuda_device(rank) if backend_for(args.device) == "nccl"
+              else args.device)
+    initialize_distributed(init_method=f"file://{store}",
+                           num_processes=args.mesh, process_id=rank,
+                           device=args.device)
+    try:
+        mesh = make_mesh(args.mesh, args.tp, device=args.device)
+        payload = _train(argparse.Namespace(**{**vars(args),
+                                               "device": str(device)}),
+                         cfg, table, rnaseq_csv, mesh=mesh)
+        if rank == 0:
+            Path(result).write_text(json.dumps(payload))
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, cfg, table, rnaseq_csv, mesh=None, fold_mesh=None):
+    """The CV run itself, on one rank (or one device); the coordinator
+    prints the summary."""
+    log.info(pin_fp32_policy())
+    cfg = _with_overrides(args, cfg)
     common = dict(
         rnaseq_csv=rnaseq_csv, results_dir=args.results_dir,
         models_dir=args.models_dir, backbone=args.backbone,
@@ -172,15 +340,17 @@ def run_training(args, cfg):
         title = f"{cfg.display_name} (fold-parallel)"
     else:
         payload, outcomes = run_cross_validation(
-            cfg, table, resume=args.resume,
+            cfg, table, mesh=mesh, tensor_parallel=args.tp > 1,
+            sharded_risk_set=args.sharded_risk_set, resume=args.resume,
             checkpoint_every=args.checkpoint_every,
             profile_dir=args.profile_dir, **common)
         title = cfg.display_name
-    print(f"\n{title}: C-index "
-          f"{payload['c_index_mean']:.4f} ± {payload['c_index_std']:.4f}")
-    for o in outcomes:
-        print(f"  fold {o.fold}: best {o.best_c_index:.4f} "
-              f"@ epoch {o.best_epoch} ({o.epochs_run} epochs run)")
+    if is_coordinator():
+        print(f"\n{title}: C-index "
+              f"{payload['c_index_mean']:.4f} ± {payload['c_index_std']:.4f}")
+        for o in outcomes:
+            print(f"  fold {o.fold}: best {o.best_c_index:.4f} "
+                  f"@ epoch {o.best_epoch} ({o.epochs_run} epochs run)")
     return payload
 
 

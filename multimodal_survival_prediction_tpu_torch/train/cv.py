@@ -34,9 +34,16 @@ the device-resident one.
 ``profile_dir`` traces the run with ``torch.profiler``
 (``utils/profiling.py:profile_trace``), from the ingest to the last fold.
 
+``mesh`` (a (data, model) ``DeviceMesh``, ``parallel/mesh.py``) trains
+each fold data-parallel over its ranks, ``tensor_parallel`` and
+``sharded_risk_set`` as the Trainer takes them (``train/engine.py``). Every
+rank runs this driver on the same cohort and splits; only the coordinator
+(rank 0) writes artifacts, after every rank has taken part in gathering
+tensor-parallel shards (``parallel/multihost.py:fetch_tree``); the resume
+save ends with a barrier, so every rank reads a finished resume state.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): meshes / tensor parallelism / the sharded risk set,
-``aot_cache_dir`` and ``remat``.
+item): ``aot_cache_dir`` and ``remat``.
 """
 
 from __future__ import annotations
@@ -62,6 +69,7 @@ from ..io.checkpoint import (
     save_train_state,
 )
 from ..io.results import build_cv_payload, write_cv_results
+from ..parallel.multihost import barrier, is_coordinator
 from ..utils.device import resolve_device
 from ..utils.profiling import profile_trace
 from .adapters import (
@@ -83,8 +91,6 @@ log = logging.getLogger(__name__)
 
 # option -> the ROADMAP.md item that brings it
 _NOT_PORTED = {
-    "mesh": "meshes, tensor parallelism and the sharded risk set are not "
-            "ported yet: ROADMAP.md Queue 1 item 10",
     "aot_cache_dir": "aot_cache_dir is not ported yet: ROADMAP.md Queue 1 "
                      "item 12",
     "remat": "remat is not ported yet: ROADMAP.md Queue 1 item 16 "
@@ -153,10 +159,12 @@ def prepare_cv_data(cfg: ModelRunConfig, table, rnaseq_csv=None,
 
 
 def make_trainers(cfg: ModelRunConfig, rna_dim: int, backbone: str, dtype,
-                  device):
+                  device, *, mesh=None, tensor_parallel: bool = False,
+                  sharded_risk_set: bool = False):
     """The driver's Trainer for ``cfg`` and, for two-stage models, SimMLM's
     stage-1 Trainer (the same batches and optimizer, the experts' loss);
-    None when ``cfg`` has no stage 1."""
+    None when ``cfg`` has no stage 1. ``mesh`` and the two flags go to
+    both."""
     batch_to_inputs, hazard_and_aux = make_adapters(cfg)
     tcfg = TrainConfig(
         batch_size=cfg.batch_size, learning_rate=cfg.learning_rate,
@@ -168,10 +176,13 @@ def make_trainers(cfg: ModelRunConfig, rna_dim: int, backbone: str, dtype,
                                        backbone=backbone, generator=gen,
                                        dtype=dtype)[0]
 
+    parallel = dict(device=device, mesh=mesh,
+                    tensor_parallel=tensor_parallel,
+                    sharded_risk_set=sharded_risk_set)
     trainer = Trainer(model_fn, batch_to_inputs, hazard_and_aux, tcfg,
-                      device=device)
+                      **parallel)
     stage1_trainer = (Trainer(model_fn, batch_to_inputs,
-                              simmlm_stage1_adapter(), tcfg, device=device)
+                              simmlm_stage1_adapter(), tcfg, **parallel)
                       if cfg.stage1_epochs else None)
     return trainer, stage1_trainer
 
@@ -186,11 +197,8 @@ def _compute_dtype(dtype) -> torch.dtype | None:
                      "or torch.bfloat16")
 
 
-def _refuse_unported(*, mesh, tensor_parallel, sharded_risk_set,
-                     aot_cache_dir, remat):
-    given = {"mesh": (mesh is not None or tensor_parallel
-                      or sharded_risk_set),
-             "aot_cache_dir": bool(aot_cache_dir), "remat": remat}
+def _refuse_unported(*, aot_cache_dir, remat):
+    given = {"aot_cache_dir": bool(aot_cache_dir), "remat": remat}
     for option, on in given.items():
         if on:
             raise NotImplementedError(_NOT_PORTED[option])
@@ -231,10 +239,10 @@ def run_cross_validation(
     after each fold's ``init_state``; a returned TrainState replaces the
     fold's initial state (the tests start each fold from the JAX driver's
     initial weights through it)."""
-    _refuse_unported(mesh=mesh,
-                     tensor_parallel=tensor_parallel,
-                     sharded_risk_set=sharded_risk_set,
-                     aot_cache_dir=aot_cache_dir, remat=remat)
+    _refuse_unported(aot_cache_dir=aot_cache_dir, remat=remat)
+    if sharded_risk_set and mesh is None:
+        raise ValueError("sharded_risk_set requires a mesh")
+    write_outputs = write_outputs and is_coordinator()
     # the trace spans the ingest and every fold (JAX starts it after the
     # ingest; here the W-pass launches of the ingest are in it too)
     trace = (profile_trace(profile_dir) if profile_dir
@@ -252,14 +260,16 @@ def run_cross_validation(
         rna_dim = arrays.arrays["rnaseq"].shape[1]
 
         # ONE Trainer for all folds, as the JAX driver keeps one
-        trainer, stage1_trainer = make_trainers(cfg, rna_dim, backbone, dtype,
-                                                dev)
+        trainer, stage1_trainer = make_trainers(
+            cfg, rna_dim, backbone, dtype, dev, mesh=mesh,
+            tensor_parallel=tensor_parallel,
+            sharded_risk_set=sharded_risk_set)
         if streaming:  # the cohort stays on the host
             data = {k: np.asarray(v) for k, v in arrays.arrays.items()}
             train_epoch = Trainer.train_epoch_streaming
             evaluate = Trainer.evaluate_streaming
         else:
-            data = arrays.to_device(dev)
+            data = arrays.to_device(dev, mesh=mesh)
             train_epoch, evaluate = Trainer.train_epoch, Trainer.evaluate
 
         outcomes: list[FoldOutcome] = []
@@ -342,16 +352,24 @@ def run_cross_validation(
                              name, fold, epoch, tr_loss, val_c)
                 if (resume and checkpoint_every
                         and epoch % checkpoint_every == 0):
-                    save_train_state(resume_dir / "state.pt",
-                                     train_state_dict(state))
-                    if best_params is not None:
-                        save_checkpoint(resume_dir / "best.pt", best_params)
-                    (resume_dir / "progress.json").write_text(json.dumps({
-                        "epoch": epoch, "lr": lr, "plateau_best": plateau.best,
-                        "plateau_num_bad": plateau.num_bad, "best_c": best_c,
-                        "best_epoch": best_epoch, "bad": bad,
-                        "shuffle_rng": shuffle_rng.bit_generator.state,
-                        "history": history}))
+                    # every rank gathers (a collective under TP), the
+                    # coordinator writes, and the barrier keeps the others
+                    # from reading a half-written state later
+                    saved = train_state_dict(state)
+                    if is_coordinator():
+                        save_train_state(resume_dir / "state.pt", saved)
+                        if best_params is not None:
+                            save_checkpoint(resume_dir / "best.pt",
+                                            best_params)
+                        (resume_dir / "progress.json").write_text(json.dumps({
+                            "epoch": epoch, "lr": lr,
+                            "plateau_best": plateau.best,
+                            "plateau_num_bad": plateau.num_bad,
+                            "best_c": best_c, "best_epoch": best_epoch,
+                            "bad": bad,
+                            "shuffle_rng": shuffle_rng.bit_generator.state,
+                            "history": history}))
+                    barrier("resume-save")
 
             if write_outputs and best_params is not None:
                 save_fold(models_dir, cfg, fold, best_params,

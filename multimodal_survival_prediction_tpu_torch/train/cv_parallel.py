@@ -40,9 +40,10 @@ step's stacked (K, B, ...) batch is gathered: on the host, through
 ``data.pipeline.BatchPrefetcher``, instead of on the device.
 
 The driver builds the unfused model, as JAX's does, so the fused
-BN->ReLU->1x1-conv kernels are off this path. One device only: meshes and
-fold x data parallelism raise ``NotImplementedError`` (ROADMAP.md Queue 1
-item 10), as do ``aot_cache_dir`` (item 12) and ``remat`` (item 16). No
+BN->ReLU->1x1-conv kernels are off this path. One device only: a fold
+mesh and fold x data parallelism raise ``NotImplementedError`` (ROADMAP.md
+Queue 1 item 17: collectives do not run inside ``torch.func.vmap``), as do
+``aot_cache_dir`` (item 12) and ``remat`` (item 16). No
 resume checkpoints (JAX's parallel driver has none either).
 """
 
@@ -77,7 +78,9 @@ from .schedules import ReduceLROnPlateau, cosine_annealing
 log = logging.getLogger(__name__)
 
 _MESH_TODO = ("a fold mesh (more than one device, or fold x data "
-              "parallelism) is not ported yet: ROADMAP.md Queue 1 item 10")
+              "parallelism) is not ported yet: ROADMAP.md Queue 1 item 17 "
+              "(collectives do not run inside torch.func.vmap; use --mesh N "
+              "with the sequential driver for data parallelism)")
 _AOT_TODO = "aot_cache_dir is not ported yet: ROADMAP.md Queue 1 item 12"
 _REMAT_TODO = ("remat is not ported yet: ROADMAP.md Queue 1 item 16 "
                "(recomputation would update BatchNorm running stats twice "

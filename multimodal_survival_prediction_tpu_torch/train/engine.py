@@ -22,9 +22,25 @@ copied to the device by ``data.pipeline.BatchPrefetcher`` while the previous
 step runs. Batch order, dropout draws and arithmetic are those of the
 device-resident methods, so both give the same trajectory.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): meshes / tensor parallelism / the sharded risk set, and the
-compiled-executable cache.
+Under a ``mesh`` (a ``DeviceMesh`` with dims ``("data", "model")``,
+``parallel/mesh.py``; one process a device) every rank holds the whole
+cohort and the same weights, and takes its contiguous rows of each batch
+(``parallel/sharding.py``). A step: the model on the local rows, its
+outputs and the loss's labels gathered over ``data`` (every rank computes
+the whole batch's loss, as GSPMD's gathered hazards give JAX's global risk
+set), the backward, then one all-reduce (a SUM: each rank's gradient holds
+only its rows' part) of the gradients over ``data``. BatchNorm statistics
+and dropout masks are the global batch's (``models/layers.py``), so the run
+follows the single-device trajectory. ``sharded_risk_set`` computes the
+train Cox loss with ``ops/cox_distributed.py``; ``tensor_parallel`` makes
+the wide dense layers column-parallel over ``model`` when that axis is
+larger than 1, and the global-norm clip then counts each shard once
+(squared norms summed over ``model``). The fused DenseNet stages hold
+single-shard arrays (JAX ``ops/fused_dense.py``), so ``fused_bn1`` under a
+data or model axis larger than 1 raises. DDP is not used: it averages.
+
+Not ported yet: the compiled-executable cache (``aot_cache_dir`` raises
+``NotImplementedError`` naming its ROADMAP item).
 """
 
 from __future__ import annotations
@@ -40,10 +56,20 @@ from ..data.pipeline import BatchPrefetcher
 from ..models.layers import set_dropout_generator
 from ..ops.cindex import concordance_index
 from ..ops.cox import cox_partial_likelihood
+from ..ops.cox_distributed import cox_partial_likelihood_sharded
+from ..parallel.collectives import (
+    all_gather_tensor,
+    all_reduce_tensor,
+    gather,
+)
+from ..parallel.mesh import mesh_shape
+from ..parallel.multihost import fetch_tree
+from ..parallel.sharding import batch_rows, local_part, shard_module, tp_group
 from ..utils.device import resolve_device
 
-_MULTI_DEVICE_TODO = ("meshes, tensor parallelism and the sharded risk set "
-                      "are not ported yet: ROADMAP.md Queue 1 item 10")
+# the batch keys the loss and the adapters read; under a mesh they are
+# gathered to the global batch (the model inputs stay local)
+LABEL_KEYS = ("time", "event", "svalid", "valid", "mask")
 _AOT_TODO = ("aot_cache_dir is not ported yet: ROADMAP.md Queue 1 item 12")
 
 
@@ -87,13 +113,18 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads: list, state: AdamState, params: list,
-               lr: float):
+               lr: float, norm: torch.Tensor | None = None):
         """``(updates, state)``; ``state``'s moments are updated in place.
         Under ``no_grad``: the decay term reads the parameters, and autograd
-        would otherwise chain every step's moments to the last."""
+        would otherwise chain every step's moments to the last. ``norm``:
+        the gradient's global norm when the caller computed it (tensor
+        parallelism); by default it is taken over ``grads``."""
         g = list(grads)
-        norm = (torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
-                if self.grad_clip is not None else None)
+        if self.grad_clip is None:
+            norm = None
+        elif norm is None:
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(g)))
         state.count += 1
         updates = self._adam(g, state.mu, state.nu, params, norm,
                              1 - self.b1 ** state.count,
@@ -175,23 +206,28 @@ class TrainState:
 
 
 def train_state_dict(state: TrainState) -> dict:
-    """``state`` as a dict of tensors and ints (the CV driver's resume
-    file): the model's state_dict, Adam's moments and count, the step, and
-    the dropout generator's state."""
-    return {"model": state.model.state_dict(),
-            "opt_mu": list(state.opt_state.mu),
-            "opt_nu": list(state.opt_state.nu),
-            "opt_count": state.opt_state.count, "step": state.step,
-            "dropout_rng": state.dropout_generator.get_state()}
+    """``state`` as a dict of tensors (on the CPU) and ints (the CV
+    driver's resume file): the model's state_dict, Adam's moments and
+    count, the step, and the dropout generator's state. Tensor-parallel
+    shards are gathered to the single-device tensors (every rank calls)."""
+    return fetch_tree({
+        "model": state.model.state_dict(keep_vars=True),
+        "opt_mu": list(state.opt_state.mu),
+        "opt_nu": list(state.opt_state.nu),
+        "opt_count": state.opt_state.count, "step": state.step,
+        "dropout_rng": state.dropout_generator.get_state()})
 
 
 def load_train_state_dict(state: TrainState, saved: dict) -> TrainState:
     """Restore a :func:`train_state_dict` into ``state`` in place (its
-    model, moments and generator keep their devices); returns ``state``."""
+    model, moments and generator keep their devices; a tensor-parallel
+    shard takes its rows); returns ``state``."""
     state.model.load_state_dict(saved["model"], strict=True)
     with torch.no_grad():
-        torch._foreach_copy_(state.opt_state.mu, saved["opt_mu"])
-        torch._foreach_copy_(state.opt_state.nu, saved["opt_nu"])
+        for mine, full in (("mu", "opt_mu"), ("nu", "opt_nu")):
+            have = getattr(state.opt_state, mine)
+            torch._foreach_copy_(have, [local_part(t, like) for t, like
+                                        in zip(saved[full], have)])
     state.opt_state.count = int(saved["opt_count"])
     state.step = int(saved["step"])
     state.dropout_generator.set_state(saved["dropout_rng"])
@@ -200,9 +236,10 @@ def load_train_state_dict(state: TrainState, saved: dict) -> TrainState:
 
 def best_weights(state: TrainState) -> dict:
     """A copy on the CPU of the model's state_dict (parameters and
-    BatchNorm running stats): what a fold checkpoint holds."""
-    return {k: v.detach().to("cpu", copy=True)
-            for k, v in state.model.state_dict().items()}
+    BatchNorm running stats): what a fold checkpoint holds. Tensor-parallel
+    shards are gathered (every rank calls), so it loads strictly into the
+    single-device model."""
+    return fetch_tree(state.model.state_dict(keep_vars=True))
 
 
 def _init_seed(seed: int, fold: int) -> int:
@@ -221,24 +258,43 @@ class Trainer:
       hazard_and_aux: fn(model_outputs, batch) -> (hazard (B,), aux_loss)
           or (hazard, aux, main_scale); defaults to identity hazard.
       cfg: TrainConfig.
-      device: where the model and the data live ("cuda" unless asked).
+      device: where the model and the data live ("cuda" unless asked):
+          this rank's device under a mesh.
+      mesh: a (data, model) ``DeviceMesh`` (module docstring), or None.
+      batch_axis: the mesh axis the batch is sharded over.
+      tensor_parallel: column-parallel wide dense layers over ``model``
+          (on only when that axis is larger than 1).
+      sharded_risk_set: the train Cox loss through the sharded risk-set
+          scan (``ops/cox_distributed.py``); needs a mesh.
     """
 
     def __init__(self, model_fn: Callable[[torch.Generator], nn.Module],
                  batch_to_inputs: Callable,
                  hazard_and_aux: Callable | None = None,
                  cfg: TrainConfig = TrainConfig(), device="cuda", mesh=None,
-                 tensor_parallel: bool = False,
+                 batch_axis: str = "data", tensor_parallel: bool = False,
                  sharded_risk_set: bool = False, aot_cache_dir=None):
-        if mesh is not None or tensor_parallel or sharded_risk_set:
-            raise NotImplementedError(_MULTI_DEVICE_TODO)
         if aot_cache_dir:
             raise NotImplementedError(_AOT_TODO)
+        if sharded_risk_set and mesh is None:
+            raise ValueError("sharded_risk_set requires a mesh")
         self.model_fn = model_fn
         self.batch_to_inputs = batch_to_inputs
         self.hazard_and_aux = hazard_and_aux or (lambda out, batch: (out, 0.0))
         self.cfg = cfg
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot train on "
+                             f"{self.device}")
+        self.mesh = mesh
+        self.batch_axis = batch_axis
+        self.sharded_risk_set = sharded_risk_set
+        shape = mesh_shape(mesh)
+        self.tensor_parallel = tensor_parallel and shape.get("model", 1) > 1
+        self._data_group = (mesh.get_group(batch_axis) if mesh is not None
+                            else None)
+        self._model_group = (mesh.get_group("model") if self.tensor_parallel
+                             else None)
         self.tx = make_optimizer(cfg)
         self.step_losses = None  # the last epoch's per-step losses (device)
 
@@ -252,44 +308,113 @@ class Trainer:
         seed = self.cfg.seed if seed is None else seed
         gen = torch.Generator().manual_seed(_init_seed(seed, fold))
         model = self.model_fn(gen).to(self.device)
+        if self.mesh is not None:
+            self._refuse_fused(model)
+            shard_module(model, self.mesh, self.tensor_parallel,
+                         self.batch_axis)
         drop = torch.Generator(device=self.device).manual_seed(
             seed * 1000 + fold)
         set_dropout_generator(model, drop)
         params = list(model.parameters())
-        return TrainState(model=model, opt_state=self.tx.init(params), step=0,
+        opt_state = self.tx.init(params)
+        for p, mu, nu in zip(params, opt_state.mu, opt_state.nu):
+            if tp_group(p) is not None:  # the moments follow the shard
+                mu.tp_group = nu.tp_group = tp_group(p)
+        return TrainState(model=model, opt_state=opt_state, step=0,
                           dropout_generator=drop)
+
+    def _refuse_fused(self, model: nn.Module):
+        if max(mesh_shape(self.mesh).values()) > 1 and any(
+                getattr(m, "fused_bn1", False) for m in model.modules()):
+            raise ValueError(
+                "fused_bn1 under a data or model axis larger than 1: the "
+                "fused DenseNet stages take single-shard arrays (JAX "
+                "ops/fused_dense.py); train the unfused model on a mesh")
 
     # ---------------- loss ----------------
 
+    def _global(self, out, batch: dict):
+        """Under a mesh: the model's outputs (every tensor per row) gathered
+        over ``data`` for a replicated loss (``collectives.gather``), and
+        the batch's ``LABEL_KEYS`` gathered to the global batch (no
+        gradient; one collective); without one, both unchanged."""
+        if self.mesh is None:
+            return out, batch
+        if isinstance(out, (tuple, list)):
+            out = type(out)(gather(t, self._data_group) for t in out)
+        else:
+            out = gather(out, self._data_group)
+        keys = [k for k in LABEL_KEYS if k in batch]
+        cols = [batch[k].reshape(batch[k].shape[0], -1) for k in keys]
+        every = all_gather_tensor(torch.cat(cols, 1).float(),
+                                  self._data_group)
+        glob = dict(batch)
+        for k, part in zip(keys, every.split([c.shape[1] for c in cols], 1)):
+            glob[k] = part.reshape(-1, *batch[k].shape[1:]).to(
+                batch[k].dtype)
+        return out, glob
+
     def _loss_fn(self, model: nn.Module, batch: dict) -> torch.Tensor:
-        out = model(*self.batch_to_inputs(batch))
+        out, glob = self._global(model(*self.batch_to_inputs(batch)), batch)
         # the adapter returns (hazard, aux) or (hazard, aux, main_scale);
         # main_scale=0 turns off the Cox term (SimMLM stage 1)
-        res = self.hazard_and_aux(out, batch)
+        res = self.hazard_and_aux(out, glob)
         hazard, aux = res[0], res[1]
         main_scale = res[2] if len(res) > 2 else 1.0
-        cox = cox_partial_likelihood(hazard, batch["time"], batch["event"],
-                                     valid=batch["svalid"],
-                                     ties=self.cfg.ties)
+        if self.sharded_risk_set:
+            # this rank's rows of the gathered hazards: the scan's gradient
+            # reaches them through its all_gather, the aux term's through
+            # the outputs' gather
+            rows = batch_rows(hazard.shape[0], self.mesh, self.batch_axis)
+            cox = cox_partial_likelihood_sharded(
+                hazard[rows], batch["time"], batch["event"], self.mesh,
+                axis_name=self.batch_axis, valid=batch["svalid"],
+                presorted=False, ties=self.cfg.ties)
+        else:
+            cox = cox_partial_likelihood(hazard, glob["time"], glob["event"],
+                                         valid=glob["svalid"],
+                                         ties=self.cfg.ties)
         return main_scale * cox + aux
 
     def loss_and_grads(self, state: TrainState, batch: dict):
-        """Train-mode loss on ``batch`` and its gradient per parameter (in
-        ``model.parameters()`` order; zeros where a parameter is unused).
-        Updates the BatchNorm running stats, as the forward does."""
+        """Train-mode loss on ``batch`` (this rank's rows under a mesh) and
+        its gradient per parameter (in ``model.parameters()`` order; zeros
+        where a parameter is unused; under a mesh, summed over ``data``:
+        the whole batch's). Updates the BatchNorm running stats, as the
+        forward does."""
         model = state.model.train()
         loss = self._loss_fn(model, batch)
         grads = torch.autograd.grad(loss, list(model.parameters()),
                                     allow_unused=True, materialize_grads=True)
+        if self.mesh is not None:
+            flat = all_reduce_tensor(
+                torch._utils._flatten_dense_tensors(grads), self._data_group)
+            grads = torch._utils._unflatten_dense_tensors(flat, grads)
         return loss.detach(), grads
+
+    @torch.no_grad()
+    def grad_norm(self, grads, params: list) -> torch.Tensor:
+        """The global norm the clip reads: each replicated parameter's
+        gradient once, and under tensor parallelism each shard's squared
+        norm summed over ``model``."""
+        sq = torch.stack(torch._foreach_norm(list(grads))).square()
+        if self.tensor_parallel:
+            shard = torch.tensor([tp_group(p) is not None for p in params],
+                                 device=sq.device)
+            return (sq[~shard].sum() + all_reduce_tensor(
+                sq[shard].sum(), self._model_group)).sqrt()
+        return sq.sum().sqrt()
 
     def train_step(self, state: TrainState, batch: dict, lr: float):
         """One optimizer step on ``batch``; returns the loss (a device
         scalar) and updates ``state`` in place."""
         loss, grads = self.loss_and_grads(state, batch)
         params = list(state.model.parameters())
+        norm = (self.grad_norm(grads, params)
+                if self.tensor_parallel and self.cfg.grad_clip is not None
+                else None)
         updates, state.opt_state = self.tx.update(grads, state.opt_state,
-                                                  params, lr)
+                                                  params, lr, norm=norm)
         with torch.no_grad():
             torch._foreach_add_(params, updates)
         state.step += 1
@@ -339,9 +464,19 @@ class Trainer:
             batch["svalid"] = batch["svalid"] * bv
             yield batch
 
+    def _local(self, idx: np.ndarray, bvalid: np.ndarray):
+        """This rank's columns of the (steps, B) padded indices under a
+        mesh (its contiguous rows of every batch); all of them without."""
+        if self.mesh is None:
+            return idx, bvalid
+        rows = batch_rows(idx.shape[1], self.mesh, self.batch_axis)
+        return idx[:, rows], bvalid[:, rows]
+
     def _device_indices(self, idx: np.ndarray, bvalid: np.ndarray):
+        idx, bvalid = self._local(idx, bvalid)
         return (torch.from_numpy(idx.astype(np.int64)).to(self.device),
-                torch.from_numpy(bvalid).to(self.device))
+                torch.from_numpy(np.ascontiguousarray(bvalid)).to(
+                    self.device))
 
     def _device_batches(self, data: dict, idx: np.ndarray,
                         bvalid: np.ndarray):
@@ -374,8 +509,9 @@ class Trainer:
         loss) an epoch."""
         perm, bvalid = self._pad_indices(indices, self.cfg.batch_size,
                                          shuffle_rng)
-        batches = BatchPrefetcher(self._host_batches(host_data, perm, bvalid),
-                                  depth=depth, device=self.device)
+        batches = BatchPrefetcher(
+            self._host_batches(host_data, *self._local(perm, bvalid)),
+            depth=depth, device=self.device)
         try:
             return self._train_batches(state, batches, lr)
         finally:
@@ -386,7 +522,8 @@ class Trainer:
         hs, ts, es, svs, losses = [], [], [], [], []
         with torch.inference_mode():
             for batch in batches:
-                out = model(*self.batch_to_inputs(batch))
+                out, batch = self._global(model(*self.batch_to_inputs(batch)),
+                                          batch)
                 hazard = self.hazard_and_aux(out, batch)[0]
                 losses.append(cox_partial_likelihood(
                     hazard, batch["time"], batch["event"],
@@ -418,8 +555,9 @@ class Trainer:
         port's ``concordance_index`` over all the pooled hazards."""
         idx, bvalid = self._pad_indices(indices, self.cfg.eval_batch_size,
                                         None)
-        batches = BatchPrefetcher(self._host_batches(host_data, idx, bvalid),
-                                  depth=depth, device=self.device)
+        batches = BatchPrefetcher(
+            self._host_batches(host_data, *self._local(idx, bvalid)),
+            depth=depth, device=self.device)
         try:
             return self._evaluate_batches(state, batches, len(indices))
         finally:

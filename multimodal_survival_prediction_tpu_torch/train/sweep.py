@@ -18,7 +18,7 @@ Candidates that differ in weight decay or optimizer family need separate
 sweeps.
 
 One device only: a candidate mesh (``mesh``, ``--sweep-mesh`` > 1) raises
-``NotImplementedError`` (ROADMAP.md Queue 1 item 10), as does ``remat``
+``NotImplementedError`` (ROADMAP.md Queue 1 item 17), as does ``remat``
 (item 16).
 """
 
@@ -159,7 +159,7 @@ def main(argv=None):
                    help="which seed-42 KFold split supplies train/val")
     p.add_argument("--sweep-mesh", type=int, default=0,
                    help="shard candidates over an N-device mesh (not "
-                        "ported yet: ROADMAP.md Queue 1 item 10)")
+                        "ported yet: ROADMAP.md Queue 1 item 17)")
     args = p.parse_args(argv)
     for flag, dest, unused in _REFUSED:
         if getattr(args, dest) != unused:

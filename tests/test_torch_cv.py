@@ -465,9 +465,6 @@ def test_resume_is_bit_equal(cohort, tmp_path, monkeypatch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("option,item", [
-    (dict(mesh=object()), "Queue 1 item 10"),
-    (dict(tensor_parallel=True), "Queue 1 item 10"),
-    (dict(sharded_risk_set=True), "Queue 1 item 10"),
     (dict(aot_cache_dir="aot"), "Queue 1 item 12"),
     (dict(remat=True), "Queue 1 item 16"),
 ])
@@ -535,13 +532,9 @@ def test_cli_profile_dir_writes_a_trace(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--mesh", "4"], "Queue 1 item 10"),
-    (["--fold-parallel", "2"], "Queue 1 item 10"),
+    (["--fold-parallel", "2"], "Queue 1 item 17"),
     (["--fold-dp", "2"], "--fold-dp needs --fold-parallel N with N > 1"),
-    (["--tp", "2"], "Queue 1 item 10"),
     (["--remat"], "Queue 1 item 16"),
-    (["--sharded-risk-set"], "Queue 1 item 10"),
-    (["--multihost"], "Queue 1 item 10"),
     (["--aot-cache", "aot"], "Queue 1 item 12"),
 ], ids=lambda v: v[0] if isinstance(v, list) else None)
 def test_cli_refuses_what_is_not_ported(tmp_path, flag, item):

@@ -514,7 +514,7 @@ CFG = dataclasses.replace(PARTIAL_MODALITY, image_shape=IMAGE_SHAPE,
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(mesh=object()), "Queue 1 item 10"),
+    (dict(mesh=object()), "Queue 1 item 17"),
     (dict(aot_cache_dir="aot"), "Queue 1 item 12"),
     (dict(remat=True), "Queue 1 item 16"),
 ])
@@ -530,7 +530,7 @@ def test_driver_refuses_what_is_not_ported(tmp_path, option, item):
 def test_fold_mesh_is_one_device(n, dp):
     assert cv_parallel.make_fold_mesh() is None
     assert cv_parallel.make_fold_mesh(1) is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
         cv_parallel.make_fold_mesh(n, data_parallel=dp)
 
 
@@ -588,9 +588,9 @@ def test_cli_fold_parallel_end_to_end_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,raises,match", [
-    (["--fold-parallel", "2"], NotImplementedError, "Queue 1 item 10"),
+    (["--fold-parallel", "2"], NotImplementedError, "Queue 1 item 17"),
     (["--fold-parallel", "4", "--fold-dp", "2"], NotImplementedError,
-     "Queue 1 item 10"),
+     "Queue 1 item 17"),
     (["--fold-parallel", "1", "--fold-dp", "2"], SystemExit,
      "--fold-dp needs --fold-parallel N with N > 1"),
     (["--fold-parallel", "1", "--mesh", "2"], SystemExit,

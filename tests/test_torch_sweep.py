@@ -279,7 +279,7 @@ def test_sweep_cli_refuses_what_jax_refuses(tmp_path, flag):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--sweep-mesh", "2"], "Queue 1 item 10"),
+    (["--sweep-mesh", "2"], "Queue 1 item 17"),
     (["--remat"], "Queue 1 item 16")], ids=lambda v: v[0] if isinstance(
         v, list) else None)
 def test_sweep_refuses_what_is_not_ported(tmp_path, flag, item):

@@ -212,8 +212,11 @@ def test_pad_indices_matches_jax(n, batch):
 
 
 def test_trainer_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        engine.Trainer(lambda g: None, None, mesh=object(), device="cpu")
+    # meshes are ported (tests/test_torch_parallel.py); the sharded risk
+    # set still needs one, as JAX's Trainer says
+    with pytest.raises(ValueError, match="sharded_risk_set requires a mesh"):
+        engine.Trainer(lambda g: None, None, sharded_risk_set=True,
+                       device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         engine.Trainer(lambda g: None, None, aot_cache_dir="x", device="cpu")
     # the streaming epochs are ported: they run (tests/test_torch_streaming.py
