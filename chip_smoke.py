@@ -212,7 +212,25 @@ result then):
      multi-rank arithmetic is held on the CPU under gloo by
      tests/test_torch_{cox_distributed,parallel,tensor_parallel,
      multidevice_cli}.py.
-  14. summary: one JSON line of per-kernel numbers, then the final line
+  14. the fold mesh and remat. (a) The partial_modality CLI with phase 9's
+     arguments and --fold-parallel 2 --remat, then --fold-parallel 4
+     --fold-dp 2 --remat, its ranks a gloo group on this one card (NCCL
+     puts no two ranks on one GPU; gloo copies CUDA tensors through the
+     host), each rank running main(argv) in its own process: each fold's
+     step-1 loss within 1e-6 of phase 9c's vmapped run and alike across
+     its data group, the W-pass kernel in every rank's ingest, no fused
+     kernel, cv_results.json written once (rank 0), two folds loaded
+     strictly and scored by predict_risk; prints each rank's collectives
+     and each fold's ms per step. (b) The flagship Trainer at full width,
+     unfused and fused_bn1, without remat, with it and without again, at
+     batch 8 and 32: step 1's loss bit-equal with and without remat, the
+     step-1 gradient no further from the plain one than twice the plain
+     step's own repeat (||d|| / ||g|| over every parameter: cuDNN's
+     backward does not repeat bit for bit); three steps' ms and peak
+     torch.cuda.max_memory_allocated each; the fused kernels' launches a
+     step with remat = the JAX jaxpr's pallas_call count (moments and
+     apply at 61 + 58, bwd_reduce and bwd_dx at 61).
+  15. summary: one JSON line of per-kernel numbers, then the final line
      {"ok": true, "device": {...}}.
 
 Everything it writes goes under build/ in this checkout (kernel build,
@@ -2627,7 +2645,9 @@ def phase_cv_parallel(work, table, paths, n_img, cv_run, smi="",
                 par_streaming_ingest_launches=prun["ingest_launches"],
                 par_streaming_wall_s=prun["wall_s"],
                 par_streaming_copies=pcopies,
-                par_streaming_loss_gaps=pgaps)
+                par_streaming_loss_gaps=pgaps,
+                par_step1=[par_epochs[0]["losses"][0][k]
+                           for k in range(len(seq_folds))])
 
 
 # --------------------------------------------------------------------------
@@ -3677,6 +3697,348 @@ def phase_ingest_and_report(work, table, paths, n_img, cv_run, smi="",
                 report=report)
 
 
+# --------------------------------------------------------------------------
+# 14: the fold mesh and remat
+# --------------------------------------------------------------------------
+
+# (ranks, --fold-dp) of phase 14's fold meshes: two fold rows of one rank,
+# then two fold rows of two data ranks
+FOLD_MESHES = ((2, 1), (4, 2))
+# each fold's step-1 loss on a fold mesh against phase 9c's vmapped run
+# (the same weights, batch and dropout masks; a fold on its own rank runs
+# other grouped convolutions, and a data group sums BatchNorm's statistics
+# in two halves)
+FOLD_MESH_LOSS_ATOL = 1e-6
+REMAT_BATCHES = (8, 32)
+
+
+def _fold_mesh_rank(rank, world, store, argv, out, device):
+    """One rank of phase 14's fold mesh: joins a gloo group of ``world``
+    ranks (all on this one card: NCCL puts no two ranks on one GPU, gloo
+    copies CUDA tensors through the host), runs the training CLI's
+    ``main(argv)`` in-process and writes what the phase checks to
+    ``out/rank<rank>.json``: the W-pass and fused launch counts, each
+    vmapped epoch's ms and losses, the collectives this rank launched, and
+    how often it wrote cv_results.json."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from multimodal_survival_prediction_tpu_torch.parallel import collectives
+    from multimodal_survival_prediction_tpu_torch.train import cv
+    from multimodal_survival_prediction_tpu_torch.train import (
+        partial_modality_training as pmt,
+    )
+
+    if device != "cpu":
+        torch.cuda.set_device(torch.device(device).index or 0)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    write, writes = cv.write_cv_results, []
+
+    def counted(*a, **k):
+        writes.append(rank)
+        return write(*a, **k)
+
+    cv.write_cv_results = counted
+    try:
+        collectives.counter.calls = 0  # the run's count starts here
+        run = _drive_cli(pmt.main, argv, device)
+        calls = collectives.counter.calls  # ... and is read here
+        Path(out, f"rank{rank}.json").write_text(json.dumps(dict(
+            ingest_launches=run["ingest_launches"], fused=run["fused"],
+            fused_bf16=run["fused_bf16"], par_epochs=run["par_epochs"],
+            wall_s=run["wall_s"], ingest_s=run["ingest_s"], calls=calls,
+            writes=len(writes), payload=run["payload"],
+            outcomes=[dict(fold=o.fold, best_c_index=o.best_c_index,
+                           best_epoch=o.best_epoch) for o in run["outcomes"]],
+            splits=[[list(map(int, t)), list(map(int, v))]
+                    for t, v, _ in run["splits"]],
+            labels={k: run["arrays"].arrays[k].tolist()
+                    for k in ("time", "event", "svalid")})))
+    finally:
+        cv.write_cv_results = write
+        dist.destroy_process_group()
+
+
+def phase_fold_mesh(work, table, paths, n_img, cv_par, smi="",
+                    device="cuda", extra_argv=(), expect_launches=True,
+                    meshes=FOLD_MESHES, epochs=2):
+    """14a: the partial_modality CLI's ``main([... "--fold-parallel", N,
+    "--fold-dp", M, "--remat"])`` with phase 9's arguments on each fold
+    mesh of ``meshes``, its N ranks a gloo group on this one card (the
+    phase always uses gloo: ROADMAP.md "Facts that bind"). Each fold's
+    step-1 loss against phase 9c's vmapped run (``cv_par``), alike on
+    every rank of the fold's data group; the W-pass kernel launched in
+    every rank's ingest, no fused kernel; cv_results.json written once,
+    by rank 0; two fold checkpoints, each loaded strictly and scored by
+    predict_risk (its best_c_index again). Prints the collectives each
+    rank launched and each fold's ms per step."""
+    import types
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    from multimodal_survival_prediction_tpu_torch.config import (
+        PARTIAL_MODALITY as CFG,
+    )
+    from multimodal_survival_prediction_tpu_torch.io.results import (
+        load_cv_results,
+    )
+    from multimodal_survival_prediction_tpu_torch.ops import resample as rs
+    from multimodal_survival_prediction_tpu_torch.train.predict import (
+        fold_checkpoints,
+        predict_risk,
+    )
+
+    want_img = n_img if expect_launches else 0
+    out = {}
+    for world, dp in meshes:
+        tag = f"fold_mesh_{world}x{dp}"
+        ranks_dir = work / f"{tag}_ranks"
+        ranks_dir.mkdir(parents=True, exist_ok=True)
+        store = work / f"{tag}_store"
+        store.unlink(missing_ok=True)
+        argv = ["--data-root", str(paths["root"]), "--results-dir",
+                str(work / f"{tag}_results"), "--models-dir",
+                str(work / f"{tag}_models"), "--pallas-resample",
+                "--n-folds", "2", "--device", device, *extra_argv,
+                "--epochs", str(epochs), "--fold-parallel", str(world),
+                "--fold-dp", str(dp), "--remat"]
+        t0 = time.perf_counter()
+        mp.start_processes(_fold_mesh_rank, nprocs=world, join=True,
+                           args=(world, str(store), argv, str(ranks_dir),
+                                 device), start_method="spawn")
+        wall = time.perf_counter() - t0
+        ranks = [json.loads((ranks_dir / f"rank{r}.json").read_text())
+                 for r in range(world)]
+        label = f"fold mesh {world // dp}x{dp}"
+        for r, got in enumerate(ranks):
+            check(got["ingest_launches"] == want_img,
+                  f"{label} rank {r}: the ingest launched the W-pass kernel "
+                  f"{got['ingest_launches']} times, expected {want_img}")
+            check(got["fused"] == [0] * 4 and got["fused_bf16"] == [0] * 4,
+                  f"{label} rank {r}: the unfused model launched fused "
+                  f"kernels {got['fused']} {got['fused_bf16']}")
+            check(len(got["par_epochs"]) == epochs,
+                  f"{label} rank {r}: {len(got['par_epochs'])} vmapped "
+                  f"epochs, expected {epochs}")
+        writers = [r for r, got in enumerate(ranks) if got["writes"]]
+        check(writers == [0] and ranks[0]["writes"] == 1,
+              f"{label}: cv_results.json written by ranks {writers} "
+              f"({[g['writes'] for g in ranks]} times)")
+        results = work / f"{tag}_results" / CFG.name
+        loaded = load_cv_results(results)
+        check(loaded["raw"] == ranks[0]["payload"]
+              and len(loaded["raw"]["fold_results"]) == 2,
+              f"{label}: cv_results.json {loaded['raw']}")
+        models = work / f"{tag}_models" / CFG.name
+        files = sorted(p.name for p in models.iterdir())
+        check(files == ["fold_1_best.pt", "fold_1_best.pt.meta.json",
+                        "fold_2_best.pt", "fold_2_best.pt.meta.json"],
+              f"{label}: fold files {files}")
+        # fold k lives on fold row k (k_pad = 2 = the fold axis), on ranks
+        # k * dp ... k * dp + dp - 1, as the only state of their stack
+        gaps, ms_step = [], []
+        for k in range(2):
+            row = [ranks[k * dp + d] for d in range(dp)]
+            first = [g["par_epochs"][0]["losses"][0][0] for g in row]
+            check(len(set(first)) == 1,
+                  f"{label} fold {k + 1}: step-1 losses differ across its "
+                  f"data group: {first}")
+            want = cv_par["par_step1"][k]
+            gaps.append(abs(first[0] - want))
+            check(gaps[-1] <= FOLD_MESH_LOSS_ATOL,
+                  f"{label} fold {k + 1}: step-1 loss {first[0]!r} against "
+                  f"phase 9c's vmapped {want!r}")
+            ms_step.append([round(e["ms"] / sum(e["valid"][0]), 3)
+                            if e["ms"] else None
+                            for e in row[0]["par_epochs"]])
+        arrays = types.SimpleNamespace(arrays={
+            k: np.asarray(v, np.float32)
+            for k, v in ranks[0]["labels"].items()})
+        scored = []
+        for k, ckpt in enumerate(fold_checkpoints(models.parent, CFG.name)):
+            rs.wpass.launches = 0
+            pred = predict_risk(CFG, ckpt, table,
+                                rnaseq_csv=paths["rnaseq_csv"],
+                                labeled_only=False, device=device)
+            scored.append(rs.wpass.launches)
+            check(scored[-1] == want_img,
+                  f"predict_risk on {label}'s {ckpt.name} launched the "
+                  f"W-pass kernel {scored[-1]} times, expected {want_img}")
+            o = ranks[0]["outcomes"][k]
+            c, tol, _, _ = _fold_c_index(pred, arrays,
+                                         ranks[0]["splits"][k][1])
+            check(abs(c - o["best_c_index"]) <= tol,
+                  f"predict_risk on {label}'s {ckpt.name}: C-index {c}, "
+                  f"best_c_index {o['best_c_index']} (tol {tol})")
+        out[label] = dict(
+            wall_s=wall, ranks=world, data=dp, loss_gaps=gaps,
+            ms_per_step=ms_step, calls=[g["calls"] for g in ranks],
+            ingest_launches=[g["ingest_launches"] for g in ranks],
+            rank_walls=[round(g["wall_s"], 2) for g in ranks],
+            predict_launches=scored)
+        log(f"{label} ({smi}): {world} gloo ranks on one card, wall "
+            f"{wall:.2f} s (ranks' CLI walls {out[label]['rank_walls']}); "
+            f"step-1 loss gaps to phase 9c {['%.2e' % g for g in gaps]}; "
+            f"ms/step by fold and epoch {ms_step}; collectives by rank "
+            f"{out[label]['calls']}; W-pass launches by rank "
+            f"{out[label]['ingest_launches']}; folds scored with "
+            f"{scored} W-pass launches")
+    return out
+
+
+def phase_remat(table, paths, rna_dim, smi="", device="cuda",
+                image_shape=(64, 64, 32), block_config=None,
+                batches=REMAT_BATCHES, steps=3, expect_launches=True):
+    """14b: the flagship Trainer (PartialModalityNet at full width),
+    unfused and fused_bn1, without remat, with it, and without again, at
+    each batch size of ``batches``: step 1's loss on the same batch and
+    dropout masks bit-equal with and without remat, and the step-1
+    gradient no further from the plain step's than twice the plain step's
+    own repeat (``||d|| / ||g||`` over every parameter); then ``steps``
+    train steps, each
+    step's ms (CUDA events) and peak ``torch.cuda.max_memory_allocated``,
+    with the fused kernels' launches a step: ``moments`` and ``apply`` at
+    stages + dense layers with remat (each dense layer's recompute; the
+    JAX jaxpr's count, tests/test_torch_remat.py), ``bwd_reduce`` and
+    ``bwd_dx`` at the stages."""
+    import numpy as np
+    import torch
+
+    from multimodal_survival_prediction_tpu_torch.config import (
+        PARTIAL_MODALITY as CFG,
+    )
+    from multimodal_survival_prediction_tpu_torch.data.datasets import (
+        build_cohort_arrays,
+        load_rnaseq_matrix,
+    )
+    from multimodal_survival_prediction_tpu_torch.models import (
+        PartialModalityNet,
+    )
+    from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
+    from multimodal_survival_prediction_tpu_torch.train.adapters import (
+        make_adapters,
+    )
+    from multimodal_survival_prediction_tpu_torch.train.engine import (
+        TrainConfig,
+        Trainer,
+    )
+
+    t_phase = time.perf_counter()
+    arrays = build_cohort_arrays(
+        table, load_rnaseq_matrix(paths["rnaseq_csv"]), with_image=True,
+        image_shape=image_shape, use_pallas=True, device=device)
+    data = arrays.to_device(device)
+    rows = np.arange(arrays.n)
+    b2i, haa = make_adapters(CFG)
+    kw = {} if block_config is None else {"block_config": block_config}
+    cuda = device != "cpu"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    out = {}
+    for batch in batches:
+        cfg = TrainConfig(batch_size=batch, learning_rate=CFG.learning_rate,
+                          weight_decay=CFG.weight_decay,
+                          optimizer=CFG.optimizer, grad_clip=CFG.grad_clip,
+                          ties=CFG.ties, seed=CFG.seed)
+        for fused in (False, True):
+            runs = {}
+            for label, remat in (("plain", False), ("remat", True),
+                                 ("plain again", False)):
+                tr = Trainer(lambda gen, fused=fused, remat=remat:
+                             PartialModalityNet(rna_dim=rna_dim,
+                                                fused_bn1=fused, remat=remat,
+                                                generator=gen, **kw),
+                             b2i, haa, cfg, device=device)
+                state = tr.init_state(fold=1)
+                enc = state.model.ct_encoder
+                layers = sum(enc.block_config)
+                stages = layers + len(enc.block_config) - 1
+                weights0 = {k: v.clone()
+                            for k, v in state.model.state_dict().items()}
+                loss1, grads = _first_step_grads(tr, state, data, rows,
+                                                 CFG.seed + 1, weights0)
+                shuffle = np.random.default_rng(CFG.seed + 2)
+                ms, peak, losses = [], [], []
+                fd.reset_launches()  # the timed steps' counts start here
+                for _ in range(steps):
+                    idx, bv = tr._pad_indices(rows, batch, shuffle)
+                    (one,) = tr._device_batches(data, idx[:1], bv[:1])
+                    sync()
+                    if cuda:
+                        torch.cuda.reset_peak_memory_stats()
+                        start = torch.cuda.Event(enable_timing=True)
+                        end = torch.cuda.Event(enable_timing=True)
+                        start.record()
+                    losses.append(float(tr.train_step(state, one,
+                                                      CFG.learning_rate)))
+                    if cuda:
+                        end.record()
+                        end.synchronize()
+                        ms.append(round(start.elapsed_time(end), 3))
+                        peak.append(round(
+                            torch.cuda.max_memory_allocated() / 2**20, 1))
+                launches = [k.launches for k in fd.KERNELS]  # ... read here
+                runs[label] = dict(loss1=loss1, grads=grads, ms=ms,
+                                   peak_mib=peak, losses=losses,
+                                   launches=launches)
+                per_step = ([layers + stages, layers + stages, stages,
+                             stages] if remat else [stages] * 4)
+                want = ([n * steps for n in per_step]
+                        if fused and expect_launches else [0] * 4)
+                check(launches == want,
+                      f"remat={remat} fused_bn1={fused} batch {batch}: "
+                      f"fused kernel launches {launches} over {steps} "
+                      f"steps, expected {want}")
+                check(all(math.isfinite(x) for x in losses),
+                      f"remat={remat} fused_bn1={fused} batch {batch}: "
+                      f"non-finite losses {losses}")
+                del tr, state, grads
+                gc.collect()
+                if cuda:
+                    torch.cuda.empty_cache()
+            a, b, c = runs["plain"], runs["remat"], runs["plain again"]
+            check(b["loss1"] == a["loss1"],
+                  f"fused_bn1={fused} batch {batch}: step-1 loss with remat "
+                  f"{b['loss1']!r}, without {a['loss1']!r}")
+            # the whole gradient: cuDNN's backward is not bit-repeatable,
+            # and a tensor whose gradient cancels (norm0's) moves by 5-7 %
+            # of itself between two plain steps, with remat or without
+            names = list(a["grads"])
+            gap = _grad_gap_whole(b["grads"], a["grads"])
+            spread = _grad_gap_whole(c["grads"], a["grads"])
+            check(gap <= 2 * spread,
+                  f"fused_bn1={fused} batch {batch}: the step-1 gradient "
+                  f"with remat lies {gap:.3e} from the plain one, whose own "
+                  f"repeat lies {spread:.3e}")
+            worst = _grad_gap(b["grads"], a["grads"], names)
+            worst_again = _grad_gap(c["grads"], a["grads"], names)
+            key = f"{'fused' if fused else 'unfused'} batch {batch}"
+            out[key] = dict(
+                stages=stages, layers=layers,
+                ms_plain=a["ms"], ms_remat=b["ms"], ms_plain_again=c["ms"],
+                peak_mib_plain=a["peak_mib"], peak_mib_remat=b["peak_mib"],
+                launches_remat=b["launches"], launches_plain=a["launches"],
+                grad_gap=gap, grad_spread=spread, loss1=a["loss1"])
+            log(f"remat {key} ({smi}): step-1 loss {a['loss1']!r} with and "
+                f"without; step-1 gradient ||d|| / ||g|| with remat "
+                f"{gap:.3e} from plain, plain again {spread:.3e} (one "
+                f"tensor at most: {worst[0]:.3e} {worst[1]}, again "
+                f"{worst_again[0]:.3e} {worst_again[1]}); ms/step plain "
+                f"{a['ms']}, "
+                f"remat {b['ms']}, plain again {c['ms']}; peak MiB a step "
+                f"plain {a['peak_mib']}, remat {b['peak_mib']}; fused "
+                f"launches over {steps} steps plain {a['launches']}, remat "
+                f"{b['launches']}")
+    log(f"phase 14b ({smi}): wall {time.perf_counter() - t_phase:.2f} s")
+    return out
+
+
+
 def main() -> int:
     import torch
 
@@ -3728,6 +4090,9 @@ def main() -> int:
                        table, paths, n_img, cv_run, smi=smi)
         multi = timed("13 multi-device", phase_multidevice, work, table,
                       paths, n_img, cv_run, smi=smi)
+        meshes = timed("14a fold mesh", phase_fold_mesh, work, table, paths,
+                       n_img, cv_par, smi=smi)
+        remat = timed("14b remat", phase_remat, table, paths, 5005, smi=smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3762,7 +4127,11 @@ def main() -> int:
             "auto_ingest": report["ingest"]["launches"]["auto"],
             "host_pinned_predict_risk": report["pinned"]["launches"],
             "run_all": report["report"]["launches"],
-            "multidevice_ingest": multi["ingest_launches"]},
+            "multidevice_ingest": multi["ingest_launches"],
+            "fold_mesh_ingest_by_rank": {
+                k: v["ingest_launches"] for k, v in meshes.items()},
+            "fold_mesh_predict_risk": {
+                k: v["predict_launches"] for k, v in meshes.items()}},
         "kernel_ms": timing["kernel_ms"],
         "call_ms": timing["call_ms"],
         "bound_us": timing["bound_ms"] * 1e3,
@@ -3790,7 +4159,11 @@ def main() -> int:
                 "train": fused_launches[name],
                 "cv": cv_run["fused_launches"][name],
                 "cv_parallel": dict(zip(FUSED_NAMES,
-                                        cv_par["fused_launches"]))[name]},
+                                        cv_par["fused_launches"]))[name],
+                "remat_train": {
+                    k: dict(zip(FUSED_NAMES, v["launches_remat"]))[name]
+                    for k, v in remat.items() if k.startswith("fused")},
+                "remat_train_steps": 3},
             "call_ms": t["call_ms"],
             "timed_shape": t["shape"],
             "bound_cuda_core_ms": t["bound_cuda_core_ms"],
@@ -3862,6 +4235,14 @@ def main() -> int:
         f"device: {mprof['one device']['wall_ms']:.1f} ms, "
         f"{mprof['one device']['device_busy_ms']:.2f} ms, "
         f"{mprof['one device']['device_launches']}")
+    for label, m in meshes.items():
+        log(f"{label} ({smi}): ms/step by fold and epoch "
+            f"{m['ms_per_step']}, collectives by rank {m['calls']}, step-1 "
+            f"loss gaps {['%.2e' % g for g in m['loss_gaps']]}")
+    for key, r in remat.items():
+        log(f"remat {key} ({smi}): ms/step plain {r['ms_plain']} remat "
+            f"{r['ms_remat']}; peak MiB plain {r['peak_mib_plain']} remat "
+            f"{r['peak_mib_remat']}")
     log(f"phase walls s {walls}")
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -23,6 +23,11 @@ transition's ``norm -> relu -> conv`` in train mode through the fused op of
 blocks keep the trunk in ``torch.channels_last_3d`` memory, so the op's
 (rows, C) operand is a free view of it.
 
+``remat`` recomputes each dense layer in the backward instead of keeping
+its activations (JAX ``remat``): with ``fused_bn1`` the fused stage lies in
+the region, so ``moments`` and ``apply`` launch again for each dense layer
+in the backward.
+
 ``dtype`` is the compute dtype of every conv, BatchNorm and the head (JAX
 ``DenseNet121_3D(dtype=...)``; ``models/layers.py``): the trunk runs in it,
 the fused stages cast their (rows, C) view and the conv kernel to it, and
@@ -44,7 +49,9 @@ from .layers import (
     compute_dtype,
     conv3d,
     default_generator,
+    in_remat_region,
     mean_f32,
+    remat,
     to_ncdhw,
     torch_linear,
 )
@@ -70,7 +77,10 @@ def _fused_stage(norm: BatchNorm, conv: nn.Conv3d,
             f"{x.stride()}); viewing it as (rows, C) would copy it")
     cdt = compute_dtype(conv.dtype, x, conv.weight)
     x2 = x.permute(0, 2, 3, 4, 1).reshape(-1, c)
-    if x2.data_ptr() != x.data_ptr() or not x2.is_contiguous():
+    # (a recompute under torch.func wraps x: no data pointer to compare)
+    if not x2.is_contiguous() or (
+            not torch._C._functorch.is_functorch_wrapped_tensor(x)
+            and x2.data_ptr() != x.data_ptr()):
         raise RuntimeError("fused stage: the (rows, C) view copied the trunk")
     x2 = x2.to(cdt)  # a no-op where the trunk runs in cdt already
     f = conv.out_channels
@@ -82,8 +92,11 @@ def _fused_stage(norm: BatchNorm, conv: nn.Conv3d,
 
 
 class _DenseLayer(nn.Module):
-    def __init__(self, in_ch, growth_rate, bn_size, dropout, gen, dtype):
+    def __init__(self, in_ch, growth_rate, bn_size, dropout, gen, dtype,
+                 remat=False):
         super().__init__()
+        self.growth_rate = growth_rate
+        self.remat = remat
         mid = bn_size * growth_rate
         # MONAI nests the layer's modules under `.layers.`
         self.layers = nn.ModuleDict({
@@ -97,6 +110,13 @@ class _DenseLayer(nn.Module):
         self.dropout = Dropout(dropout)
 
     def forward(self, x, fused: bool = False):
+        if self.remat and self.training and not in_remat_region():
+            # the dropout's uniforms (those of conv2's output) drawn before
+            # the region, so that its recompute applies the same mask
+            u = self.dropout.uniforms(
+                (x.shape[0], self.growth_rate, *x.shape[2:]), x.device)
+            return remat(self, x, uniforms=() if u is None else (u,),
+                         fused=fused)
         m = self.layers
         if fused:
             y = _fused_stage(m["norm1"], m["conv1"], x)
@@ -138,6 +158,10 @@ class DenseNet121_3D(nn.Module):
     stage in TRAIN mode. In eval mode it is ignored, as in JAX.
     ``dtype`` is the compute dtype (None: the input's promotion with the
     float32 parameters).
+    ``remat`` runs each dense layer in train mode as a recompute region
+    (``models/layers.py:remat``; JAX ``nn.remat(DenseLayer)``), and only
+    the dense layers: conv0, the transitions and norm5 keep their
+    activations. The state_dict keys do not change.
     """
 
     def __init__(self, out_features: int = 128, init_features: int = 64,
@@ -146,7 +170,7 @@ class DenseNet121_3D(nn.Module):
                  bn_size: int = 4, dropout: float = 0.0,
                  trunk: str = "concat", fused_bn1: bool | int = False,
                  generator: torch.Generator | None = None,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, remat: bool = False):
         super().__init__()
         if trunk not in ("concat", "dus"):
             raise ValueError(f"unknown trunk {trunk!r}")
@@ -154,6 +178,7 @@ class DenseNet121_3D(nn.Module):
         self.block_config = tuple(block_config)
         self.trunk = trunk
         self.fused_bn1 = fused_bn1
+        self.remat = remat
         feats = {
             "conv0": conv3d(1, init_features, 7, stride=2, bias=False,
                             kaiming=True, generator=gen, dtype=dtype),
@@ -165,7 +190,7 @@ class DenseNet121_3D(nn.Module):
             for li in range(num_layers):
                 block[f"denselayer{li + 1}"] = _DenseLayer(
                     channels + li * growth_rate, growth_rate, bn_size,
-                    dropout, gen, dtype)
+                    dropout, gen, dtype, remat)
             feats[f"denseblock{bi + 1}"] = block
             channels += num_layers * growth_rate
             if bi != len(self.block_config) - 1:

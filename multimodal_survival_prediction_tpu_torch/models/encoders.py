@@ -101,17 +101,20 @@ def image_encoder(out_features: int = 128, backbone: str = "densenet121",
                   block_config: tuple | None = None, trunk: str = "concat",
                   fused_bn1: bool | int = False,
                   generator: torch.Generator | None = None,
-                  dtype: torch.dtype | None = None) -> nn.Module:
+                  dtype: torch.dtype | None = None,
+                  remat: bool = False) -> nn.Module:
     """The CT encoder — DenseNet121-3D (default, the reference's USE_MONAI
     path) or the simple CNN fallback — as the bare module (the counterpart
     of the JAX ``ImageEncoder``, which wraps it; the reference's keys have
-    no wrapper level). ``block_config`` None = DenseNet121's (6, 12, 24, 16)."""
+    no wrapper level). ``block_config`` None = DenseNet121's (6, 12, 24, 16).
+    ``remat`` recomputes DenseNet's dense layers in the backward; the
+    simple CNN ignores it, as in JAX."""
     if backbone == "densenet121":
         kwargs = ({"block_config": block_config}
                   if block_config is not None else {})
         return DenseNet121_3D(out_features=out_features, trunk=trunk,
                               fused_bn1=fused_bn1, generator=generator,
-                              dtype=dtype, **kwargs)
+                              dtype=dtype, remat=remat, **kwargs)
     if backbone == "simple_cnn":
         return SimpleCNN3D(out_features=out_features, generator=generator,
                            dtype=dtype)

@@ -46,13 +46,15 @@ class SimpleFusionModel(nn.Module):
     def __init__(self, rna_dim: int = 5005, backbone: str = "densenet121",
                  block_config: tuple | None = None,
                  generator: torch.Generator | None = None,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None,
+                 remat: bool = False):
         super().__init__()
         gen = default_generator(generator)
         self.rna_encoder = RNAEncoderDeep(rna_dim, generator=gen, dtype=dtype)
         self.image_encoder = image_encoder(128, backbone=backbone,
                                            block_config=block_config,
-                                           generator=gen, dtype=dtype)
+                                           remat=remat, generator=gen,
+                                           dtype=dtype)
         self.fusion = fusion_head(256 + 128, generator=gen, dtype=dtype)
 
     def forward(self, image, rnaseq):
@@ -71,12 +73,14 @@ class FlexibleMultimodalModel(nn.Module):
     def __init__(self, rna_dim: int = 5005, backbone: str = "densenet121",
                  block_config: tuple | None = None,
                  generator: torch.Generator | None = None,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None,
+                 remat: bool = False):
         super().__init__()
         gen = default_generator(generator)
         self.image_encoder = image_encoder(128, backbone=backbone,
                                            block_config=block_config,
-                                           generator=gen, dtype=dtype)
+                                           remat=remat, generator=gen,
+                                           dtype=dtype)
         self.rna_encoder = RNAEncoderDeep(rna_dim, generator=gen, dtype=dtype)
         self.missing_image_bias = nn.Parameter(torch.randn(128, generator=gen))
         self.missing_rna_bias = nn.Parameter(torch.randn(256, generator=gen))
@@ -99,12 +103,14 @@ class MultiModalSurvivalNet(nn.Module):
     def __init__(self, rna_dim: int = 5005, backbone: str = "densenet121",
                  block_config: tuple | None = None,
                  generator: torch.Generator | None = None,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None,
+                 remat: bool = False):
         super().__init__()
         gen = default_generator(generator)
         self.ct_encoder = image_encoder(128, backbone=backbone,
                                         block_config=block_config,
-                                        generator=gen, dtype=dtype)
+                                        remat=remat, generator=gen,
+                                        dtype=dtype)
         self.rna_encoder = RNAEncoderCompact(rna_dim, 128, generator=gen,
                                              dtype=dtype)
         self.clinical_encoder = ClinicalEncoder(1, 32, generator=gen,

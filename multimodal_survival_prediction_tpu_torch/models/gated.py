@@ -32,13 +32,15 @@ class PartialModalityNet(nn.Module):
                  block_config: tuple | None = None, trunk: str = "concat",
                  fused_bn1: bool | int = False, dropout: float = 0.3,
                  generator: torch.Generator | None = None,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None,
+                 remat: bool = False):
         super().__init__()
         gen = default_generator(generator)
         self.ct_encoder = image_encoder(128, backbone=backbone,
                                         block_config=block_config,
                                         trunk=trunk, fused_bn1=fused_bn1,
-                                        generator=gen, dtype=dtype)
+                                        remat=remat, generator=gen,
+                                        dtype=dtype)
         self.rna_encoder = RNAEncoderCompact(rna_dim, 128, dropout=dropout,
                                              generator=gen, dtype=dtype)
         self.clinical_encoder = ClinicalEncoder(1, 32, generator=gen,

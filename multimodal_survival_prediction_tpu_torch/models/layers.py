@@ -28,6 +28,10 @@ batch: ``BatchNorm`` takes Σx, Σx² and the row count over the group
 batch's uniforms from its generator, seeded alike on every rank, and keeps
 its rows — statistics, running stats and masks are the single-device ones.
 
+:func:`remat` runs a module as a recompute region (JAX's ``nn.remat``) in
+which both layers stay right: BatchNorm updates once, dropout reuses its
+mask.
+
 Compute dtype (flax's ``dtype`` of ``Dense``, ``Conv`` and ``BatchNorm``):
 the layers built here take ``dtype``. When it is set, input, weight and
 bias are cast to it at use and the result is in it (flax
@@ -201,7 +205,13 @@ class BatchNorm(nn.Module):
     def update_running_stats(self, mean: torch.Tensor, var: torch.Tensor):
         """``ra = m·ra + (1−m)·batch`` for the batch mean and BIASED
         variance, and one more ``num_batches_tracked`` — the train-mode
-        update, shared with the fused stage of ``densenet3d.py``."""
+        update, shared with the fused stage of ``densenet3d.py``. Inside a
+        :func:`remat` region the update is handed to the region instead,
+        which makes it once, after its forward."""
+        region = _REGION.get()
+        if region is not None:
+            region[self] = (mean, var)
+            return
         m = self.momentum
         self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
         self.running_var.copy_(m * self.running_var + (1 - m) * var)
@@ -226,32 +236,44 @@ class Dropout(nn.Module):
         self.p = p
         self.generator = generator
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def uniforms(self, shape, device) -> torch.Tensor | None:
+        """The float32 uniforms this layer draws for an input of ``shape``
+        on ``device`` (this rank's rows): those of the global batch, from
+        the :func:`dropout_uniforms` source or the generator; None where
+        the layer is the identity (eval mode, ``p == 0``)."""
         if not self.training or self.p == 0:
-            return x
-        rank, size = (0, 1) if self.data_group is None else \
-            group_rank_size(self.data_group)
-        b = x.shape[0]
-        shape = (b * size, *x.shape[1:])  # the global batch's
+            return None
+        size = 1 if self.data_group is None else \
+            group_rank_size(self.data_group)[1]
+        shape = (shape[0] * size, *shape[1:])  # the global batch's
         source = _UNIFORMS.get()
         if source is not None:
-            u = source(x if size == 1 else x.new_empty(shape))
+            # the source reads the shape and device of its argument only
+            u = source(torch.empty((), device=device).expand(shape))
             if u.shape != shape:
                 raise RuntimeError(
                     f"dropout uniforms of shape {tuple(u.shape)} for an "
                     f"input of shape {shape}")
-        elif self.generator is None:
+            return u
+        if self.generator is None:
             raise RuntimeError(
                 "Dropout in train mode needs a generator: call "
                 "set_dropout_generator(model, generator)")
-        else:
-            # the uniforms in float32 whatever x's type (flax draws its
-            # bernoulli mask in float32): bf16 uniforms take ~1,700 values
-            # and would move the keep rate
-            u = torch.rand(shape, generator=self.generator,
-                           device=x.device, dtype=torch.float32)
-        if size > 1:
-            u = u[rank * b:(rank + 1) * b]
+        # the uniforms in float32 whatever x's type (flax draws its
+        # bernoulli mask in float32): bf16 uniforms take ~1,700 values and
+        # would move the keep rate
+        return torch.rand(shape, generator=self.generator, device=device,
+                          dtype=torch.float32)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        u = self.uniforms(x.shape, x.device)
+        if u is None:
+            return x
+        if self.data_group is not None:
+            rank, size = group_rank_size(self.data_group)
+            b = x.shape[0]
+            if size > 1:
+                u = u[rank * b:(rank + 1) * b]
         return torch.where(u >= self.p, x / (1 - self.p), 0.0)
 
     def extra_repr(self) -> str:
@@ -272,6 +294,90 @@ def dropout_uniforms(source):
         yield
     finally:
         _UNIFORMS.reset(token)
+
+
+_REGION: contextvars.ContextVar = contextvars.ContextVar(
+    "remat_region", default=None)
+
+
+def in_remat_region() -> bool:
+    """True while a :func:`remat` region runs its module (its forward or
+    its recompute): the module then takes its plain path."""
+    return _REGION.get() is not None
+
+
+class _Recompute(torch.autograd.Function):
+    """``run(*tensors) -> (out, *stats)`` without saving its intermediates:
+    the forward keeps only its inputs, and the backward runs ``run`` again
+    under ``torch.func.vjp`` (the recompute) and takes the vector-Jacobian
+    product of ``out`` with respect to the first ``n_diff`` tensors. The
+    ``stats`` outputs are not differentiable. The setup_context form and
+    the generated vmap rule let it run under ``torch.func`` transforms
+    (``torch.utils.checkpoint`` does not: its saved-tensor hooks and its
+    reentrant Function are refused by ``grad``)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(run, n_diff, *tensors):
+        return run(*tensors)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        run, n_diff, *tensors = inputs
+        ctx.run, ctx.n_diff = run, n_diff
+        ctx.save_for_backward(*tensors)
+        ctx.mark_non_differentiable(*output[1:])
+
+    @staticmethod
+    def backward(ctx, g, *_stats):
+        tensors = ctx.saved_tensors
+        diff, rest = tensors[:ctx.n_diff], tensors[ctx.n_diff:]
+        _, vjp = torch.func.vjp(lambda *d: ctx.run(*d, *rest)[0], *diff)
+        return (None, None, *vjp(g), *(None for _ in rest))
+
+
+def remat(module: nn.Module, *inputs: torch.Tensor, uniforms=(),
+          **kwargs) -> torch.Tensor:
+    """``module(*inputs, **kwargs)`` as a recompute region (JAX
+    ``nn.remat``): its activations are not kept for the backward, which
+    runs the module again. Safe for this package's layers:
+
+      * :class:`BatchNorm` updates its running stats once, after the
+        forward (the region returns the batch statistics; the recompute's
+        are dropped), so ``num_batches_tracked`` moves by one;
+      * :class:`Dropout` inside the region takes ``uniforms`` (one tensor
+        a dropout layer of the region, in forward order, drawn by the
+        caller with :meth:`Dropout.uniforms` before the region), both in
+        the forward and in the recompute: the mask is drawn once;
+      * a :class:`BatchNorm` with a ``data_group`` all-reduces again in
+        the recompute, as JAX's remat recomputes its ``psum``.
+
+    Serves the Trainer's eager ``torch.autograd.grad`` and the stacked
+    ``vmap(grad_and_value)`` of ``train/cv_parallel.py``. ``module``'s
+    forward must call this only when :func:`in_remat_region` is False."""
+    named = list(module.named_parameters())
+    names, params = [n for n, _ in named], [p for _, p in named]
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    n_in, n_p = len(inputs), len(params)
+
+    def run(*tensors):
+        feed = iter(tensors[n_in + n_p:])
+        stats: dict = {}
+        token = _REGION.set(stats)
+        try:
+            with dropout_uniforms(lambda _: next(feed)):
+                out = torch.func.functional_call(
+                    module, dict(zip(names, tensors[n_in:n_in + n_p])),
+                    tensors[:n_in], kwargs)
+        finally:
+            _REGION.reset(token)
+        return (out, *(t for m in norms for t in stats[m]))
+
+    out = _Recompute.apply(run, n_in + n_p, *inputs, *params, *uniforms)
+    for i, m in enumerate(norms):
+        m.update_running_stats(out[1 + 2 * i], out[2 + 2 * i])
+    return out[0]
 
 
 def set_dropout_generator(model: nn.Module, generator: torch.Generator):

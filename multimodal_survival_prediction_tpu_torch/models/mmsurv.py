@@ -165,12 +165,14 @@ class MMsurvNet(nn.Module):
     def __init__(self, rna_dim: int = 5005, backbone: str = "densenet121",
                  block_config: tuple | None = None, dropout: float = 0.5,
                  generator: torch.Generator | None = None,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None,
+                 remat: bool = False):
         super().__init__()
         gen = default_generator(generator)
         self.image_encoder = image_encoder(TOKEN_DIM, backbone=backbone,
                                            block_config=block_config,
-                                           generator=gen, dtype=dtype)
+                                           remat=remat, generator=gen,
+                                           dtype=dtype)
         self.rna_encoder = RNAEncoderCompact(rna_dim, TOKEN_DIM,
                                              generator=gen, dtype=dtype)
         self.clinical_encoder = ClinicalEncoder(1, TOKEN_DIM, generator=gen,

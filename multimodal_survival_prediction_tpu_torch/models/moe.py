@@ -69,13 +69,14 @@ class SimMLMSurvivalNet(nn.Module):
     def __init__(self, rna_dim: int = 5005, backbone: str = "densenet121",
                  block_config: tuple | None = None,
                  generator: torch.Generator | None = None,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None,
+                 remat: bool = False):
         super().__init__()
         gen = default_generator(generator)
         self.expert_image = ModalityExpert(
             image_encoder(FEATURE_DIM, backbone=backbone,
-                          block_config=block_config, generator=gen,
-                          dtype=dtype),
+                          block_config=block_config, remat=remat,
+                          generator=gen, dtype=dtype),
             generator=gen, dtype=dtype)
         self.expert_rnaseq = ModalityExpert(
             RNAEncoderCompact(rna_dim, FEATURE_DIM, generator=gen,

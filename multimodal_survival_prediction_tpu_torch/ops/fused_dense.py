@@ -776,23 +776,43 @@ def _stats(x2d, scale, bias, eps):
     return mean, var, rstd, mul, add
 
 
+def _storage(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or the tensor under its ``torch.func`` grad wrappers: the
+    backward of a remat region's recompute (``torch.func.vjp``) runs this
+    op's backward on wrapped tensors, which have no storage for the
+    kernels to read."""
+    fc = torch._C._functorch
+    while fc.is_gradtrackingtensor(t):
+        t = fc.get_unwrapped(t)
+    return t
+
+
 class _FusedBnReluConv1x1(torch.autograd.Function):
+    # the setup_context form, so that torch.func.vjp can run it (the
+    # recompute of a remat region); the saved statistics are outputs
+    # because that form saves inputs and outputs only
+
     @staticmethod
-    def forward(ctx, x2d, scale, bias, w2d, eps):
+    def forward(x2d, scale, bias, w2d, eps):
         _check_dtypes(x2d, w2d)
         mean, var, rstd, mul, add = _stats(x2d, scale, bias, eps)
         out = apply(x2d, mul, add, w2d)
-        ctx.save_for_backward(x2d, w2d, mul, add, mean, rstd)
-        ctx.mark_non_differentiable(mean, var)
-        return out, mean, var
+        return out, mean, var, mul, add, rstd
 
     @staticmethod
-    def backward(ctx, g_out, _g_mean, _g_var):
+    def setup_context(ctx, inputs, output):
+        x2d, w2d = inputs[0], inputs[3]
+        _, mean, var, mul, add, rstd = output
+        ctx.save_for_backward(x2d, w2d, mul, add, mean, rstd)
+        ctx.mark_non_differentiable(mean, var, mul, add, rstd)
+
+    @staticmethod
+    def backward(ctx, g_out, *_g_stats):
         # mean/var feed the running-average update only: their cotangents
         # are ignored (the JAX VJP at ops/fused_dense.py:309)
-        x2d, w2d, mul, add, mean, rstd = ctx.saved_tensors
+        x2d, w2d, mul, add, mean, rstd = map(_storage, ctx.saved_tensors)
         n = x2d.shape[0]
-        g = g_out.to(x2d.dtype)
+        g = _storage(g_out).to(x2d.dtype)
         dw, dg, db = bwd_reduce(x2d, g, w2d, mul, add, mean, rstd)
         dx = None
         if ctx.needs_input_grad[0]:
@@ -813,4 +833,4 @@ def fused_bn_relu_conv1x1(x2d, scale, bias, w2d, eps: float = 1e-5):
 
     Returns ``(out (N, F) in x.dtype, mean (C,), var (C,))``; mean/var are
     float32 and non-differentiable."""
-    return _FusedBnReluConv1x1.apply(x2d, scale, bias, w2d, eps)
+    return _FusedBnReluConv1x1.apply(x2d, scale, bias, w2d, eps)[:3]

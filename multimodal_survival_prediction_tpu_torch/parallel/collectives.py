@@ -18,9 +18,15 @@ takes depends on what consumes its result:
 replicated loss that multiplies every gradient by the group's size, which is
 why ``gather`` is its own function here.
 
+``gather`` and ``all_reduce_sum`` also run inside ``torch.func.vmap`` (the
+fold x data step of ``train/cv_parallel.py``): their Functions carry a
+``vmap`` rule that hands the physical stacked tensor, every fold of this
+rank at once, to one collective, and ``all_reduce_sum``'s backward calls its
+Function again so that the vmapped backward takes the same rule.
+
 ``counter.calls`` counts the collectives this process has launched, forward
-and backward: ``chip_smoke.py`` reads it to show that a run went through the
-distributed path.
+and backward (one a stacked call under vmap): ``chip_smoke.py`` reads it to
+show that a run went through the distributed path.
 """
 
 from __future__ import annotations
@@ -70,13 +76,25 @@ def _my_slice(g: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
+    def forward(x, group, dim):
         return all_gather_tensor(x, group, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, ctx.group, ctx.dim = inputs
 
     @staticmethod
     def backward(ctx, g):
         return _my_slice(g, ctx.group, ctx.dim).contiguous(), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group, dim):
+        # the stacked tensor in one collective: its batch dim leads, and the
+        # logical dim moves one to the right
+        if in_dims[0] is None:
+            return all_gather_tensor(x, group, dim), None
+        x = x.movedim(in_dims[0], 0)
+        return all_gather_tensor(x, group, dim + 1 if dim >= 0 else dim), 0
 
 
 class _AllGather(torch.autograd.Function):
@@ -104,13 +122,23 @@ class _CopyTo(torch.autograd.Function):
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(x, group):
         return all_reduce_tensor(x, group)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
     def backward(ctx, g):
-        return all_reduce_tensor(g, ctx.group), None
+        # through the Function again, so that a vmapped backward takes the
+        # rule below
+        return _AllReduceSum.apply(g, ctx.group), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        # a sum is elementwise: the stacked tensor reduces as it lies
+        return all_reduce_tensor(x, group), in_dims[0]
 
 
 class _ReduceFrom(torch.autograd.Function):

@@ -13,7 +13,8 @@ them) and logs both flags. Library functions set no global flags.
 
 ``--fold-parallel 1`` trains every fold in one vmapped step
 (``train/cv_parallel.py``), ``--streaming`` keeps the cohort on the host
-(either driver) and ``--profile-dir`` traces a sequential run
+(either driver), ``--remat`` recomputes the DenseNet dense layers in the
+backward (either driver) and ``--profile-dir`` traces a sequential run
 (``utils/profiling.py``).
 
 Multi-device runs (``parallel/``; one process a device):
@@ -23,6 +24,12 @@ Multi-device runs (``parallel/``; one process a device):
     ``--results-dir``): one a GPU under NCCL, or gloo ranks with
     ``--device cpu``. With N = 1, or inside a group that already exists, it
     runs in this process.
+  * ``--fold-parallel N [--fold-dp M]`` (N > 1) trains the folds on a
+    fold mesh of N ranks: N/M fold rows, each training its block of folds
+    in one vmapped step, data-parallel over its M ranks
+    (``train/cv_parallel.py:make_fold_mesh``). Without a process group the
+    CLI starts the N ranks as ``--mesh`` does; inside one it runs in this
+    process.
   * ``--multihost`` joins a group from ``--coordinator``/
     ``--num-processes``/``--process-id`` or from torchrun's environment
     (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) and
@@ -32,10 +39,9 @@ Every rank builds the same cohort (a ``--synthetic`` one is written once,
 by the CLI's process or the coordinator, and read by the ranks); rank 0
 writes the artifacts and prints the summary.
 
-Flags of the JAX scripts that have no port yet stay in the parser and
-raise ``NotImplementedError`` naming their ROADMAP.md item
-(``--fold-parallel`` N > 1 too: a fold mesh over N devices); ``--device``
-(default ``cuda``) is the port's own.
+``--aot-cache``, a flag of the JAX scripts with no port yet, stays in the
+parser and raises ``NotImplementedError`` naming its ROADMAP.md item;
+``--device`` (default ``cuda``) is the port's own.
 """
 
 from __future__ import annotations
@@ -71,7 +77,6 @@ log = logging.getLogger(__name__)
 
 # (flag, attribute, value when unused, ROADMAP.md item)
 _NOT_PORTED = (
-    ("--remat", "remat", False, "Queue 1 item 16 (remat)"),
     ("--aot-cache", "aot_cache", None, "Queue 1 item 12 (io/aot_cache.py)"),
 )
 
@@ -143,13 +148,16 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--process-id", type=int, default=None,
                    help="with --multihost: this process's rank")
     p.add_argument("--fold-parallel", type=int, default=0,
-                   help="train all folds in one vmapped step on one device "
-                        "(1; N > 1 devices is not ported yet: ROADMAP.md "
-                        "Queue 1 item 17)")
+                   help="train all folds in one vmapped step: on one device "
+                        "(1), or spread over a fold mesh of N devices (N "
+                        "ranks, started here unless a process group "
+                        "exists)")
     p.add_argument("--fold-dp", type=int, default=1,
                    help="data parallelism inside each fold of a "
-                        "--fold-parallel N mesh (not ported yet: ROADMAP.md "
-                        "Queue 1 item 17)")
+                        "--fold-parallel N mesh (N/M folds rows x M-way DP)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each DenseNet dense layer in the "
+                        "backward instead of keeping its activations")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of the CV run (ingest "
                         "and folds) into this directory")
@@ -170,24 +178,35 @@ def run_training(args, cfg):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
     _validate(args, cfg)
-    fold_mesh = (make_fold_mesh(args.fold_parallel,
-                                data_parallel=args.fold_dp)
-                 if args.fold_parallel else None)
     if args.multihost:
         initialize_distributed(args.coordinator, args.num_processes,
                                args.process_id, device=args.device)
         table, rnaseq_csv = _load_cohort_once(args, cfg)
         mesh = make_global_mesh(model_parallel=args.tp, device=args.device)
         return _train(args, cfg, table, rnaseq_csv, mesh=mesh)
-    if args.mesh > 1 and not dist.is_initialized():
-        return _spawn_ranks(args, cfg)
+    ranks = max(args.mesh, args.fold_parallel)
+    if ranks > 1 and not dist.is_initialized():
+        table, rnaseq_csv = load_cohort(args, _with_overrides(args, cfg))
+        return spawn_ranks(ranks, args.device, args.results_dir,
+                           _train_on_rank, args, cfg, table, rnaseq_csv)
     with (_group_of_one(args) if args.mesh == 1 and not dist.is_initialized()
           else contextlib.nullcontext()):
         table, rnaseq_csv = _load_cohort_once(args, cfg)
-        mesh = (make_mesh(args.mesh, args.tp, device=args.device)
-                if args.mesh else None)
-        return _train(args, cfg, table, rnaseq_csv, mesh=mesh,
-                      fold_mesh=fold_mesh)
+        return _train_on_rank(args.device, args, cfg, table, rnaseq_csv)
+
+
+def _train_on_rank(device, args, cfg, table, rnaseq_csv):
+    """:func:`_train` on this process's ``device`` with the meshes that
+    ``--mesh``/``--tp`` or ``--fold-parallel``/``--fold-dp`` ask for
+    (module level: the spawned ranks run it)."""
+    args = argparse.Namespace(**{**vars(args), "device": str(device)})
+    mesh = (make_mesh(args.mesh, args.tp, device=device)
+            if args.mesh else None)
+    fold_mesh = (make_fold_mesh(args.fold_parallel,
+                                data_parallel=args.fold_dp, device=device)
+                 if args.fold_parallel > 1 else None)
+    return _train(args, cfg, table, rnaseq_csv, mesh=mesh,
+                  fold_mesh=fold_mesh)
 
 
 def _validate(args, cfg):
@@ -224,13 +243,24 @@ def _validate(args, cfg):
         raise ValueError("sharded_risk_set requires a mesh")
     if args.mesh:
         best_mesh_shape(args.mesh, args.tp)
-        if (args.mesh > 1 and not dist.is_initialized()
-                and resolve_device(args.device).type == "cuda"
-                and args.mesh > torch.cuda.device_count()):
-            raise ValueError(
-                f"--mesh {args.mesh} needs {args.mesh} GPUs, one a rank "
-                f"(NCCL puts no two ranks on one GPU); this host has "
-                f"{torch.cuda.device_count()}")
+    if args.fold_parallel > 1 and args.fold_parallel % args.fold_dp:
+        raise ValueError(f"{args.fold_parallel} devices not divisible by "
+                         f"data={args.fold_dp}")
+    for flag, ranks in (("--mesh", args.mesh),
+                        ("--fold-parallel", args.fold_parallel)):
+        if ranks > 1 and not dist.is_initialized():
+            check_ranks_fit(ranks, args.device, flag)
+
+
+def check_ranks_fit(ranks: int, device, flag: str):
+    """``flag N`` starts N local ranks, one a GPU under NCCL: raise where
+    this host has fewer GPUs."""
+    if (resolve_device(device).type == "cuda"
+            and ranks > torch.cuda.device_count()):
+        raise ValueError(
+            f"{flag} {ranks} needs {ranks} GPUs, one a rank (NCCL puts no "
+            f"two ranks on one GPU); this host has "
+            f"{torch.cuda.device_count()}")
 
 
 def _with_overrides(args, cfg):
@@ -262,7 +292,7 @@ def _load_cohort_once(args, cfg):
 def _group_of_one(args):
     """A process group of this process alone (``--mesh 1``), over a
     ``FileStore`` under ``--results-dir``."""
-    store = _store_path(args)
+    store = _store_path(args.results_dir)
     initialize_distributed(init_method=f"file://{store}", num_processes=1,
                            process_id=0, device=args.device)
     try:
@@ -272,52 +302,51 @@ def _group_of_one(args):
         store.unlink(missing_ok=True)
 
 
-def _store_path(args) -> Path:
-    results = Path(args.results_dir).resolve()
+def _store_path(results_dir) -> Path:
+    results = Path(results_dir).resolve()
     results.mkdir(parents=True, exist_ok=True)
     store = results / f".rendezvous-{os.getpid()}"
     store.unlink(missing_ok=True)
     return store
 
 
-def _spawn_ranks(args, cfg):
-    """``--mesh N`` without a process group: N local ranks, each running
-    the CLI's training on its own device; returns rank 0's payload."""
+def spawn_ranks(nprocs: int, device, results_dir, target, *target_args):
+    """``target(rank_device, *target_args)`` on ``nprocs`` local ranks of a
+    new process group (``torch.multiprocessing.spawn``, a ``FileStore``
+    under ``results_dir``): one a GPU under NCCL, or gloo CPU ranks for
+    ``device="cpu"``. ``target`` must be a module-level function (spawn
+    pickles it) whose result JSON can hold; returns rank 0's."""
     import torch.multiprocessing as mp
 
-    table, rnaseq_csv = load_cohort(args, _with_overrides(args, cfg))
-    store = _store_path(args)
+    store = _store_path(results_dir)
     result = store.with_name(store.name + ".payload.json")
     try:
-        mp.spawn(_rank_main, nprocs=args.mesh, join=True,
-                 args=(args, cfg, table, rnaseq_csv, str(store),
-                       str(result)))
+        mp.spawn(_rank_main, nprocs=nprocs, join=True,
+                 args=(nprocs, str(device), str(store), str(result), target,
+                       target_args))
         return json.loads(result.read_text())
     finally:
         store.unlink(missing_ok=True)
         result.unlink(missing_ok=True)
 
 
-def _rank_main(rank, args, cfg, table, rnaseq_csv, store, result):
-    """One rank of :func:`_spawn_ranks` (module level: spawn pickles it)."""
+def _rank_main(rank, nprocs, device, store, result, target, target_args):
+    """One rank of :func:`spawn_ranks` (module level: spawn pickles it)."""
     logging.basicConfig(level=logging.INFO,
                         format=f"%(asctime)s rank {rank} %(levelname)s "
                                "%(message)s")
-    if backend_for(args.device) == "gloo":
+    if backend_for(device) == "gloo":
         # CPU ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.mesh))
-    device = (local_cuda_device(rank) if backend_for(args.device) == "nccl"
-              else args.device)
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // nprocs))
+    rank_device = (local_cuda_device(rank) if backend_for(device) == "nccl"
+                   else device)
     initialize_distributed(init_method=f"file://{store}",
-                           num_processes=args.mesh, process_id=rank,
-                           device=args.device)
+                           num_processes=nprocs, process_id=rank,
+                           device=device)
     try:
-        mesh = make_mesh(args.mesh, args.tp, device=args.device)
-        payload = _train(argparse.Namespace(**{**vars(args),
-                                               "device": str(device)}),
-                         cfg, table, rnaseq_csv, mesh=mesh)
+        out = target(str(rank_device), *target_args)
         if rank == 0:
-            Path(result).write_text(json.dumps(payload))
+            Path(result).write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
 
@@ -333,7 +362,7 @@ def _train(args, cfg, table, rnaseq_csv, mesh=None, fold_mesh=None):
         dtype=torch.bfloat16 if args.bf16 else None,
         use_pallas_resample=args.pallas_resample,
         hu_window=parse_hu_window(args.hu_window), streaming=args.streaming,
-        device=args.device)
+        remat=args.remat, device=args.device)
     if args.fold_parallel:
         payload, outcomes = run_cross_validation_parallel(
             cfg, table, mesh=fold_mesh, **common)

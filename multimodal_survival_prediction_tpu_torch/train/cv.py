@@ -42,8 +42,11 @@ rank runs this driver on the same cohort and splits; only the coordinator
 tensor-parallel shards (``parallel/multihost.py:fetch_tree``); the resume
 save ends with a barrier, so every rank reads a finished resume state.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``aot_cache_dir`` and ``remat``.
+``remat`` recomputes the DenseNet dense layers in the backward
+(``models/layers.py:remat``; JAX ``remat``).
+
+Not ported yet: ``aot_cache_dir`` raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -89,14 +92,7 @@ from .schedules import ReduceLROnPlateau, cosine_annealing
 
 log = logging.getLogger(__name__)
 
-# option -> the ROADMAP.md item that brings it
-_NOT_PORTED = {
-    "aot_cache_dir": "aot_cache_dir is not ported yet: ROADMAP.md Queue 1 "
-                     "item 12",
-    "remat": "remat is not ported yet: ROADMAP.md Queue 1 item 16 "
-             "(recomputation would update BatchNorm running stats twice and "
-             "draw a second dropout mask)",
-}
+_AOT_TODO = "aot_cache_dir is not ported yet: ROADMAP.md Queue 1 item 12"
 
 
 @dataclass
@@ -160,11 +156,12 @@ def prepare_cv_data(cfg: ModelRunConfig, table, rnaseq_csv=None,
 
 def make_trainers(cfg: ModelRunConfig, rna_dim: int, backbone: str, dtype,
                   device, *, mesh=None, tensor_parallel: bool = False,
-                  sharded_risk_set: bool = False):
+                  sharded_risk_set: bool = False, remat: bool = False,
+                  batch_axis: str = "data"):
     """The driver's Trainer for ``cfg`` and, for two-stage models, SimMLM's
     stage-1 Trainer (the same batches and optimizer, the experts' loss);
-    None when ``cfg`` has no stage 1. ``mesh`` and the two flags go to
-    both."""
+    None when ``cfg`` has no stage 1. ``mesh``, ``batch_axis`` and the two
+    flags go to both; ``remat`` to the model they build."""
     batch_to_inputs, hazard_and_aux = make_adapters(cfg)
     tcfg = TrainConfig(
         batch_size=cfg.batch_size, learning_rate=cfg.learning_rate,
@@ -174,9 +171,9 @@ def make_trainers(cfg: ModelRunConfig, rna_dim: int, backbone: str, dtype,
     def model_fn(gen):
         return make_model_and_adapters(cfg, rna_dim=rna_dim,
                                        backbone=backbone, generator=gen,
-                                       dtype=dtype)[0]
+                                       dtype=dtype, remat=remat)[0]
 
-    parallel = dict(device=device, mesh=mesh,
+    parallel = dict(device=device, mesh=mesh, batch_axis=batch_axis,
                     tensor_parallel=tensor_parallel,
                     sharded_risk_set=sharded_risk_set)
     trainer = Trainer(model_fn, batch_to_inputs, hazard_and_aux, tcfg,
@@ -195,13 +192,6 @@ def _compute_dtype(dtype) -> torch.dtype | None:
         return dtype
     raise ValueError(f"unsupported compute dtype {dtype!r}: None (float32) "
                      "or torch.bfloat16")
-
-
-def _refuse_unported(*, aot_cache_dir, remat):
-    given = {"aot_cache_dir": bool(aot_cache_dir), "remat": remat}
-    for option, on in given.items():
-        if on:
-            raise NotImplementedError(_NOT_PORTED[option])
 
 
 def run_cross_validation(
@@ -239,7 +229,8 @@ def run_cross_validation(
     after each fold's ``init_state``; a returned TrainState replaces the
     fold's initial state (the tests start each fold from the JAX driver's
     initial weights through it)."""
-    _refuse_unported(aot_cache_dir=aot_cache_dir, remat=remat)
+    if aot_cache_dir:
+        raise NotImplementedError(_AOT_TODO)
     if sharded_risk_set and mesh is None:
         raise ValueError("sharded_risk_set requires a mesh")
     write_outputs = write_outputs and is_coordinator()
@@ -263,7 +254,7 @@ def run_cross_validation(
         trainer, stage1_trainer = make_trainers(
             cfg, rna_dim, backbone, dtype, dev, mesh=mesh,
             tensor_parallel=tensor_parallel,
-            sharded_risk_set=sharded_risk_set)
+            sharded_risk_set=sharded_risk_set, remat=remat)
         if streaming:  # the cohort stays on the host
             data = {k: np.asarray(v) for k, v in arrays.arrays.items()}
             train_epoch = Trainer.train_epoch_streaming

@@ -40,11 +40,29 @@ step's stacked (K, B, ...) batch is gathered: on the host, through
 ``data.pipeline.BatchPrefetcher``, instead of on the device.
 
 The driver builds the unfused model, as JAX's does, so the fused
-BN->ReLU->1x1-conv kernels are off this path. One device only: a fold
-mesh and fold x data parallelism raise ``NotImplementedError`` (ROADMAP.md
-Queue 1 item 17: collectives do not run inside ``torch.func.vmap``), as do
-``aot_cache_dir`` (item 12) and ``remat`` (item 16). No
-resume checkpoints (JAX's parallel driver has none either).
+BN->ReLU->1x1-conv kernels are off this path. ``remat`` recomputes the
+DenseNet dense layers in the backward (``models/layers.py:remat``, whose
+region runs under the vmapped ``grad``).
+
+A fold mesh (:func:`make_fold_mesh`: a ``("fold", "data")`` DeviceMesh
+over the ranks of the default group, one process a device) spreads the
+folds as JAX's ``P("fold")`` sharding does: K is padded to ``k_pad``, a
+multiple of the fold axis (the dummy folds reuse the last split and are
+never recorded or written), and each fold row of ranks inits and trains
+its contiguous block of ``k_pad / F`` folds in its own vmapped step;
+nothing crosses the fold axis inside a step. With a data axis larger than
+1, each fold's batch rows are split over its data group as JAX's
+``(fold, -, data)`` index sharding does: BatchNorm's sums and the
+gathered hazards go through ``parallel/collectives.py``, whose Functions
+carry a ``vmap`` rule (one collective serves every fold of the rank), each
+fold's dropout uniforms are those of the global batch, and the stacked
+gradients are summed over the data group after the vmapped step.
+Evaluation is replicated: every rank gathers every fold's val loss and
+C-index over the fold axis, so every rank takes the same schedule, patience
+and snapshot branches; the best states move to the coordinator, which
+alone writes. ``aot_cache_dir`` raises ``NotImplementedError`` (ROADMAP.md
+Queue 1 item 12). No resume checkpoints (JAX's parallel driver has none
+either).
 """
 
 from __future__ import annotations
@@ -56,6 +74,8 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 from torch.func import functional_call, grad_and_value, vmap
 
 from ..config import ModelRunConfig
@@ -63,6 +83,10 @@ from ..data.pipeline import BatchPrefetcher
 from ..models.layers import dropout_uniforms
 from ..ops.cindex import concordance_index
 from ..ops.cox import cox_partial_likelihood
+from ..parallel.collectives import all_gather_tensor, all_reduce_tensor
+from ..parallel.mesh import mesh_shape
+from ..parallel.multihost import is_coordinator
+from ..parallel.sharding import batch_rows
 from ..utils.device import resolve_device
 from .cv import (
     FoldOutcome,
@@ -72,27 +96,79 @@ from .cv import (
     prepare_cv_data,
     save_fold,
 )
-from .engine import Trainer, TrainState
+from .engine import TrainConfig, Trainer, TrainState
 from .schedules import ReduceLROnPlateau, cosine_annealing
 
 log = logging.getLogger(__name__)
 
-_MESH_TODO = ("a fold mesh (more than one device, or fold x data "
-              "parallelism) is not ported yet: ROADMAP.md Queue 1 item 17 "
-              "(collectives do not run inside torch.func.vmap; use --mesh N "
-              "with the sequential driver for data parallelism)")
 _AOT_TODO = "aot_cache_dir is not ported yet: ROADMAP.md Queue 1 item 12"
-_REMAT_TODO = ("remat is not ported yet: ROADMAP.md Queue 1 item 16 "
-               "(recomputation would update BatchNorm running stats twice "
-               "and draw a second dropout mask)")
 
 
-def make_fold_mesh(n_devices: int | None = None, data_parallel: int = 1):
-    """The fold mesh of one device: None (the fold axis is vmapped on it).
-    More than one device, or ``data_parallel`` > 1, raises."""
-    if (n_devices is not None and n_devices > 1) or data_parallel > 1:
-        raise NotImplementedError(_MESH_TODO)
-    return None
+def make_fold_mesh(n_devices: int | None = None, data_parallel: int = 1,
+                   device="cuda"):
+    """A ``("fold", "data")`` mesh over the ranks of the default group:
+    ``n_devices / data_parallel`` fold rows of ``data_parallel`` ranks,
+    row-major as JAX's ``reshape``, so rank ``f * dp + d`` sits at ``(f,
+    d)`` and a fold's data group is consecutive ranks. ``n_devices`` must
+    be the world size (None: the world size); ``device`` names the ranks'
+    device type. Every rank calls this together.
+
+    Without a process group, the one-device "mesh" of ``n_devices`` None or
+    1 is None: the fold axis is vmapped on this device."""
+    if not dist.is_initialized():
+        if (n_devices or 1) == 1 and data_parallel == 1:
+            return None
+        raise RuntimeError(
+            "a fold mesh over more than one device needs a "
+            "torch.distributed process group: call "
+            "parallel.multihost.initialize_distributed first, or run the "
+            "training CLI's --fold-parallel N, which starts the ranks")
+    world = dist.get_world_size()
+    n = world if n_devices is None else n_devices
+    if n != world:
+        raise ValueError(f"a fold mesh of {n} devices over a process group "
+                         f"of {world} ranks")
+    if n % data_parallel:
+        raise ValueError(
+            f"{n} devices not divisible by data={data_parallel}")
+    return DeviceMesh(torch.device(device).type,
+                      torch.arange(n).reshape(n // data_parallel,
+                                              data_parallel),
+                      mesh_dim_names=("fold", "data"))
+
+
+@dataclasses.dataclass(frozen=True)
+class FoldPlacement:
+    """Where the ``k`` stacked states of a run live: padded to ``k_pad``
+    (a multiple of the fold axis), this rank trains ``local`` (a range of
+    state indices, its fold row's block); ``fold_group`` joins the ranks
+    of this data index across the fold axis (None: one fold row),
+    ``data_group`` this fold row's ranks (None: one rank a row), and
+    ``data_rank`` is this rank's index in it."""
+    k: int
+    k_pad: int
+    local: range
+    fold_group: object = None
+    data_group: object = None
+    data_rank: int = 0
+
+
+def fold_placement(k: int, mesh=None, fold_axis: str = "fold",
+                   data_axis: str = "data") -> FoldPlacement:
+    """The placement of ``k`` states on ``mesh`` (None: all on this
+    device)."""
+    if mesh is None:
+        return FoldPlacement(k, k, range(k))
+    shape = mesh_shape(mesh)
+    n_fold, n_data = shape.get(fold_axis, 1), shape.get(data_axis, 1)
+    k_pad = -(-k // n_fold) * n_fold
+    per = k_pad // n_fold
+    row = mesh.get_local_rank(fold_axis) if fold_axis in shape else 0
+    return FoldPlacement(
+        k, k_pad, range(row * per, (row + 1) * per),
+        fold_group=mesh.get_group(fold_axis) if n_fold > 1 else None,
+        data_group=mesh.get_group(data_axis) if n_data > 1 else None,
+        data_rank=mesh.get_local_rank(data_axis) if n_data > 1 else 0)
 
 
 @contextlib.contextmanager
@@ -219,17 +295,24 @@ def _stack_fold_indices(per_fold, batch_size, rngs):
 
 
 def stacked_batches(trainer: Trainer, data: dict, idx: np.ndarray,
-                    bvalid: np.ndarray, streaming: bool = False):
+                    bvalid: np.ndarray, streaming: bool = False,
+                    rows: slice | None = None):
     """Each step's stacked (K, B, ...) batch of the (K, steps, B) ``idx``
     and ``bvalid``: gathered on the device from ``data`` (tensors there),
     or with ``streaming`` on the host from ``data`` (numpy arrays) and
-    prefetched two deep (JAX's depth)."""
+    prefetched two deep (JAX's depth). ``rows``: this rank's columns of
+    every batch (a fold's data group), else all of them."""
+    if rows is not None:
+        idx, bvalid = idx[..., rows], bvalid[..., rows]
     idx = np.ascontiguousarray(idx.transpose(1, 0, 2))
     bvalid = np.ascontiguousarray(bvalid.transpose(1, 0, 2))
     if not streaming:
-        yield from trainer._device_batches(data, idx, bvalid)
+        dev = trainer.device
+        for i, bv in zip(torch.from_numpy(idx.astype(np.int64)).to(dev),
+                         torch.from_numpy(bvalid).to(dev)):
+            yield Trainer._gather_batch(data, i, bv)
         return
-    batches = BatchPrefetcher(trainer._host_batches(data, idx, bvalid),
+    batches = BatchPrefetcher(Trainer._host_batches(data, idx, bvalid),
                               depth=2, device=trainer.device)
     try:
         yield from batches
@@ -277,7 +360,9 @@ def _build_parallel_train_step(trainer: Trainer):
     advances every fold of ``state`` on its slice of the stacked (K, B,
     ...) ``batch`` with learning rates ``lr`` ((K, 1), the parameters'
     dtype) and returns the (K,) losses (0 where masked). ``step_valid`` (K
-    host bools) masks whole steps."""
+    host bools) masks whole steps. Under a trainer's data group (a fold
+    mesh's data axis) ``batch`` holds this rank's rows, and the stacked
+    gradients are summed over the group in one collective."""
 
     def fold_loss(params, buffers, batch, uniforms, template):
         feed = iter(uniforms)
@@ -303,6 +388,8 @@ def _build_parallel_train_step(trainer: Trainer):
                 state.template)
         flat = torch.cat([grads[n].reshape(state.k, -1)
                           for n in state.param_names], dim=1)
+        if trainer.mesh is not None:
+            flat = all_reduce_tensor(flat, trainer._data_group)
         count = state.count + step_valid
         trainer.tx.update_stacked(flat, state.mu, state.nu, state.params,
                                   np.maximum(count, 1), lr, state.sizes)
@@ -401,10 +488,12 @@ def init_stacked(trainer: Trainer, starts: list,
 
 @dataclasses.dataclass
 class StackedRun:
-    """What :func:`train_stacked` gives back, one entry per stacked state:
-    the epoch histories, the best val C-index and its epoch, the best
-    snapshot (``StackedState.fold_state_dict``; None unless kept), the
-    epochs recorded, and the fold-steps run (valid steps summed)."""
+    """What :func:`train_stacked` gives back, one entry per state of the
+    run (every rank's, ``placement.k`` of them): the epoch histories, the
+    best val C-index and its epoch, the best snapshot
+    (``StackedState.fold_state_dict``; None unless kept, and kept only on
+    the data rank 0 of the states' fold row), the epochs recorded, and the
+    fold-steps this rank ran (valid steps of its real states summed)."""
     histories: list
     best_c: np.ndarray
     best_epoch: np.ndarray
@@ -418,37 +507,60 @@ def train_stacked(trainer: Trainer, stage1_trainer, state: StackedState,
                   val_rows: list, base_lrs, shuffle_rngs: list,
                   num_epochs: int, streaming: bool = False,
                   keep_best: bool = True, tag: str = "parallel",
-                  unit: str = "fold") -> StackedRun:
-    """The epochs of the fold-parallel driver and the sweep: the K stacked
-    states of ``state`` trained together, state k on ``train_rows[k]``
-    shuffled by ``shuffle_rngs[k]`` from base learning rate
-    ``base_lrs[k]``, validated on ``val_rows[k]``. Stage 1 (SimMLM, with
-    ``stage1_trainer``) runs ``cfg.stage1_epochs`` at the base rates; then
-    ``num_epochs`` main epochs with a per-state cosine or plateau schedule,
+                  unit: str = "fold",
+                  placement: FoldPlacement | None = None) -> StackedRun:
+    """The epochs of the fold-parallel driver and the sweep: the stacked
+    states trained together, state k on ``train_rows[k]`` shuffled by
+    ``shuffle_rngs[k]`` from base learning rate ``base_lrs[k]``, validated
+    on ``val_rows[k]``. Stage 1 (SimMLM, with ``stage1_trainer``) runs
+    ``cfg.stage1_epochs`` at the base rates; then ``num_epochs`` main
+    epochs with a per-state cosine or plateau schedule,
     best-by-val-C-index records (snapshots with ``keep_best``) and early
     stopping, which freezes a state's record while it goes on computing.
     One read-back an epoch. ``tag`` and ``unit`` name the run and its
-    states in the log."""
-    k_n = state.k
+    states in the log.
+
+    ``placement`` (:func:`fold_placement`; None: every state here) says
+    which of the ``k_pad`` states of the lists ``state`` holds: this rank
+    steps those (its data rows of each batch, under a data group), and
+    after each epoch's evaluation gathers every state's losses and C-index
+    over the fold axis, so the records of the first ``placement.k`` states
+    are kept alike on every rank; the padding states are never
+    recorded."""
+    pl = placement or fold_placement(state.k)
+    loc = pl.local
     base_lrs = np.asarray(base_lrs, np.float64)
     lrs = base_lrs.copy()
     plateaus = [ReduceLROnPlateau(lr=lr) for lr in base_lrs]
-    # eval indices are epoch-invariant
-    eidx, ebv = _stack_fold_indices(val_rows, trainer.cfg.eval_batch_size,
-                                    [None] * k_n)
+    train_loc = [train_rows[i] for i in loc]
+    rngs_loc = [shuffle_rngs[i] for i in loc]
+    real = np.asarray([i < pl.k for i in loc])
+    rows = (batch_rows(cfg.batch_size, trainer.mesh, trainer.batch_axis)
+            if pl.data_group is not None else None)
+    # eval indices are epoch-invariant; every rank of a fold row evaluates
+    # its folds' whole batches (eval mode makes no collective)
+    eidx, ebv = _stack_fold_indices([val_rows[i] for i in loc],
+                                    trainer.cfg.eval_batch_size,
+                                    [None] * len(loc))
     eval_valid = ebv.max(axis=2) > 0
     evaluate = _build_parallel_eval(trainer)
     total_steps = 0
 
     def run_epoch(epoch_fn, lr_vec):
         nonlocal total_steps
-        idx, bv = _stack_fold_indices(train_rows, cfg.batch_size,
-                                      shuffle_rngs)
+        idx, bv = _stack_fold_indices(train_loc, cfg.batch_size, rngs_loc)
         step_valid = bv.max(axis=2) > 0
-        total_steps += int(step_valid.sum())
+        total_steps += int(step_valid[real].sum())
         return epoch_fn(state, stacked_batches(trainer, data, idx, bv,
-                                               streaming),
-                        step_valid, lr_vec)[1]
+                                               streaming, rows),
+                        step_valid, lr_vec[loc.start:loc.stop])[1]
+
+    def gathered(*per_state):
+        """The (k_pad,) values of every rank's states, on the host."""
+        local = torch.stack([t.float() for t in per_state], 1)
+        if pl.fold_group is not None:
+            local = all_gather_tensor(local, pl.fold_group)
+        return local.cpu().numpy().T
 
     # ---- stage 1 (SimMLM expert pretraining): base LRs, no selection ----
     # (the sequential driver's stage 1 runs at cfg.learning_rate, which for
@@ -463,6 +575,7 @@ def train_stacked(trainer: Trainer, stage1_trainer, state: StackedState,
 
     # ---- main epochs: all states advance together, records per state ----
     train_epoch = _build_parallel_train_epoch(trainer)
+    k_n = pl.k
     run = StackedRun(histories=[[] for _ in range(k_n)],
                      best_c=np.full(k_n, -np.inf),
                      best_epoch=np.zeros(k_n, np.int64),
@@ -470,6 +583,7 @@ def train_stacked(trainer: Trainer, stage1_trainer, state: StackedState,
                      epochs_run=np.zeros(k_n, np.int64), total_steps=0)
     bad = np.zeros(k_n, np.int64)
     active = np.ones(k_n, bool)
+    keeps = keep_best and pl.data_rank == 0
 
     for epoch in range(1, num_epochs + 1):
         if not active.any():
@@ -481,8 +595,7 @@ def train_stacked(trainer: Trainer, stage1_trainer, state: StackedState,
         cidx, vloss = evaluate(state, stacked_batches(
             trainer, data, eidx, ebv, streaming), eval_valid)
         # ONE read-back fences the epoch
-        tr_losses, cidx, vloss = torch.stack(
-            [tr_losses.float(), cidx.float(), vloss.float()]).cpu().numpy()
+        tr_losses, cidx, vloss = gathered(tr_losses, cidx, vloss)
 
         for k in range(k_n):
             if not active[k]:
@@ -497,8 +610,8 @@ def train_stacked(trainer: Trainer, stage1_trainer, state: StackedState,
             run.epochs_run[k] = epoch
             if val_c > run.best_c[k]:
                 run.best_c[k], run.best_epoch[k] = val_c, epoch
-                if keep_best:
-                    run.best_params[k] = state.fold_state_dict(k)
+                if keeps and k in loc:
+                    run.best_params[k] = state.fold_state_dict(k - loc.start)
                 bad[k] = 0
             else:
                 bad[k] += 1
@@ -508,10 +621,28 @@ def train_stacked(trainer: Trainer, stage1_trainer, state: StackedState,
                          unit, k + 1, epoch)
         if epoch % 10 == 0 or epoch == 1:
             log.info("[%s %s] epoch %d mean val C %.4f, best so far %.4f "
-                     "(%d active)", cfg.name, tag, epoch, float(cidx.mean()),
-                     float(run.best_c.max()), int(active.sum()))
+                     "(%d active)", cfg.name, tag, epoch,
+                     float(cidx[:k_n].mean()), float(run.best_c.max()),
+                     int(active.sum()))
     run.total_steps = total_steps
     return run
+
+
+def collect_best(best_params: list, placement: FoldPlacement) -> list:
+    """Every state's best snapshot on the coordinator (each is kept by the
+    data rank 0 of its fold row; one ``gather_object`` over the default
+    group, every rank calls); the other ranks get Nones. Unchanged on one
+    device."""
+    if placement.fold_group is None and placement.data_group is None:
+        return best_params
+    mine = {k: v for k, v in enumerate(best_params) if v is not None}
+    every = [None] * dist.get_world_size() if is_coordinator() else None
+    dist.gather_object(mine, every, dst=0)
+    out = [None] * len(best_params)
+    for part in every or ():
+        for k, v in part.items():
+            out[k] = v
+    return out
 
 
 def run_cross_validation_parallel(
@@ -541,21 +672,25 @@ def run_cross_validation_parallel(
     writes the same artifacts (``fold_K_best.pt`` + ``.meta.json``,
     ``cv_results.json``).
 
-    ``mesh``, ``fold_axis`` and ``data_axis`` are the JAX signature's; only
-    ``mesh=None`` (one device) runs. ``streaming`` keeps the cohort on the
+    ``mesh`` (:func:`make_fold_mesh`; None: one device) spreads the folds
+    over its ``fold_axis`` and each fold's batch over its ``data_axis``
+    (module docstring); every rank calls this with the same arguments, and
+    only the coordinator writes. ``streaming`` keeps the cohort on the
     host and prefetches each step's stacked batch. ``prepared`` and
     ``init_hook`` (``(fold, state) -> state | None`` after each fold's
     ``init_state``) are the sequential driver's."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
     if aot_cache_dir:
         raise NotImplementedError(_AOT_TODO)
-    if remat:
-        raise NotImplementedError(_REMAT_TODO)
     name = cfg.name
     num_epochs = num_epochs or cfg.num_epochs
     dev = resolve_device(device)
     dtype = _compute_dtype(dtype)
+    writes = write_outputs and is_coordinator()
+    n_data = mesh_shape(mesh).get(data_axis, 1)
+    eval_bs = TrainConfig.eval_batch_size
+    if cfg.batch_size % n_data or eval_bs % n_data:
+        raise ValueError(f"batch sizes ({cfg.batch_size}, {eval_bs}) must "
+                         f"divide by the '{data_axis}' axis ({n_data})")
 
     arrays, splits = prepared if prepared is not None else prepare_cv_data(
         cfg, table, rnaseq_csv=rnaseq_csv,
@@ -563,29 +698,38 @@ def run_cross_validation_parallel(
         device=dev)
     rna_dim = arrays.arrays["rnaseq"].shape[1]
     n_folds = len(splits)
-    trainer, stage1_trainer = make_trainers(cfg, rna_dim, backbone, dtype,
-                                            dev)
+    placement = fold_placement(n_folds, mesh, fold_axis, data_axis)
+    # the dummy folds (k_pad > K) reuse the last split; they compute but
+    # are never recorded
+    padded = splits + [splits[-1]] * (placement.k_pad - n_folds)
+    trainer, stage1_trainer = make_trainers(
+        cfg, rna_dim, backbone, dtype, dev, remat=remat,
+        mesh=mesh if n_data > 1 else None, batch_axis=data_axis)
     data = ({k: np.asarray(v) for k, v in arrays.arrays.items()}
             if streaming else arrays.to_device(dev))
 
     t_start = time.monotonic()
-    state = init_stacked(trainer, [(f, f, cfg.seed)
-                                   for f in range(1, n_folds + 1)], init_hook)
+    folds = range(1, placement.k_pad + 1)
+    hook = init_hook and (lambda f, st: init_hook(f, st)
+                          if f <= n_folds else None)
+    state = init_stacked(trainer, [(folds[i], folds[i], cfg.seed)
+                                   for i in placement.local], hook)
 
-    shuffle_rngs = [np.random.default_rng(cfg.seed + f)
-                    for f in range(1, n_folds + 1)]
     run = train_stacked(
-        trainer, stage1_trainer, state, cfg, data, [s[0] for s in splits],
-        [s[1] for s in splits], np.full(n_folds, cfg.learning_rate),
-        shuffle_rngs, num_epochs, streaming=streaming)
+        trainer, stage1_trainer, state, cfg, data, [s[0] for s in padded],
+        [s[1] for s in padded], np.full(placement.k_pad, cfg.learning_rate),
+        [np.random.default_rng(cfg.seed + f) for f in folds], num_epochs,
+        streaming=streaming, placement=placement)
     best_c, best_epoch = run.best_c, run.best_epoch
+    best_params = (collect_best(run.best_params, placement) if write_outputs
+                   else run.best_params)
 
     # ---- outcomes + artifacts (the sequential driver's schema) ----
     elapsed = time.monotonic() - t_start
     outcomes: list[FoldOutcome] = []
     for k, (tr, va, tss) in enumerate(splits):
-        if write_outputs and run.best_params[k] is not None:
-            save_fold(models_dir, cfg, k + 1, run.best_params[k],
+        if writes and best_params[k] is not None:
+            save_fold(models_dir, cfg, k + 1, best_params[k],
                       backbone=backbone, rna_dim=rna_dim, hu_window=hu_window,
                       use_pallas_resample=use_pallas_resample,
                       resample_mode=arrays.ingest_mode,
@@ -601,8 +745,8 @@ def run_cross_validation_parallel(
 
     payload = build_and_write_cv_payload(
         cfg, outcomes, num_epochs, int(arrays.n), results_dir,
-        write_outputs=write_outputs)
-    log.info("[%s parallel] CV done: %.1fs, %d steps (%d folds in flight), "
-             "%.2f steps/s", name, elapsed, run.total_steps, n_folds,
-             run.total_steps / max(elapsed, 1e-9))
+        write_outputs=writes)
+    log.info("[%s parallel] CV done: %.1fs, %d steps (%d folds in flight "
+             "here), %.2f steps/s", name, elapsed, run.total_steps,
+             len(placement.local), run.total_steps / max(elapsed, 1e-9))
     return payload, outcomes

@@ -57,11 +57,7 @@ from ..models.layers import set_dropout_generator
 from ..ops.cindex import concordance_index
 from ..ops.cox import cox_partial_likelihood
 from ..ops.cox_distributed import cox_partial_likelihood_sharded
-from ..parallel.collectives import (
-    all_gather_tensor,
-    all_reduce_tensor,
-    gather,
-)
+from ..parallel.collectives import all_reduce_tensor, gather
 from ..parallel.mesh import mesh_shape
 from ..parallel.multihost import fetch_tree
 from ..parallel.sharding import batch_rows, local_part, shard_module, tp_group
@@ -346,8 +342,9 @@ class Trainer:
             out = gather(out, self._data_group)
         keys = [k for k in LABEL_KEYS if k in batch]
         cols = [batch[k].reshape(batch[k].shape[0], -1) for k in keys]
-        every = all_gather_tensor(torch.cat(cols, 1).float(),
-                                  self._data_group)
+        # through gather's Function, whose vmap rule serves the stacked
+        # folds of train/cv_parallel.py (the labels take no gradient)
+        every = gather(torch.cat(cols, 1).float(), self._data_group)
         glob = dict(batch)
         for k, part in zip(keys, every.split([c.shape[1] for c in cols], 1)):
             glob[k] = part.reshape(-1, *batch[k].shape[1:]).to(

@@ -17,9 +17,14 @@ s``: ``Trainer.init_state(fold, seed=s)`` (weights, and dropout from
 Candidates that differ in weight decay or optimizer family need separate
 sweeps.
 
-One device only: a candidate mesh (``mesh``, ``--sweep-mesh`` > 1) raises
-``NotImplementedError`` (ROADMAP.md Queue 1 item 17), as does ``remat``
-(item 16).
+A candidate mesh (``mesh``, from ``cv_parallel.make_fold_mesh``) spreads
+the candidates over its fold axis as the fold-parallel driver spreads
+folds: padded to a multiple of the axis (the dummies are not reported),
+each fold row training its block, every rank keeping every candidate's
+record; the coordinator writes ``sweep_results.json``. ``--sweep-mesh N``
+starts N ranks (``train/cli.py:spawn_ranks``), one a GPU under NCCL or
+gloo CPU ranks with ``--device cpu``. ``remat`` recomputes the DenseNet
+dense layers in the backward.
 """
 
 from __future__ import annotations
@@ -34,10 +39,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from ..config import ModelRunConfig
+from ..parallel.mesh import mesh_shape
+from ..parallel.multihost import is_coordinator
 from ..utils.device import resolve_device
 from .cv import _compute_dtype, make_trainers, prepare_cv_data
-from .cv_parallel import _MESH_TODO, _REMAT_TODO, init_stacked, train_stacked
+from .cv_parallel import (
+    fold_placement,
+    init_stacked,
+    make_fold_mesh,
+    train_stacked,
+)
 
 log = logging.getLogger(__name__)
 
@@ -68,16 +82,14 @@ def run_hyperparameter_sweep(
     ``prepared``: an ``(arrays, splits)`` from ``prepare_cv_data``;
     ``init_hook``: ``(candidate, state) -> state | None`` after each
     candidate's ``init_state`` (``candidate`` 0-based, in the order of
-    ``[(s, lr) for s in seeds for lr in learning_rates]``).
+    ``[(s, lr) for s in seeds for lr in learning_rates]``). ``mesh``:
+    a fold mesh whose ``fold_axis`` carries the candidates (module
+    docstring; every rank calls with the same arguments).
 
     Returns the leaderboard: dicts ``{seed, learning_rate, best_c_index,
     best_epoch, history}`` sorted by best val C-index, best first; with
     ``results_dir``, also writes ``<results_dir>/<model>/
-    sweep_results.json`` (JAX's keys)."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
-    if remat:
-        raise NotImplementedError(_REMAT_TODO)
+    sweep_results.json`` (JAX's keys; the coordinator writes)."""
     num_epochs = num_epochs or cfg.num_epochs
     learning_rates = list(learning_rates or [cfg.learning_rate])
     points = [(s, lr) for s in seeds for lr in learning_rates]
@@ -91,20 +103,27 @@ def run_hyperparameter_sweep(
         device=dev)
     train_rows, val_rows, _ = splits[fold - 1]
     rna_dim = arrays.arrays["rnaseq"].shape[1]
+    placement = fold_placement(n_points, mesh, fold_axis)
+    # the dummy candidates (k_pad > n_points) repeat the last one; they
+    # compute but are never reported
+    padded = points + [points[-1]] * (placement.k_pad - n_points)
+    data_mesh = mesh if mesh_shape(mesh).get("data", 1) > 1 else None
     trainer, stage1_trainer = make_trainers(cfg, rna_dim, backbone, dtype,
-                                            dev)
+                                            dev, remat=remat, mesh=data_mesh)
     data = arrays.to_device(dev)
 
     t_start = time.monotonic()
-    state = init_stacked(trainer, [(k, fold, s)
-                                   for k, (s, _) in enumerate(points)],
-                         init_hook)
+    hook = init_hook and (lambda k, st: init_hook(k, st)
+                          if k < n_points else None)
+    state = init_stacked(trainer, [(k, fold, padded[k][0])
+                                   for k in placement.local], hook)
 
     run = train_stacked(
-        trainer, stage1_trainer, state, cfg, data, [train_rows] * n_points,
-        [val_rows] * n_points, [lr for _, lr in points],
-        [np.random.default_rng(s + fold) for s, _ in points], num_epochs,
-        keep_best=False, tag="sweep", unit="candidate")
+        trainer, stage1_trainer, state, cfg, data,
+        [train_rows] * placement.k_pad, [val_rows] * placement.k_pad,
+        [lr for _, lr in padded],
+        [np.random.default_rng(s + fold) for s, _ in padded], num_epochs,
+        keep_best=False, tag="sweep", unit="candidate", placement=placement)
 
     leaderboard = sorted(
         (dict(seed=s, learning_rate=lr, best_c_index=float(run.best_c[k]),
@@ -116,7 +135,7 @@ def run_hyperparameter_sweep(
              "lr=%g C=%.4f", cfg.name, n_points, num_epochs, elapsed,
              leaderboard[0]["seed"], leaderboard[0]["learning_rate"],
              leaderboard[0]["best_c_index"])
-    if results_dir is not None:
+    if results_dir is not None and is_coordinator():
         out = Path(results_dir) / cfg.name / "sweep_results.json"
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps({
@@ -142,9 +161,8 @@ _REFUSED = (("--mesh", "mesh", 0), ("--tp", "tp", 1),
 def main(argv=None):
     """The sweep CLI; returns the leaderboard."""
     from ..config import ALL_CONFIGS
-    from ..utils import parse_hu_window
     from ..utils.device import pin_fp32_policy
-    from .cli import base_parser, load_cohort
+    from .cli import base_parser, check_ranks_fit, load_cohort, spawn_ranks
 
     p: argparse.ArgumentParser = base_parser(__doc__.splitlines()[0])
     p.add_argument("--model", default="rnaseq_only",
@@ -158,15 +176,14 @@ def main(argv=None):
     p.add_argument("--fold", type=int, default=1,
                    help="which seed-42 KFold split supplies train/val")
     p.add_argument("--sweep-mesh", type=int, default=0,
-                   help="shard candidates over an N-device mesh (not "
-                        "ported yet: ROADMAP.md Queue 1 item 17)")
+                   help="shard candidates over an N-device fold mesh (N "
+                        "ranks, started here unless a process group "
+                        "exists)")
     args = p.parse_args(argv)
     for flag, dest, unused in _REFUSED:
         if getattr(args, dest) != unused:
             raise SystemExit(f"{flag} is not supported by the sweep driver "
                              f"(candidates parallelize via --sweep-mesh)")
-    if args.sweep_mesh > 1:
-        raise NotImplementedError(_MESH_TODO)
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(message)s")
@@ -189,21 +206,41 @@ def main(argv=None):
            if args.lrs else
            ((args.learning_rate,) if args.learning_rate is not None
             else None))
+    if args.sweep_mesh > 1 and not dist.is_initialized():
+        check_ranks_fit(args.sweep_mesh, args.device, "--sweep-mesh")
     # the 608-patient table for every model, as scripts/training/sweep.py
     table, rnaseq_csv = load_cohort(args, cfg, final_table=False)
+    if args.sweep_mesh > 1 and not dist.is_initialized():
+        board = spawn_ranks(args.sweep_mesh, args.device, args.results_dir,
+                            _sweep_on_rank, args, cfg, table, rnaseq_csv,
+                            seeds, lrs)
+    else:
+        board = _sweep_on_rank(args.device, args, cfg, table, rnaseq_csv,
+                               seeds, lrs)
+    if is_coordinator():
+        print(f"\n{cfg.display_name} sweep — top candidates:")
+        for r in board[:10]:
+            print(f"  seed={r['seed']:<4d} lr={r['learning_rate']:<8g} "
+                  f"best C={r['best_c_index']:.4f} @ epoch "
+                  f"{r['best_epoch']}")
+    return board
 
-    board = run_hyperparameter_sweep(
+
+def _sweep_on_rank(device, args, cfg, table, rnaseq_csv, seeds, lrs):
+    """The CLI's sweep on this process's ``device``, on a fold mesh of
+    ``--sweep-mesh`` ranks when it is larger than 1 (module level: the
+    spawned ranks run it)."""
+    from ..utils import parse_hu_window
+
+    mesh = (make_fold_mesh(args.sweep_mesh, device=device)
+            if args.sweep_mesh > 1 else None)
+    return run_hyperparameter_sweep(
         cfg, table, rnaseq_csv=rnaseq_csv, seeds=seeds, learning_rates=lrs,
-        fold=args.fold, backbone=args.backbone,
+        fold=args.fold, mesh=mesh, backbone=args.backbone,
         dtype=torch.bfloat16 if args.bf16 else None, remat=args.remat,
         num_epochs=args.epochs, results_dir=args.results_dir,
         use_pallas_resample=args.pallas_resample,
-        hu_window=parse_hu_window(args.hu_window), device=args.device)
-    print(f"\n{cfg.display_name} sweep — top candidates:")
-    for r in board[:10]:
-        print(f"  seed={r['seed']:<4d} lr={r['learning_rate']:<8g} "
-              f"best C={r['best_c_index']:.4f} @ epoch {r['best_epoch']}")
-    return board
+        hu_window=parse_hu_window(args.hu_window), device=device)
 
 
 if __name__ == "__main__":

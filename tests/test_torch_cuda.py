@@ -756,3 +756,65 @@ def test_prefetcher_on_pinned_memory_and_a_side_stream(cuda_device):
         for k, v in host.items():
             assert batch[k].device.type == "cuda"
             assert torch.equal(batch[k].cpu(), torch.from_numpy(v[i]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.2], ids=["no_dropout",
+                                                     "dropout"])
+def test_remat_fused_step_matches_plain_on_card(cuda_device, dropout):
+    """One train-mode step of DenseNet121-3D (fused_bn1, 2 x 64x64x32)
+    recomputing its dense layers (``remat=True``) against the same step
+    without: the loss and the running stats bit-equal (the forward is the
+    same launches); the whole gradient no further from the plain step's
+    (``||d|| / ||g||`` over every parameter) than twice the plain step's
+    own repeat (cuDNN's backward does not repeat bit for bit, and a
+    gradient that cancels, norm0's, moves by 5-7 % of itself between two
+    plain steps on an H100); and the kernels launched as the JAX jaxpr of
+    ``jax.grad`` of
+    ``DenseNet121_3D(remat=True, fused_bn1=True)`` holds ``pallas_call``s
+    (``tests/test_torch_remat.py`` counts them): ``moments`` and ``apply``
+    61 + 58 times (every stage, then each dense layer's recompute),
+    ``bwd_reduce`` and ``bwd_dx`` 61. The dense layers' dropout keeps the
+    trunk in standard layout, so the fused stages run with it off."""
+    from multimodal_survival_prediction_tpu_torch.models import (
+        DenseNet121_3D,
+    )
+    from multimodal_survival_prediction_tpu_torch.models.layers import (
+        set_dropout_generator,
+    )
+
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(2, 64, 64, 32, 1)).astype(np.float32)).to(cuda_device)
+    runs = {}
+    for remat in (False, True, False):
+        model = DenseNet121_3D(
+            out_features=8, fused_bn1=dropout == 0.0, dropout=dropout,
+            remat=remat,
+            generator=torch.Generator().manual_seed(0)).to(cuda_device)
+        set_dropout_generator(model, torch.Generator(
+            device=cuda_device).manual_seed(5))
+        fd.reset_launches()
+        loss = (model.train()(x) ** 2).sum()
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        runs.setdefault(remat, []).append(
+            (loss, grads, model.state_dict(),
+             [k.launches for k in fd.KERNELS]))
+    (loss0, g0, sd0, n0), (_, g2, _, _) = runs[False]
+    ((loss1, g1, sd1, n1),) = runs[True]
+
+    def gap(a, b):
+        return float(torch.stack([(x - y).norm() for x, y in zip(a, b)])
+                     .norm() / torch.stack([y.norm() for y in b]).norm())
+
+    assert torch.equal(loss1, loss0)
+    assert gap(g1, g0) <= 2 * gap(g2, g0)
+    for k, v in sd0.items():
+        assert torch.equal(sd1[k], v), k
+    stages = sum(model.block_config) + len(model.block_config) - 1
+    layers = sum(model.block_config)
+    if dropout == 0.0:
+        assert n0 == [stages] * 4
+        assert n1 == [stages + layers, stages + layers, stages, stages]
+    else:
+        assert n0 == n1 == [0] * 4

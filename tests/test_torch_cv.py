@@ -466,7 +466,6 @@ def test_resume_is_bit_equal(cohort, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("option,item", [
     (dict(aot_cache_dir="aot"), "Queue 1 item 12"),
-    (dict(remat=True), "Queue 1 item 16"),
 ])
 def test_driver_refuses_what_is_not_ported(tmp_path, option, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -532,9 +531,7 @@ def test_cli_profile_dir_writes_a_trace(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--fold-parallel", "2"], "Queue 1 item 17"),
     (["--fold-dp", "2"], "--fold-dp needs --fold-parallel N with N > 1"),
-    (["--remat"], "Queue 1 item 16"),
     (["--aot-cache", "aot"], "Queue 1 item 12"),
 ], ids=lambda v: v[0] if isinstance(v, list) else None)
 def test_cli_refuses_what_is_not_ported(tmp_path, flag, item):

@@ -514,11 +514,11 @@ CFG = dataclasses.replace(PARTIAL_MODALITY, image_shape=IMAGE_SHAPE,
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(mesh=object()), "Queue 1 item 17"),
     (dict(aot_cache_dir="aot"), "Queue 1 item 12"),
-    (dict(remat=True), "Queue 1 item 16"),
 ])
 def test_driver_refuses_what_is_not_ported(tmp_path, option, item):
+    """Only the AOT cache is refused; the fold mesh and remat run
+    (tests/test_torch_fold_mesh.py, tests/test_torch_remat.py)."""
     with pytest.raises(NotImplementedError, match=item):
         cv_parallel.run_cross_validation_parallel(
             CFG, [], results_dir=tmp_path, models_dir=tmp_path,
@@ -528,9 +528,12 @@ def test_driver_refuses_what_is_not_ported(tmp_path, option, item):
 
 @pytest.mark.parametrize("n,dp", [(2, 1), (4, 2), (None, 2)])
 def test_fold_mesh_is_one_device(n, dp):
+    """Without a process group the fold mesh is the one device (None);
+    more devices need the ranks' group (tests/test_torch_fold_mesh.py
+    builds meshes on gloo ranks)."""
     assert cv_parallel.make_fold_mesh() is None
     assert cv_parallel.make_fold_mesh(1) is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
+    with pytest.raises(RuntimeError, match="process group"):
         cv_parallel.make_fold_mesh(n, data_parallel=dp)
 
 
@@ -588,9 +591,8 @@ def test_cli_fold_parallel_end_to_end_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,raises,match", [
-    (["--fold-parallel", "2"], NotImplementedError, "Queue 1 item 17"),
-    (["--fold-parallel", "4", "--fold-dp", "2"], NotImplementedError,
-     "Queue 1 item 17"),
+    (["--fold-parallel", "3", "--fold-dp", "2"], ValueError,
+     "3 devices not divisible by data=2"),
     (["--fold-parallel", "1", "--fold-dp", "2"], SystemExit,
      "--fold-dp needs --fold-parallel N with N > 1"),
     (["--fold-parallel", "1", "--mesh", "2"], SystemExit,
@@ -602,8 +604,6 @@ def test_cli_fold_parallel_end_to_end_on_cpu(tmp_path, capsys):
      "mutually exclusive"),
     (["--fold-parallel", "1", "--sharded-risk-set"], SystemExit,
      "mutually exclusive"),
-    (["--fold-parallel", "1", "--remat"], NotImplementedError,
-     "Queue 1 item 16"),
 ], ids=lambda v: "_".join(v) if isinstance(v, list) else None)
 def test_cli_fold_parallel_refusals(tmp_path, flags, raises, match):
     with pytest.raises(raises, match=match):

@@ -278,15 +278,6 @@ def test_sweep_cli_refuses_what_jax_refuses(tmp_path, flag):
     assert not (tmp_path / "data").exists()
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--sweep-mesh", "2"], "Queue 1 item 17"),
-    (["--remat"], "Queue 1 item 16")], ids=lambda v: v[0] if isinstance(
-        v, list) else None)
-def test_sweep_refuses_what_is_not_ported(tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        sweep.main(_argv(tmp_path, *flag))
-
-
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs no CUDA")
 def test_sweep_defaults_to_cuda(tmp_path):
     cfg = ALL_CONFIGS["rnaseq_only"]
