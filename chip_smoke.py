@@ -230,7 +230,31 @@ result then):
      torch.cuda.max_memory_allocated each; the fused kernels' launches a
      step with remat = the JAX jaxpr's pallas_call count (moments and
      apply at 61 + 58, bwd_reduce and bwd_dx at 61).
-  15. summary: one JSON line of per-kernel numbers, then the final line
+  14c. fused_bn1 with dropout: DenseNet121-3D(fused_bn1=True, dropout=0.2)
+     at full width (batch 8, 64x64x32), fused against unfused from the
+     same weights, input and dropout uniforms: step 1's loss within 1e-5
+     relative (phase 8's limit), each fused kernel once a stage on the
+     fused side and never on the unfused one, the whole gradient's gap
+     printed beside phase 8's; then two folds in one vmap(grad_and_value)
+     step, each fold's loss held alike and the kernels launched once a
+     stage and a fold.
+  15. the serving demo: python -m ...demo_e2e --device cuda at full width
+     (DenseNet121-3D 64x64x32, 5,005 genes, 2 folds x 1 epoch, requests
+     of 8) on the phase-4 cohort in a fresh process: its artifacts
+     (serving_summary.json with JAX's keys), each served risk against
+     predict_risk's per-fold log-hazards z-scored by calibration.json
+     (RISK_TOL on the log-hazard), the figure-skip line where matplotlib
+     is missing; prints the demo's walls (train, calibrate, serve,
+     evaluate). It reaches no hand-written kernel (plain ingest, as JAX's).
+  16. the kernel-build cache (io/aot_cache.py): two fresh processes
+     (python3 chip_smoke.py --cache-worker ...) share one empty cache
+     directory; each loads the seven nvcc libraries through it, launches
+     each kernel once against its plain version and runs the CV CLI with
+     --aot-cache --pallas-resample for one epoch of two folds. The first
+     reports compile (seven nvcc), the second cache (no nvcc); ingest
+     arrays, step-1 losses and kernel outputs bit-equal between the two;
+     the miss's and the hit's seconds.
+  17. summary: one JSON line of per-kernel numbers, then the final line
      {"ok": true, "device": {...}}.
 
 Everything it writes goes under build/ in this checkout (kernel build,
@@ -4039,6 +4063,462 @@ def phase_remat(table, paths, rna_dim, smi="", device="cuda",
 
 
 
+# --------------------------------------------------------------------------
+# 14c: fused_bn1 with dropout (the dense layer's dropout keeps the trunk's
+#      memory layout), one step and the stacked vmap step
+# --------------------------------------------------------------------------
+
+DROPOUT_P = 0.2
+
+
+def phase_dropout(smi="", device="cuda", image_shape=(64, 64, 32),
+                  block_config=None, batch=8, phase8=None,
+                  expect_launches=True):
+    """14c: ``DenseNet121_3D(fused_bn1=True, dropout=0.2)`` at full width
+    (it raised before: the dropout's output left the trunk out of
+    channels_last_3d), fused against unfused from the same weights, input
+    and dropout uniforms: step 1's loss within FIRST_LOSS_RTOL (phase 8's
+    first-step limit), each fused kernel launched once a stage on the
+    fused side and never on the unfused one; the whole gradient's
+    ||fused - unfused|| / ||unfused|| printed beside phase 8's (dropout 0;
+    not held there either). Then the same two folds (weights seeded 0 and
+    1, half the batch each) in one ``vmap(grad_and_value)`` step, as the
+    fold-parallel driver steps them: each fold's loss held alike, the fused
+    kernels launched once a stage and a fold (the op's vmap rule runs each
+    fold's rows on its own)."""
+    import torch
+    from torch.func import functional_call, grad_and_value, vmap
+
+    from multimodal_survival_prediction_tpu_torch.models import (
+        DenseNet121_3D,
+    )
+    from multimodal_survival_prediction_tpu_torch.models.layers import (
+        dropout_uniforms,
+    )
+    from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
+    from multimodal_survival_prediction_tpu_torch.train.cv_parallel import (
+        no_vmap_fallback,
+    )
+
+    kw = {} if block_config is None else {"block_config": block_config}
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+
+    def make(fused, seed=0):
+        return DenseNet121_3D(dropout=DROPOUT_P, fused_bn1=fused,
+                              generator=torch.Generator().manual_seed(seed),
+                              **kw).to(device).train()
+
+    gen = torch.Generator().manual_seed(14)
+    x = torch.randn((batch, *image_shape, 1), generator=gen).to(device)
+    shapes = []  # the dropouts' uniforms: shapes from a forward that draws
+
+    def record(t):  # nothing, then one seeded draw each
+        shapes.append(tuple(t.shape))
+        return torch.ones(t.shape, device=t.device)
+
+    with torch.no_grad(), dropout_uniforms(record):
+        make(False)(x)
+    ugen = torch.Generator(device=device).manual_seed(15)
+    uniforms = [torch.rand(s, generator=ugen, device=device) for s in shapes]
+    blocks = make(False).block_config
+    stages = sum(blocks) + len(blocks) - 1
+
+    def step(fused):
+        model = make(fused)
+        feed = iter(uniforms)
+        fd.reset_launches()  # this step's counts start here
+        t0 = time.perf_counter()
+        with dropout_uniforms(lambda t: next(feed)):
+            # a loss of one sign, as phase 8's Cox loss, so that its
+            # relative difference is not inflated by cancellation
+            loss = (model(x).float() ** 2).mean()
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        sync()
+        launches = [k.launches for k in fd.KERNELS]  # ... and are read here
+        names = [n for n, _ in model.named_parameters()]
+        return (loss.item(), dict(zip(names, (g.float() for g in grads))),
+                launches, time.perf_counter() - t0)
+
+    (lf, gf, nf, wf), (lu, gu, nu, wu) = step(True), step(False)
+    rel = abs(lf - lu) / max(abs(lu), 1e-12)
+    gap = _grad_gap_whole(gf, gu)
+    want = [stages] * 4 if expect_launches else [0] * 4
+    check(rel <= FIRST_LOSS_RTOL,
+          f"dropout {DROPOUT_P}: step-1 loss fused {lf} vs unfused {lu}: "
+          f"rel {rel:.3e} > {FIRST_LOSS_RTOL}")
+    check(nf == want and nu == [0] * 4,
+          f"dropout {DROPOUT_P}: fused kernel launches {nf} (fused) and "
+          f"{nu} (unfused), expected {want} and none")
+    check(math.isfinite(gap), f"dropout {DROPOUT_P}: gradient gap {gap}")
+
+    # the stacked step: fold k = weights seeded k, the batch's k-th half
+    half = batch // 2
+    xs = x.view(2, half, *x.shape[1:])
+    us = [u.view(2, half, *u.shape[1:]) for u in uniforms]
+
+    def stacked(fused):
+        models = [make(fused, seed=k) for k in range(2)]
+        template = models[0]
+        params = {n: torch.stack([dict(m.named_parameters())[n].detach()
+                                  for m in models])
+                  for n, _ in template.named_parameters()}
+        buffers = {n: torch.stack([dict(m.named_buffers())[n]
+                                   for m in models])
+                   for n, _ in template.named_buffers()}
+
+        def fold_loss(p, b, xx, uu):
+            feed = iter(uu)
+            with dropout_uniforms(lambda t: next(feed)):
+                return (functional_call(template, (p, b), (xx,)).float()
+                        ** 2).mean()
+
+        fd.reset_launches()  # this step's counts start here
+        t0 = time.perf_counter()
+        with no_vmap_fallback():
+            _, loss = vmap(grad_and_value(fold_loss))(params, buffers, xs,
+                                                      us)
+        sync()
+        return (loss.tolist(), [k.launches for k in fd.KERNELS],
+                time.perf_counter() - t0)
+
+    (vf, nvf, wvf), (vu, nvu, wvu) = stacked(True), stacked(False)
+    vrel = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(vf, vu)]
+    vwant = [2 * stages] * 4 if expect_launches else [0] * 4
+    check(all(r <= FIRST_LOSS_RTOL for r in vrel),
+          f"dropout {DROPOUT_P}, vmapped folds: losses fused {vf} vs "
+          f"unfused {vu}: rel {vrel} > {FIRST_LOSS_RTOL}")
+    check(nvf == vwant and nvu == [0] * 4,
+          f"dropout {DROPOUT_P}, vmapped folds: fused kernel launches "
+          f"{nvf} (fused) and {nvu} (unfused), expected {vwant} and none")
+    ref = "" if phase8 is None else (
+        f" (phase 8, dropout 0: {phase8['grad_gap_all']:.3e})")
+    log(f"fused_bn1 with dropout {DROPOUT_P} ({smi}): DenseNet121-3D "
+        f"{tuple(image_shape)} batch {batch}, {stages} fused stages; step 1 "
+        f"loss fused {lf:.7f} vs unfused {lu:.7f}, rel {rel:.3e} (tol "
+        f"{FIRST_LOSS_RTOL}); whole gradient ||d|| / ||unfused|| "
+        f"{gap:.3e}{ref}, not held; fused launches {nf}; walls s "
+        f"{wf:.2f} / {wu:.2f}. vmapped 2 folds x {half}: losses rel "
+        f"{['%.2e' % r for r in vrel]}, fused launches {nvf}; walls s "
+        f"{wvf:.2f} / {wvu:.2f}")
+    return dict(loss_rel=rel, grad_gap_all=gap, launches=nf,
+                vmap_loss_rel=vrel, vmap_launches=nvf)
+
+
+# --------------------------------------------------------------------------
+# 15: the serving demo (demo_e2e.py) on the phase-4 cohort
+# --------------------------------------------------------------------------
+
+DEMO_ARGS = ("--backbone", "densenet121", "--image-shape", "64,64,32",
+             "--n-folds", "2", "--epochs", "1", "--serve-batch", "8")
+# JAX scripts/serving/demo_e2e.py's serving_summary.json keys
+DEMO_SUMMARY_KEYS = ["model", "n_holdout", "n_http_requests",
+                     "holdout_c_index", "logrank_p", "serve_seconds",
+                     "folds", "backbone"]
+FIGURES_SKIPPED = "skipped: matplotlib is not installed"
+
+
+def phase_demo(work, paths, smi="", device="cuda", demo_args=DEMO_ARGS):
+    """15: ``python -m multimodal_survival_prediction_tpu_torch.demo_e2e
+    --device cuda`` at full width on the phase-4 cohort (5,005 genes;
+    DenseNet121-3D at 64x64x32, 2 folds x 1 epoch, requests of 8): the
+    CV driver trains, the training cohort calibrates, the holdout is
+    served over HTTP. Its artifacts are checked (the predictions CSV, the
+    calibration, evaluation_summary.json, serving_summary.json with JAX's
+    keys); each served risk against predict_risk's per-fold log-hazards
+    on the holdout, z-scored by calibration.json and averaged: within
+    RISK_TOL on the log-hazard, carried through the z-score (phase 10's
+    rule). Without matplotlib (this machine) the figure-skip line must be
+    printed; with it, the three PNGs must exist. The demo reaches no
+    hand-written kernel (its ingest is the plain resample, as JAX's).
+    Returns the walls the demo printed and the check's numbers."""
+    import dataclasses
+    import importlib.util
+
+    import numpy as np
+
+    from multimodal_survival_prediction_tpu_torch.config import ALL_CONFIGS
+    from multimodal_survival_prediction_tpu_torch.data.matching_table import (
+        load_matching_table,
+    )
+    from multimodal_survival_prediction_tpu_torch.demo_e2e import (
+        PREDICTION_COLUMNS,
+        holdout_split,
+    )
+    from multimodal_survival_prediction_tpu_torch.preprocess.tables import (
+        read_table,
+    )
+    from multimodal_survival_prediction_tpu_torch.train.predict import (
+        predict_risk,
+    )
+
+    out, models = work / "demo_out", work / "demo_models"
+    argv = [sys.executable, "-m",
+            "multimodal_survival_prediction_tpu_torch.demo_e2e", "--device",
+            device, "--data-root", str(paths["root"]), "--models-dir",
+            str(models), "--out-dir", str(out), *demo_args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True,
+                          timeout=900, check=False)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"demo_e2e exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    summary = json.loads(lines[-1])
+    walls = json.loads(next(ln for ln in lines if ln.startswith(
+        "[demo] walls s "))[len("[demo] walls s "):])
+    on_disk = json.loads((out / "serving_summary.json").read_text())
+    check(list(on_disk) == DEMO_SUMMARY_KEYS and on_disk == summary,
+          f"serving_summary.json {on_disk} (keys {DEMO_SUMMARY_KEYS})")
+    ev = json.loads((out / "evaluation" / "evaluation_summary.json")
+                    .read_text())
+    check(ev["n_patients"] == summary["n_holdout"] >= 4,
+          f"evaluation of {ev['n_patients']} patients, "
+          f"{summary['n_holdout']} served")
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    pngs = sorted(p.name for p in (out / "evaluation").glob("*.png"))
+    if has_mpl:
+        check(len(pngs) == 3, f"figures {pngs}")
+    else:
+        check(FIGURES_SKIPPED in proc.stderr and not pngs,
+              f"no matplotlib here: the figure-skip line is missing "
+              f"({pngs})")
+
+    pred = read_table(out / "serving_predictions.csv")
+    check(pred.columns == list(PREDICTION_COLUMNS),
+          f"serving_predictions.csv columns {pred.columns}")
+    served = dict(zip(map(str, pred.column("patient_id")),
+                      pred.column("risk_score")))
+    cal = json.loads((out / "calibration.json").read_text())
+    mu = np.asarray([m for m, _ in cal["stats"]])
+    sd = np.asarray([s for _, s in cal["stats"]]) + 1e-8
+    image_shape = tuple(int(v) for v in
+                        demo_args[list(demo_args).index("--image-shape") + 1]
+                        .split(","))
+    cfg = dataclasses.replace(ALL_CONFIGS["partial_modality"], n_folds=2,
+                              image_shape=image_shape)
+    _, hold = holdout_split(load_matching_table(paths["matching_table"]),
+                            0.25)
+    per_fold = [predict_risk(cfg, c, hold, rnaseq_csv=paths["rnaseq_csv"],
+                             device=device) for c in cal["checkpoints"]]
+    ids = [str(p) for p in per_fold[0]["patient_id"]]
+    raw = np.stack([p["risk_score"] for p in per_fold]).astype(np.float64)
+    want = ((raw - mu[:, None]) / sd[:, None]).mean(axis=0)
+    check(set(served) <= set(ids) and len(served) == summary["n_holdout"],
+          f"served {sorted(served)} of the holdout {ids}")
+    d = np.asarray([abs(served[p] - want[ids.index(p)]) for p in served])
+    per_raw = float(np.mean(1.0 / sd))
+    limit = RISK_TOL * per_raw
+    check(np.all(np.isfinite(d)) and float(d.max()) <= limit,
+          f"served risks vs predict_risk's calibrated ensemble: max |d| "
+          f"{d.max()} > {limit} (RISK_TOL {RISK_TOL} x mean(1/sd), fold sds "
+          f"{sd.tolist()})")
+    log(f"demo_e2e ({smi}): wall {wall:.2f} s in a fresh process "
+        f"(train {walls['train']:.2f}, calibrate {walls['calibrate']:.2f}, "
+        f"serve {walls['serve']:.2f}, evaluate {walls['evaluate']:.2f}); "
+        f"{summary['n_holdout']} holdout patients in "
+        f"{summary['n_http_requests']} /score_batch requests, holdout "
+        f"C-index {summary['holdout_c_index']:.4f}; served vs predict_risk "
+        f"calibrated ensemble max |d| {d.max():.3e} ({d.max() / per_raw:.3e} "
+        f"on the log-hazard, limit {limit:.3e}); figures "
+        + (f"{pngs}" if has_mpl else "skipped (no matplotlib), line printed"))
+    return dict(wall_s=wall, walls=walls, summary=summary,
+                max_d=float(d.max()), limit=limit)
+
+
+# --------------------------------------------------------------------------
+# 16: the kernel-build cache (io/aot_cache.py): two fresh processes, one
+#     cache directory
+# --------------------------------------------------------------------------
+
+CACHE_VOLUME = (40, 48, 56)  # the W-pass's volume, int16
+CACHE_FUSED = (2048, 96, 64)  # the fused kernels' (N, C, F)
+
+
+def _each_kernel_once(device="cuda"):
+    """Every kernel of the port launched once against its plain version:
+    the CT resample through the W-pass on a ``CACHE_VOLUME`` int16 volume
+    (RESAMPLE_TOL), the four fused kernels at ``CACHE_FUSED`` in float32
+    (phase 7's limits) and in bf16 (phase 7b's). Returns the kernels'
+    outputs (CPU tensors, by kernel) and the max |d| by kernel."""
+    import torch
+
+    from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
+    from multimodal_survival_prediction_tpu_torch.ops import resample as rs
+
+    gen = torch.Generator(device=device).manual_seed(16)
+    vol = _volume(CACHE_VOLUME, torch.int16, gen, device)
+    got = rs.resample_normalize_cuda(vol, (64, 64, OUT_W), device=device)
+    want = rs.resample_normalize(vol, (64, 64, OUT_W), device=device)
+    errs = {"resample_wpass": float((got - want).abs().max())}
+    check(errs["resample_wpass"] <= RESAMPLE_TOL,
+          f"W-pass resample max |d| {errs['resample_wpass']}")
+    outputs = {"resample_wpass": [got.cpu()]}
+    x, gamma, beta, w, g = _fused_inputs(*CACHE_FUSED, device, gen)
+    n = CACHE_FUSED[0]
+    for dtype, tag in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        xc, wc, gc_ = x.to(dtype), w.to(dtype), g.to(dtype)
+        held = _held_bf16 if tag else (lambda name, a, b: _held(
+            name, a, b, FUSED_FWD_RTOL if "apply" in name else
+            FUSED_GRAD_RTOL))
+        s, sq = fd.moments(xc)
+        ps, psq = fd.moments_plain(xc)
+        # fd._stats from these moments (it would launch moments again)
+        mean = s / n
+        rstd = torch.rsqrt((sq / n - mean * mean).clamp_min(0.0) + 1e-5)
+        mul = rstd * gamma
+        add = beta - mean * mul
+        out = fd.apply(xc, mul, add, wc)
+        red = fd.bwd_reduce(xc, gc_, wc, mul, add, mean, rstd)
+        pred = fd.bwd_reduce_plain(xc, gc_, wc, mul, add, mean, rstd)
+        c1, c2 = pred[2] / n, pred[1] / n
+        dx = fd.bwd_dx(xc, gc_, wc, mul, add, mean, rstd, c1, c2)
+        errs[f"moments{tag}"] = max(
+            _held(f"moments{tag}", s, ps, FUSED_FWD_RTOL),
+            _held(f"moments{tag} sumsq", sq, psq, FUSED_FWD_RTOL))
+        errs[f"apply{tag}"] = held(f"apply{tag}", out,
+                                   fd.apply_plain(xc, mul, add, wc))
+        errs[f"bwd_reduce{tag}"] = max(
+            _held(f"bwd_reduce{tag} {part}", a, b, FUSED_GRAD_RTOL)
+            for part, a, b in zip(("dW", "dgamma", "dbeta"), red, pred))
+        errs[f"bwd_dx{tag}"] = held(
+            f"bwd_dx{tag}", dx,
+            fd.bwd_dx_plain(xc, gc_, wc, mul, add, mean, rstd, c1, c2))
+        outputs[f"fused{tag}"] = [t.cpu() for t in (s, sq, out, *red, dx)]
+    return outputs, errs
+
+
+def cache_worker(cache_dir, data_root, work, out_path):
+    """One fresh process of phase 16 (``python3 chip_smoke.py
+    --cache-worker CACHE DATA_ROOT WORK OUT``): every nvcc library loaded
+    through the cache in CACHE (built where it is missing), each kernel
+    launched once against its plain version, then the partial_modality
+    CLI with ``--aot-cache CACHE --pallas-resample`` for one epoch of two
+    folds on DATA_ROOT. Every nvcc this process runs is recorded. Writes
+    the cache's report, the nvcc runs, the kernels' outputs and launches,
+    the ingest arrays and each fold's step-1 loss to OUT
+    (``torch.save``)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from multimodal_survival_prediction_tpu_torch.io import aot_cache
+    from multimodal_survival_prediction_tpu_torch.ops import _build
+    from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
+    from multimodal_survival_prediction_tpu_torch.ops import resample as rs
+    from multimodal_survival_prediction_tpu_torch.train import (
+        partial_modality_training as pmt,
+    )
+
+    phase_device()
+    compiles, real = [], subprocess.run
+
+    def spy(cmd, *a, **k):  # every process the build module starts
+        compiles.append(str(cmd[0]))
+        return real(cmd, *a, **k)
+
+    _build.subprocess.run = spy
+    aot_cache.use(cache_dir)
+    builds = (("resample_wpass.cu", ()), *fd.BUILDS)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(builds)) as pool:
+        infos = list(pool.map(lambda b: _build.build(*b)[1], builds))
+    load_s = time.perf_counter() - t0
+    rs.wpass.launches = 0  # the kernels' counts start here
+    fd.reset_launches()
+    outputs, errs = _each_kernel_once()
+    torch.cuda.synchronize()
+    launches = {"resample_wpass": rs.wpass.launches,
+                **{f"fused_dense_{n}": k.launches
+                   for n, k in zip(FUSED_NAMES, fd.KERNELS)},
+                **{f"fused_dense_{n}_bf16": k.launches_bf16
+                   for n, k in zip(FUSED_NAMES, fd.KERNELS)}}  # ... read
+    argv = ["--data-root", str(data_root), "--results-dir",
+            str(Path(work) / "results"), "--models-dir",
+            str(Path(work) / "models"), "--pallas-resample", "--n-folds", "2",
+            "--epochs", "1", "--device", "cuda", "--aot-cache",
+            str(cache_dir)]
+    run = _drive_cli(pmt.main, argv, "cuda")
+    torch.save(dict(
+        report=aot_cache.report(), libraries=[i["path"] for i in infos],
+        nvcc=[c for c in compiles if Path(c).name == "nvcc"], load_s=load_s,
+        outputs=outputs, errs=errs, launches=launches,
+        arrays={k: np.asarray(v) for k, v in run["arrays"].arrays.items()},
+        step1=[e[2][0] for e in run["epochs"]],
+        ingest_launches=run["ingest_launches"], cli_wall_s=run["wall_s"]),
+        out_path)
+    return 0
+
+
+def phase_cache(work, paths, smi="", device="cuda"):
+    """16: two fresh processes (``cache_worker``) share one empty cache
+    directory. The first must report every library as ``compile`` and run
+    nvcc once for each; the second ``cache`` for each, under the same keys
+    and paths, with no nvcc run. Each launches every kernel once against
+    its plain version and runs the CV CLI with ``--aot-cache
+    --pallas-resample`` (W-pass launches = imaging patients); the ingest
+    arrays, each fold's step-1 loss and the kernels' outputs must be
+    bit-equal between the two. Returns both processes' numbers."""
+    import numpy as np
+    import torch
+
+    cache = work / "aot_cache"
+    runs = []
+    for i in (1, 2):
+        out = work / f"cache_worker_{i}.pt"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--cache-worker",
+             str(cache), str(paths["root"]), str(work / f"cache_run_{i}"),
+             str(out)], cwd=ROOT, capture_output=True, text=True,
+            timeout=900, check=False)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"cache worker {i} exited "
+              f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        runs.append(dict(torch.load(out, weights_only=False), wall_s=wall))
+    a, b = runs
+    libs = sorted(a["report"])
+    check(len(libs) == 7 and sorted(b["report"]) == libs,
+          f"libraries through the cache: {libs} and {sorted(b['report'])}")
+    for lib in libs:
+        ra, rb = a["report"][lib], b["report"][lib]
+        check(ra["source"] == "compile" and rb["source"] == "cache"
+              and ra["key"] == rb["key"] and ra["path"] == rb["path"]
+              and Path(ra["path"]).parent == cache / ra["key"],
+              f"{lib}: first process {ra}, second {rb}")
+    check(len(a["nvcc"]) == 7 and b["nvcc"] == [],
+          f"nvcc runs: first process {len(a['nvcc'])}, second "
+          f"{len(b['nvcc'])}")
+    check(a["launches"] == b["launches"] and all(
+        v == 1 for v in a["launches"].values()),
+          f"each kernel once: {a['launches']} and {b['launches']}")
+    check(a["arrays"].keys() == b["arrays"].keys() and all(
+        np.array_equal(a["arrays"][k], b["arrays"][k], equal_nan=True)
+        for k in a["arrays"]), "the two processes' ingest arrays differ")
+    check(a["step1"] == b["step1"] and len(a["step1"]) == 2,
+          f"step-1 losses {a['step1']} and {b['step1']}")
+    for k in a["outputs"]:
+        check(all(torch.equal(x, y) for x, y in zip(a["outputs"][k],
+                                                     b["outputs"][k])),
+              f"{k}: the two processes' kernel outputs differ")
+    check(a["ingest_launches"] == b["ingest_launches"] > 0,
+          f"W-pass launches in the ingests {a['ingest_launches']} and "
+          f"{b['ingest_launches']}")
+    log(f"kernel-build cache ({smi}): 7 libraries; first process "
+        f"{a['wall_s']:.2f} s (libraries built in {a['load_s']:.2f} s, "
+        f"{len(a['nvcc'])} nvcc), second {b['wall_s']:.2f} s (loaded in "
+        f"{b['load_s']:.2f} s, no nvcc); CV CLI walls {a['cli_wall_s']:.2f} "
+        f"/ {b['cli_wall_s']:.2f} s with {a['ingest_launches']} W-pass "
+        f"launches each; ingest arrays, step-1 losses {a['step1']} and "
+        f"every kernel's output bit-equal; kernels vs plain max |d| "
+        f"{ {k: float('%.3e' % v) for k, v in a['errs'].items()} }")
+    return dict(miss_s=a["wall_s"], hit_s=b["wall_s"], build_s=a["load_s"],
+                load_s=b["load_s"], launches=a["launches"],
+                ingest_launches=[a["ingest_launches"], b["ingest_launches"]],
+                errs=a["errs"])
+
+
 def main() -> int:
     import torch
 
@@ -4093,6 +4573,9 @@ def main() -> int:
         meshes = timed("14a fold mesh", phase_fold_mesh, work, table, paths,
                        n_img, cv_par, smi=smi)
         remat = timed("14b remat", phase_remat, table, paths, 5005, smi=smi)
+        dropout = timed("14c dropout", phase_dropout, smi=smi, phase8=train)
+        demo = timed("15 demo", phase_demo, work, paths, smi=smi)
+        cache = timed("16 cache", phase_cache, work, paths, smi=smi)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4131,7 +4614,9 @@ def main() -> int:
             "fold_mesh_ingest_by_rank": {
                 k: v["ingest_launches"] for k, v in meshes.items()},
             "fold_mesh_predict_risk": {
-                k: v["predict_launches"] for k, v in meshes.items()}},
+                k: v["predict_launches"] for k, v in meshes.items()},
+            "aot_cache_workers": [cache["launches"]["resample_wpass"]] * 2,
+            "aot_cache_cv_ingest": cache["ingest_launches"]},
         "kernel_ms": timing["kernel_ms"],
         "call_ms": timing["call_ms"],
         "bound_us": timing["bound_ms"] * 1e3,
@@ -4163,7 +4648,13 @@ def main() -> int:
                 "remat_train": {
                     k: dict(zip(FUSED_NAMES, v["launches_remat"]))[name]
                     for k, v in remat.items() if k.startswith("fused")},
-                "remat_train_steps": 3},
+                "remat_train_steps": 3,
+                "dropout_step": dict(zip(FUSED_NAMES,
+                                         dropout["launches"]))[name],
+                "dropout_vmapped_step": dict(zip(
+                    FUSED_NAMES, dropout["vmap_launches"]))[name],
+                "aot_cache_workers":
+                    [cache["launches"][f"fused_dense_{name}"]] * 2},
             "call_ms": t["call_ms"],
             "timed_shape": t["shape"],
             "bound_cuda_core_ms": t["bound_cuda_core_ms"],
@@ -4190,7 +4681,9 @@ def main() -> int:
             "launches_by_path": {
                 "train_bf16": bf16_launches[name],
                 "cli_bf16": sum(v["fused_bf16"][FUSED_NAMES.index(name)]
-                                for v in cli_bf16.values())},
+                                for v in cli_bf16.values()),
+                "aot_cache_workers":
+                    [cache["launches"][f"fused_dense_{name}_bf16"]] * 2},
             "call_ms": t["call_ms"],
             "timed_shape": t["shape"],
             "by_shape": t["by_shape"],
@@ -4243,6 +4736,13 @@ def main() -> int:
         log(f"remat {key} ({smi}): ms/step plain {r['ms_plain']} remat "
             f"{r['ms_remat']}; peak MiB plain {r['peak_mib_plain']} remat "
             f"{r['peak_mib_remat']}")
+    log(f"demo ({smi}): wall {demo['wall_s']:.2f} s, its split s "
+        f"{ {k: round(v, 2) for k, v in demo['walls'].items()} }; served vs "
+        f"predict_risk max |d| {demo['max_d']:.3e} (limit "
+        f"{demo['limit']:.3e})")
+    log(f"kernel-build cache ({smi}): miss {cache['miss_s']:.2f} s "
+        f"(libraries {cache['build_s']:.2f} s), hit {cache['hit_s']:.2f} s "
+        f"(libraries {cache['load_s']:.2f} s)")
     log(f"phase walls s {walls}")
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -4253,4 +4753,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cache-worker"]:  # phase 16's fresh processes
+        sys.exit(cache_worker(*sys.argv[2:]))
     sys.exit(main())

@@ -28,17 +28,26 @@ Ported: all eight model families of the JAX package (``models/``:
     ``io.msgpack``, ``io.torch_import``), with the converters and the
     ensemble calibration under ``tools/``;
   * evaluation — ``ops.km`` and ``analysis`` (``evaluate_predictions``, the
-    ``generate_km_curves`` and ``evaluate_model`` entry points);
+    ``generate_km_curves`` and ``evaluate_model`` entry points), and the
+    figures (``analysis.figures``, matplotlib where it imports) with the
+    drawing entry points ``analyze_all_results``,
+    ``comprehensive_analysis`` and ``create_report_figures``;
   * the host ingest engine (``csrc/msp_native.cpp`` via ``data.native``,
     ``resample='host'``/``'auto'`` in ``data.pipeline``), preprocessing of
-    raw DICOM and STAR files (``preprocess``), and the comparison
-    (``analysis.comparison``, ``analysis.final_comparison``, ``run_all``).
+    raw DICOM and STAR files and the matching-table and complete-cohort
+    entry points (``preprocess``), and the comparison
+    (``analysis.comparison``, ``analysis.final_comparison``, ``run_all``
+    with ``--full-analysis``);
   * multi-device training over ``torch.distributed`` (``parallel``: data
     and tensor parallelism on a (data, model) ``DeviceMesh``, multi-process
     runs; ``ops.cox_distributed``: the sharded Cox risk set), behind the
     Trainer's and the CV driver's ``mesh`` and the CLIs' ``--mesh``,
-    ``--tp``, ``--sharded-risk-set`` and ``--multihost``.
-ROADMAP.md lists what is still to come.
+    ``--tp``, ``--sharded-risk-set`` and ``--multihost``;
+  * the serving demo (``demo_e2e``: train, calibrate, serve over HTTP,
+    evaluate) and the kernel-build cache (``io.aot_cache``: the entry
+    points' ``aot_cache_dir`` and ``--aot-cache``).
+Not ported: the JAX scripts that download from the GDC and TCIA web APIs,
+and the JAX package's parity tooling.
 """
 
 __version__ = "0.1.0"

@@ -10,8 +10,8 @@ predictions CSV that ``analysis.evaluate_model`` reads:
     python -m multimodal_survival_prediction_tpu_torch.analysis.generate_km_curves \\
         --model partial_modality --models-dir models --data-root . --ensemble
 
-The KM figure (``analysis/figures.py`` in the JAX package, matplotlib) is
-not ported: this entry point logs that it skips it.
+The KM figure ``<model>_<fold|ensemble>_km.png`` needs matplotlib;
+without it one line says it was skipped.
 """
 
 from __future__ import annotations
@@ -24,9 +24,9 @@ from ..config import ALL_CONFIGS
 from ..data.matching_table import load_matching_table
 from ..train.predict import fold_checkpoint, fold_checkpoints, predict_risk
 from ..utils import parse_hu_window
+from . import load_figures
 from .evaluate import km_groups, write_predictions_csv
 
-log = logging.getLogger(__name__)
 
 
 def base_parser(desc: str) -> argparse.ArgumentParser:
@@ -70,9 +70,11 @@ def main(argv=None) -> dict:
     if args.ensemble:
         ckpt = fold_checkpoints(args.models_dir, cfg.name)
         label = "ensemble"
+        title = f"{cfg.display_name} fold ensemble ({len(ckpt)} folds)"
     else:
         ckpt = fold_checkpoint(args.models_dir, cfg.name, args.fold)
         label = f"fold{args.fold}"
+        title = f"{cfg.display_name} fold {args.fold}"
 
     pred = predict_risk(cfg, ckpt, table, rnaseq_csv=rnaseq_csv,
                         backbone=args.backbone,
@@ -81,13 +83,16 @@ def main(argv=None) -> dict:
                         device=args.device)
     hi, lo, lr = km_groups(pred)
     out_dir = Path(args.out_dir or Path(args.results_root) / "km_curves")
+    figures = load_figures(f"{cfg.name}_{label}_km.png")
+    if figures is not None:
+        figures.km_plot({"high risk": hi, "low risk": lo},
+                        out_dir / f"{cfg.name}_{label}_km.png", title=title,
+                        pvalue=lr.p_value)
     csv_path = out_dir / f"{cfg.name}_{label}_predictions.csv"
     write_predictions_csv(csv_path, pred)
     # the contract analysis.evaluate_model reads (reference evaluate_model.py)
     write_predictions_csv(Path(args.results_root) / "test_predictions.csv",
                           pred)
-    log.info("KM figure %s_%s_km.png skipped: analysis/figures.py is not "
-             "ported (ROADMAP.md Queue 1 item 11)", cfg.name, label)
     print(f"{len(pred['risk_score'])} patients; high risk {hi.at_risk[0]} "
           f"(median survival {hi.median_survival_time}), low risk "
           f"{lo.at_risk[0]} (median survival {lo.median_survival_time}); "

@@ -7,8 +7,10 @@ create_full_matching_table.py:124-134):
   patient_id, nifti_path, has_imaging, has_rnaseq, has_clinical,
   age, survival_time, survival_status, has_survival
 
-Missing numbers are ``float('nan')``. Semantics as in the JAX module,
-quirks included: age falls back to -days_to_birth/365.25; survival_time is
+Missing numbers are ``float('nan')``. The clinical CSV is read as
+``pd.read_csv`` reads it (``preprocess/tables.py``: its column types and
+its float parser), so the table's numbers are JAX's to the last bit.
+Semantics as in the JAX module, quirks included: age falls back to -days_to_birth/365.25; survival_time is
 days_to_death only (censored patients keep NaN time, so has_survival ≈
 died) unless ``use_followup``; imaging = first .nii.gz (else .nii) under
 ``<nifti_root>/<patient_id>/``; RNA membership = presence in the RNA matrix.
@@ -19,6 +21,8 @@ from __future__ import annotations
 import csv
 import math
 from pathlib import Path
+
+from ..preprocess.tables import read_table
 
 MATCHING_COLUMNS = [
     "patient_id",
@@ -111,8 +115,10 @@ def build_full_matching_table(clinical_csv, nifti_root, rnaseq_csv,
                               out_csv=None,
                               use_followup: bool = False) -> list[dict]:
     """Assemble the matching table from the three upstream artifacts."""
-    clinical = read_csv_rows(clinical_csv)
-    id_col = ("submitter_id" if clinical and "submitter_id" in clinical[0]
+    frame = read_table(clinical_csv)
+    clinical = [dict(zip(frame.columns, values)) for values in
+                zip(*(frame.column(c) for c in frame.columns))]
+    id_col = ("submitter_id" if "submitter_id" in frame.columns
               else "patient_id")
     rna_ids: set = set()
     if rnaseq_csv is not None and Path(rnaseq_csv).exists():

@@ -1,7 +1,7 @@
 """NIfTI-1 read/write in pure Python (numpy only).
 
 The port's own copy of ``multimodal_survival_prediction_tpu/data/nifti.py``
-(the C++ fast reader there is not ported). One difference: a big-endian file
+(its C++ fast reader is ``data/native.py``). One difference: a big-endian file
 yields a NATIVE-byte-order array here, because ``torch.from_numpy`` refuses
 non-native arrays and every volume this module reads goes to torch next.
 

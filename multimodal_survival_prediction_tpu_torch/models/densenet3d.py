@@ -57,6 +57,27 @@ from .layers import (
 )
 
 
+def _channels_last(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, C, D, H, W) in ``channels_last_3d`` memory: no copy where
+    it is already. Under ``torch.func.vmap`` too, which refuses
+    ``contiguous(memory_format=channels_last_3d)``: the (B, D, H, W, C)
+    permutation made contiguous puts each fold's trunk in that layout."""
+    return x.permute(0, 2, 3, 4, 1).contiguous().permute(0, 4, 1, 2, 3)
+
+
+def _unwrapped(x: torch.Tensor) -> torch.Tensor:
+    """The plain tensor under ``x``'s ``torch.func`` wrappers, one fold's
+    slice where a wrapper is vmap's: it carries the trunk's memory layout,
+    which the wrapped tensors refuse to be asked about."""
+    fc = torch._C._functorch
+    while fc.is_functorch_wrapped_tensor(x):
+        bdim = fc.maybe_get_bdim(x) if fc.is_batchedtensor(x) else -1
+        x = fc.get_unwrapped(x)
+        if bdim >= 0:
+            x = x.select(bdim, 0)
+    return x
+
+
 def _fused_stage(norm: BatchNorm, conv: nn.Conv3d,
                  x: torch.Tensor) -> torch.Tensor:
     """Train-mode ``conv(relu(norm(x)))`` for a 1x1x1 bias-free ``conv``
@@ -71,7 +92,7 @@ def _fused_stage(norm: BatchNorm, conv: nn.Conv3d,
     ``x`` (B, C, D, H, W) must be in ``channels_last_3d`` memory: its
     (B·D·H·W, C) view then shares storage, as does the output's way back."""
     b, c, d, h, w = x.shape
-    if not x.is_contiguous(memory_format=torch.channels_last_3d):
+    if not _unwrapped(x).is_contiguous(memory_format=torch.channels_last_3d):
         raise RuntimeError(
             "fused stage: the trunk is not channels_last_3d (strides "
             f"{x.stride()}); viewing it as (rows, C) would copy it")
@@ -122,8 +143,15 @@ class _DenseLayer(nn.Module):
             y = _fused_stage(m["norm1"], m["conv1"], x)
         else:
             y = m["conv1"](F.relu(m["norm1"](x)))
-        y = m["conv2"](F.relu(m["norm2"](y)))
-        return torch.cat([x, self.dropout(y)], dim=1)
+        y = self.dropout(m["conv2"](F.relu(m["norm2"](y))))
+        if fused:
+            # the trunk stays channels_last_3d for the next fused stage:
+            # concatenated as (B, D, H, W, C) rows, which vmap's 6-D
+            # tensors keep too (their cat along dim 1 comes out standard)
+            return torch.cat([x.permute(0, 2, 3, 4, 1),
+                              y.permute(0, 2, 3, 4, 1)],
+                             dim=-1).permute(0, 4, 1, 2, 3)
+        return torch.cat([x, y], dim=1)
 
 
 class _Transition(nn.Module):
@@ -224,7 +252,7 @@ class DenseNet121_3D(nn.Module):
             fuse = self.training and self._fuse_rows(
                 x.shape[0] * x[0, 0].numel())
             if fuse:  # one re-layout per block at most (avg-pool drops it)
-                x = x.contiguous(memory_format=torch.channels_last_3d)
+                x = _channels_last(x)
             for layer in f[f"denseblock{bi + 1}"].values():
                 x = layer(x, fuse)
             if bi != len(self.block_config) - 1:

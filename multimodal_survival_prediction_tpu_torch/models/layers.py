@@ -274,7 +274,14 @@ class Dropout(nn.Module):
             b = x.shape[0]
             if size > 1:
                 u = u[rank * b:(rank + 1) * b]
-        return torch.where(u >= self.p, x / (1 - self.p), 0.0)
+        # torch.where(u >= p, x / (1 - p), 0.0) bit for bit, in x's memory
+        # layout: where's output takes its condition's (the uniforms'
+        # standard one), and so does an out-of-place masked_fill, but the
+        # scaled copy keeps x's and an in-place fill keeps the copy's. The
+        # fused DenseNet stages need the concatenated trunk to stay
+        # channels_last_3d, and this keeps it without a layout query,
+        # which vmap's wrapped tensors refuse
+        return (x / (1 - self.p)).masked_fill_(u < self.p, 0.0)
 
     def extra_repr(self) -> str:
         return f"p={self.p}"

@@ -4,35 +4,46 @@ library and load it.
 Each kernel source under ``ops/csrc/`` has a plain C interface, so it builds
 with ``nvcc`` alone (seconds; no PyTorch headers, no ninja) and loads with
 ``ctypes``. The library lands in ``<repo>/build/kernels/<name>-<hash>/``
-(``.gitignore``d), keyed by the hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads the cached file. A
-source may build into several libraries, one for each set of ``-D``
-macros (``fused_dense.cu``: the float32 and, with ``MSP_FUSED_BF16``, the
-bf16 entry points of each of its three parts), each its own nvcc.
+(``.gitignore``d) beside a ``meta.json``, keyed by the hash of the source,
+the flags, the compiler (its path and the sha256 of its binary), torch's
+and CUDA's versions and the device (the card's name and compute
+capability), so an edited source, another toolkit or another card
+rebuilds and an unchanged one loads the stored file. A source may build
+into several libraries, one for each set of ``-D`` macros
+(``fused_dense.cu``: the float32 and, with ``MSP_FUSED_BF16``, the bf16
+entry points of each of its three parts), each its own nvcc.
 
 The host C++ engine (``csrc/msp_native.cpp``, ``data/native.py``) builds
 through :func:`build_host` with the host compiler and the JAX package's
-``csrc/Makefile`` flags (``-O3 -march=native``). Its hash also covers the
-compiler's version, the machine and the CPU that ``-march=native`` resolves
-to, so a library built for one CPU is never loaded on another.
+``csrc/Makefile`` flags (``-O3 -march=native``). Its key covers the host
+compiler and the CPU that ``-march=native`` resolves to (``/proc/cpuinfo``'s
+model and flags) in place of the card, so a library built for one CPU is
+never loaded on another.
+
+With a cache directory set (``io/aot_cache.py:use``, the entry points'
+``aot_cache_dir``) every library goes into ``<cache_dir>/<key>/`` instead,
+under the same key; ``io/aot_cache.py:load_or_build`` loads, checks and
+stores both kinds of entry. Working out a key runs no compiler.
 
 Nothing here runs at import time: a kernel is built on its wrapper's first
 launch (or by :func:`build`, which ``chip_smoke.py`` calls to time it).
-Each (source, macros) has its own lock, so threads building different
-libraries run their compilers side by side.
+Each (source, macros, cache directory) has its own lock, so threads
+building different libraries run their compilers side by side.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
+import functools
 import os
 import platform
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
+
+import torch
+
+from ..io import aot_cache
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -44,8 +55,8 @@ HOST_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
 _ZLIB_PROBE = "#include <zlib.h>\nint main() { return zlibVersion() == 0; }\n"
 
 _lock = threading.Lock()  # guards _source_locks
-_source_locks: dict = {}  # (source, macros) -> threading.Lock
-_loaded: dict = {}  # (source, macros) -> (ctypes.CDLL, build info dict)
+_source_locks: dict = {}  # (source, macros, cache dir) -> threading.Lock
+_loaded: dict = {}  # (source, macros, cache dir) -> (ctypes.CDLL, info)
 
 
 def _source_lock(key) -> threading.Lock:
@@ -64,43 +75,85 @@ def _nvcc() -> str:
                        "kernels build only on a machine with the toolkit")
 
 
+@functools.lru_cache(maxsize=None)
+def _binary_sha256(path: str) -> str:
+    return aot_cache.sha256_file(os.path.realpath(path))
+
+
+def _torch_fields() -> dict:
+    return {"torch": torch.__version__, "cuda": torch.version.cuda}
+
+
+def card_fields() -> dict:
+    """The current card's name and compute capability (None without
+    CUDA): what an sm_90a library is built for."""
+    if not torch.cuda.is_available():
+        return {"device": None, "capability": None}
+    i = torch.cuda.current_device()
+    return {"device": torch.cuda.get_device_name(i),
+            "capability": "%d.%d" % torch.cuda.get_device_capability(i)}
+
+
+@functools.lru_cache(maxsize=None)
+def cpu_fields() -> dict:
+    """The machine and the CPU that ``-march=native`` resolves to: the
+    first processor's model and flags in ``/proc/cpuinfo`` (the CPUID
+    bits g++ reads), or ``platform.processor()`` without it."""
+    fields = {}
+    try:
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            k, _, v = line.partition(":")
+            k = k.strip()
+            if k in ("model name", "flags") and k not in fields:
+                fields[k] = " ".join(v.split())
+            if not line.strip() and fields:
+                break
+    except OSError:
+        pass
+    return {"machine": platform.machine(),
+            "cpu": fields.get("model name") or platform.processor(),
+            "cpu_flags": fields.get("flags", "")}
+
+
 def build(source: str, macros: tuple = ()):
     """Compile ``ops/csrc/<source>`` with ``-D<macro>`` for each of
-    ``macros`` (once per source hash and flags) and load it.
+    ``macros`` (once per key: source, flags, nvcc, torch, CUDA, card) and
+    load it.
 
     Returns ``(lib, info)``: the ``ctypes.CDLL`` and a dict with the library
-    path, whether it was built now, the build seconds and nvcc's
-    ``-Xptxas -v`` report (registers, shared memory, spills)."""
-    key = (source, tuple(macros))
+    path, whether it was built now, the build seconds, nvcc's
+    ``-Xptxas -v`` report (registers, shared memory, spills) and the
+    cache's ``source`` / ``key`` / ``path``."""
+    cache = aot_cache.CACHE_DIR
+    key = (source, tuple(macros), cache)
     with _source_lock(key):
         if key in _loaded:
             return _loaded[key]
         src = CSRC / source
         flags = ARCH_FLAGS + NVCC_FLAGS + tuple(f"-D{m}" for m in macros)
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
         name = "-".join([src.stem, *(m.lower() for m in macros)])
-        out_dir = BUILD_ROOT / f"{name}-{digest}"
-        lib_path = out_dir / f"lib{name}.so"
-        log_path = out_dir / "nvcc.log"
-        info = {"library": str(lib_path), "built": False, "build_sec": 0.0}
-        if not lib_path.exists():
-            out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f".lib{name}.{os.getpid()}.so"
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *flags, "-o", str(tmp), str(src)],
-                capture_output=True, text=True, check=False)
-            info["build_sec"] = time.perf_counter() - t0
-            log_path.write_text(proc.stdout + proc.stderr)
+        nvcc = _nvcc()
+        fingerprint = {"name": name, "flags": list(flags),
+                       "compiler_path": nvcc,
+                       "compiler_sha256": _binary_sha256(nvcc),
+                       **_torch_fields(), **card_fields()}
+        code = src.read_bytes()
+
+        def compile_(out: Path, entry_dir: Path) -> dict:
+            proc = subprocess.run([nvcc, *flags, "-o", str(out), str(src)],
+                                  capture_output=True, text=True,
+                                  check=False)
+            (entry_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
             if proc.returncode != 0:
                 raise RuntimeError(
                     f"nvcc failed for {src} (rc {proc.returncode}):\n"
                     f"{proc.stderr[-4000:]}")
-            os.replace(tmp, lib_path)  # atomic: a reader never sees half
-            info["built"] = True
+            return {}
+
+        lib, info = aot_cache.load_or_build(name, code, fingerprint,
+                                            compile_, cache, BUILD_ROOT)
+        log_path = Path(info["path"]).parent / "nvcc.log"
         info["ptxas"] = log_path.read_text() if log_path.exists() else ""
-        lib = ctypes.CDLL(str(lib_path))
         _loaded[key] = (lib, info)
         return lib, info
 
@@ -142,43 +195,45 @@ def host_toolchain(cxx: str, scratch: Path) -> dict:
 
 def build_host(source: Path, name: str):
     """Compile the C++ file ``source`` with the host compiler into
-    ``build/kernels/<name>-<hash>/lib<name>.so`` (once per source hash,
-    flags and toolchain) and load it.
+    ``build/kernels/<name>-<hash>/lib<name>.so`` (or the cache's entry;
+    once per key: source, flags, compiler, torch, CUDA, machine and CPU)
+    and load it.
 
     Links zlib where it links; elsewhere builds with ``-DMSP_NO_ZLIB``.
     Returns ``(lib, info)``: the ``ctypes.CDLL`` and a dict with the library
-    path, whether it was built now, the build seconds, the compiler, the
-    machine, the ``-march=native`` CPU and ``zlib``. A failed compile
-    raises ``RuntimeError`` carrying the compiler's stderr."""
+    path, whether it was built now, the build seconds, the compiler's
+    version, the machine, the ``-march=native`` CPU, ``zlib`` and the
+    cache's ``source`` / ``key`` / ``path`` (the toolchain facts are those
+    of the build, kept in ``meta.json``). A failed compile raises
+    ``RuntimeError`` carrying the compiler's stderr."""
     source = Path(source)
-    key = ("host", str(source), name)
+    cache = aot_cache.CACHE_DIR
+    key = ("host", str(source), name, cache)
     with _source_lock(key):
         if key in _loaded:
             return _loaded[key]
         cxx = _host_compiler()
-        tool = host_toolchain(cxx, BUILD_ROOT / "probe")
-        link = ("-lz",) if tool["zlib"] else ()
-        defines = () if tool["zlib"] else ("-DMSP_NO_ZLIB",)
-        flags = HOST_FLAGS + defines
-        digest = hashlib.sha256(
-            source.read_bytes() + " ".join(flags + link).encode()
-            + repr(sorted(tool.items())).encode()).hexdigest()[:16]
-        out_dir = BUILD_ROOT / f"{name}-{digest}"
-        lib_path = out_dir / f"lib{name}.so"
-        info = dict(tool, library=str(lib_path), built=False, build_sec=0.0)
-        if not lib_path.exists():
-            out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f".lib{name}.{os.getpid()}.so"
-            t0 = time.perf_counter()
-            proc = _run([cxx, *flags, str(source), "-o", str(tmp), *link])
-            info["build_sec"] = time.perf_counter() - t0
+        fingerprint = {"name": name, "flags": list(HOST_FLAGS),
+                       "compiler_path": cxx,
+                       "compiler_sha256": _binary_sha256(cxx),
+                       **_torch_fields(), **cpu_fields()}
+        code = source.read_bytes()
+
+        def compile_(out: Path, entry_dir: Path) -> dict:
+            tool = host_toolchain(cxx, BUILD_ROOT / "probe")
+            link = ("-lz",) if tool["zlib"] else ()
+            defines = () if tool["zlib"] else ("-DMSP_NO_ZLIB",)
+            proc = _run([cxx, *HOST_FLAGS, *defines, str(source), "-o",
+                         str(out), *link])
             if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
                 raise RuntimeError(
                     f"{cxx} failed for {source} (rc {proc.returncode}):\n"
                     f"{proc.stderr[-4000:]}")
-            os.replace(tmp, lib_path)  # atomic: a reader never sees half
-            info["built"] = True
-        lib = ctypes.CDLL(str(lib_path))
+            return {"compiler": tool["compiler"],
+                    "march": tool["march"], "zlib": tool["zlib"],
+                    "build_flags": [*HOST_FLAGS, *defines, *link]}
+
+        lib, info = aot_cache.load_or_build(name, code, fingerprint,
+                                            compile_, cache, BUILD_ROOT)
         _loaded[key] = (lib, info)
         return lib, info

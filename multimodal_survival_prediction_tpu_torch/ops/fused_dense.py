@@ -787,6 +787,50 @@ def _storage(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _per_fold(info, in_dims, args, fn):
+    """A ``vmap`` rule that loops: ``fn`` on each of the ``info.batch_size``
+    slices of the batched ``args`` (those with an ``in_dims`` entry), its
+    outputs stacked on dim 0. The kernels read storage, which a vmapped
+    tensor lacks, so under ``torch.func.vmap`` (the fold-parallel step)
+    each fold's (rows, C) slice, contiguous where the trunk's physical
+    layout puts the folds outermost, goes to them on its own."""
+    moved = [a if d is None else a.movedim(d, 0)
+             for a, d in zip(args, in_dims)]
+    outs = [fn(*(a if d is None else a[k] for a, d in zip(moved, in_dims)))
+            for k in range(info.batch_size)]
+    return (tuple(torch.stack(o) for o in zip(*outs)),
+            (0,) * len(outs[0]))
+
+
+def _backward(x2d, g, w2d, mul, add, mean, rstd, with_dx: bool):
+    """``(dW, dgamma, dbeta, dx or None)`` of the fused op."""
+    n = x2d.shape[0]
+    dw, dg, db = bwd_reduce(x2d, g, w2d, mul, add, mean, rstd)
+    dx = None
+    if with_dx:
+        # dx = r·γ·(dz − Σdz/N − xhat·Σdz·xhat/N)
+        dx = bwd_dx(x2d, g, w2d, mul, add, mean, rstd, db / n, dg / n)
+    return dw, dg, db, dx
+
+
+class _FusedBackward(torch.autograd.Function):
+    """:func:`_backward` with dx, as a Function for its ``vmap`` rule (the
+    op's backward under the fold-parallel ``vmap(grad)``). Not
+    differentiable."""
+
+    @staticmethod
+    def forward(x2d, g, w2d, mul, add, mean, rstd):
+        return _backward(x2d, g, w2d, mul, add, mean, rstd, True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _per_fold(info, in_dims, args, _FusedBackward.forward)
+
+
 class _FusedBnReluConv1x1(torch.autograd.Function):
     # the setup_context form, so that torch.func.vjp can run it (the
     # recompute of a remat region); the saved statistics are outputs
@@ -807,17 +851,21 @@ class _FusedBnReluConv1x1(torch.autograd.Function):
         ctx.mark_non_differentiable(mean, var, mul, add, rstd)
 
     @staticmethod
+    def vmap(info, in_dims, x2d, scale, bias, w2d, eps):
+        return _per_fold(info, in_dims[:4], (x2d, scale, bias, w2d),
+                         lambda *a: _FusedBnReluConv1x1.forward(*a, eps))
+
+    @staticmethod
     def backward(ctx, g_out, *_g_stats):
         # mean/var feed the running-average update only: their cotangents
         # are ignored (the JAX VJP at ops/fused_dense.py:309)
         x2d, w2d, mul, add, mean, rstd = map(_storage, ctx.saved_tensors)
-        n = x2d.shape[0]
         g = _storage(g_out).to(x2d.dtype)
-        dw, dg, db = bwd_reduce(x2d, g, w2d, mul, add, mean, rstd)
-        dx = None
-        if ctx.needs_input_grad[0]:
-            # dx = r·γ·(dz − Σdz/N − xhat·Σdz·xhat/N)
-            dx = bwd_dx(x2d, g, w2d, mul, add, mean, rstd, db / n, dg / n)
+        args = (x2d, g, w2d, mul, add, mean, rstd)
+        if torch._C._functorch.is_batchedtensor(x2d):  # vmap(grad): folds
+            dw, dg, db, dx = _FusedBackward.apply(*args)
+        else:
+            dw, dg, db, dx = _backward(*args, ctx.needs_input_grad[0])
         return dx, dg, db, dw.to(w2d.dtype), None
 
 

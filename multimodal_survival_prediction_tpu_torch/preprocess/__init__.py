@@ -6,6 +6,8 @@ flags and artifacts):
 
     python -m multimodal_survival_prediction_tpu_torch.preprocess.convert_dicom_to_nifti --data-root <root>
     python -m multimodal_survival_prediction_tpu_torch.preprocess.preprocess_genomic --data-root <root>
+    python -m multimodal_survival_prediction_tpu_torch.preprocess.create_full_matching_table --data-root <root>
+    python -m multimodal_survival_prediction_tpu_torch.preprocess.create_multimodal_dataset --data-root <root>
 """
 
 from .genomic import (  # noqa: F401

@@ -23,16 +23,20 @@ threads share no mutable state.
 
 from __future__ import annotations
 
+import logging
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from .config import ALL_CONFIGS, ModelRunConfig
+from .io import aot_cache
 from .io.checkpoint import load_checkpoint, load_fold_meta
 from .ops.resample import resample_normalize_bucketed
 from .train.adapters import make_model_and_adapters
 from .utils.device import pin_fp32_policy, resolve_device
+
+log = logging.getLogger(__name__)
 
 
 class RiskScorer:
@@ -53,8 +57,12 @@ class RiskScorer:
         (:meth:`warmup_no_image`): image-less requests then build their
         zero image plane on the device instead of shipping it from the host
         (the same result); image-free families always do.
-      aot_cache_dir: the JAX package's compiled-executable cache; not
-        ported (eager torch compiles nothing) — raises if given.
+      aot_cache_dir: the kernel-build cache's directory
+        (``io/aot_cache.py``): every library this process builds from
+        here on goes through it, and the host engine that decodes the
+        requests' CTs (image families) is loaded through it at
+        construction; ``self.aot_info`` reports each library's
+        provenance, as JAX's per program.
       device: where the models run and CTs are resampled (default 'cuda').
 
     Ingest decodes with ``data.native.read_nifti_fast`` and resamples
@@ -67,12 +75,19 @@ class RiskScorer:
                  hu_window=None, fold_calibration=None,
                  no_image_variant: bool = False, aot_cache_dir=None,
                  device="cuda"):
-        if aot_cache_dir is not None:
-            raise NotImplementedError(
-                "aot_cache_dir is not ported (ROADMAP.md Queue 1 item 12: "
-                "io/aot_cache.py)")
         self.device = resolve_device(device)
         self.cfg: ModelRunConfig = ALL_CONFIGS[model_name]
+        self.aot_cache_dir = aot_cache_dir
+        if aot_cache_dir is not None:
+            aot_cache.use(aot_cache_dir)
+            if "image" in self.cfg.modalities:
+                from .data import native
+
+                try:  # the engine that decodes the requests' CTs
+                    native.build_native()
+                except (RuntimeError, OSError) as e:
+                    # read_nifti_fast then reads through Python, as JAX's
+                    log.warning("host C++ engine unavailable: %s", e)
         paths = ([checkpoint_path]
                  if isinstance(checkpoint_path, (str, Path))
                  else list(checkpoint_path))
@@ -116,6 +131,13 @@ class RiskScorer:
         self._has_image_modality = "image" in self.cfg.modalities
         self._no_image_ready = False
         self.warmup(no_image_variant=no_image_variant)
+
+    @property
+    def aot_info(self) -> dict:
+        """``{library: {"source": "cache" | "compile", "key", "path"}}`` of
+        the libraries loaded through the cache; empty without
+        ``aot_cache_dir``."""
+        return aot_cache.report() if self.aot_cache_dir is not None else {}
 
     def _empty_host(self, b, with_image):
         """Host zeros of one request batch, the arrays ``_fill_row`` fills
@@ -355,7 +377,9 @@ def main(argv=None) -> None:
                          "was trained (the = form for negative bounds: "
                          "--hu-window=-150,250)")
     ap.add_argument("--aot-cache", default=None, metavar="DIR",
-                    help="not ported (ROADMAP.md Queue 1 item 12); raises")
+                    help="kernel-build cache directory (io/aot_cache.py): "
+                         "the first server process builds the libraries, "
+                         "later ones load them; results unchanged")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     print(f"[serve] {pin_fp32_policy()}", flush=True)
@@ -373,8 +397,11 @@ def main(argv=None) -> None:
         no_image_variant=args.warm_no_image, aot_cache_dir=args.aot_cache,
         device=args.device)
     server = make_server(scorer, host=args.host, port=args.port)
-    print(f"[serve] {scorer.cfg.display_name} loaded and warmed on "
-          f"http://{args.host}:{server.server_address[1]}", flush=True)
+    aot = args.aot_cache and ", ".join(
+        f"{k}: {v['source']}" for k, v in scorer.aot_info.items())
+    print(f"[serve] {scorer.cfg.display_name} loaded and warmed"
+          + (f" (aot-cache {aot})" if aot else "")
+          + f" on http://{args.host}:{server.server_address[1]}", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -39,9 +39,10 @@ Every rank builds the same cohort (a ``--synthetic`` one is written once,
 by the CLI's process or the coordinator, and read by the ranks); rank 0
 writes the artifacts and prints the summary.
 
-``--aot-cache``, a flag of the JAX scripts with no port yet, stays in the
-parser and raises ``NotImplementedError`` naming its ROADMAP.md item;
-``--device`` (default ``cuda``) is the port's own.
+``--aot-cache DIR`` routes the run's kernel builds through the
+kernel-build cache (``io/aot_cache.py``): the first run compiles its
+libraries into DIR, later runs load them; the coordinator prints each
+library's provenance. ``--device`` (default ``cuda``) is the port's own.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ import torch
 import torch.distributed as dist
 
 from ..data.matching_table import load_matching_table
+from ..io import aot_cache
 from ..data.synthetic import SyntheticCohortSpec, generate_synthetic_cohort
 from ..parallel.mesh import best_mesh_shape, make_mesh
 from ..parallel.multihost import (
@@ -74,12 +76,6 @@ from .cv import run_cross_validation
 from .cv_parallel import make_fold_mesh, run_cross_validation_parallel
 
 log = logging.getLogger(__name__)
-
-# (flag, attribute, value when unused, ROADMAP.md item)
-_NOT_PORTED = (
-    ("--aot-cache", "aot_cache", None, "Queue 1 item 12 (io/aot_cache.py)"),
-)
-
 
 def base_parser(desc: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=desc)
@@ -164,11 +160,12 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--streaming", action="store_true",
                    help="keep the cohort on the host and prefetch each "
                         "batch to the device (pinned memory, a side stream)")
-    for flag, dest, unused, item in _NOT_PORTED:
-        kw = ({"action": "store_true"} if unused is False
-              else {"type": int if isinstance(unused, int) else str,
-                    "default": unused})
-        p.add_argument(flag, dest=dest, help=f"not ported yet: {item}", **kw)
+    p.add_argument("--aot-cache", default=None, metavar="DIR",
+                   help="build and load the kernel libraries through the "
+                        "kernel-build cache in DIR (io/aot_cache.py): a "
+                        "later run on the same source, toolchain and card "
+                        "loads them instead of compiling; results "
+                        "unchanged (a failed load rebuilds)")
     return p
 
 
@@ -231,10 +228,6 @@ def _validate(args, cfg):
             "(use the sequential driver for those). --streaming DOES "
             "compose: host-resident cohort, stacked per-step batches "
             "(train/cv_parallel.py module docstring)")
-    for flag, dest, unused, item in _NOT_PORTED:
-        if getattr(args, dest) != unused:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: ROADMAP.md {item}")
     if args.stage1_epochs is not None and not cfg.stage1_epochs:
         raise SystemExit(
             f"--stage1-epochs only applies to two-stage models (SimMLM); "
@@ -362,7 +355,7 @@ def _train(args, cfg, table, rnaseq_csv, mesh=None, fold_mesh=None):
         dtype=torch.bfloat16 if args.bf16 else None,
         use_pallas_resample=args.pallas_resample,
         hu_window=parse_hu_window(args.hu_window), streaming=args.streaming,
-        remat=args.remat, device=args.device)
+        remat=args.remat, aot_cache_dir=args.aot_cache, device=args.device)
     if args.fold_parallel:
         payload, outcomes = run_cross_validation_parallel(
             cfg, table, mesh=fold_mesh, **common)
@@ -380,6 +373,10 @@ def _train(args, cfg, table, rnaseq_csv, mesh=None, fold_mesh=None):
         for o in outcomes:
             print(f"  fold {o.fold}: best {o.best_c_index:.4f} "
                   f"@ epoch {o.best_epoch} ({o.epochs_run} epochs run)")
+        if args.aot_cache:
+            print("aot-cache " + (", ".join(
+                f"{k}: {v['source']}" for k, v in aot_cache.report().items())
+                or "(no kernel library loaded)"))
     return payload
 
 

@@ -45,8 +45,10 @@ save ends with a barrier, so every rank reads a finished resume state.
 ``remat`` recomputes the DenseNet dense layers in the backward
 (``models/layers.py:remat``; JAX ``remat``).
 
-Not ported yet: ``aot_cache_dir`` raises ``NotImplementedError`` naming its
-ROADMAP item.
+``aot_cache_dir`` routes every kernel build of the run (the W-pass in the
+ingest, the fused kernels) through the kernel-build cache
+(``io/aot_cache.py``), from before the ingest on; the trainers report it
+in ``aot_info``.
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ import torch
 
 from ..config import ModelRunConfig
 from ..data.datasets import build_cohort_arrays, load_rnaseq_matrix, select_cohort
+from ..io import aot_cache
 from ..io.checkpoint import (
     load_checkpoint,
     load_train_state,
@@ -91,8 +94,6 @@ from .kfold import kfold_split
 from .schedules import ReduceLROnPlateau, cosine_annealing
 
 log = logging.getLogger(__name__)
-
-_AOT_TODO = "aot_cache_dir is not ported yet: ROADMAP.md Queue 1 item 12"
 
 
 @dataclass
@@ -157,11 +158,12 @@ def prepare_cv_data(cfg: ModelRunConfig, table, rnaseq_csv=None,
 def make_trainers(cfg: ModelRunConfig, rna_dim: int, backbone: str, dtype,
                   device, *, mesh=None, tensor_parallel: bool = False,
                   sharded_risk_set: bool = False, remat: bool = False,
-                  batch_axis: str = "data"):
+                  batch_axis: str = "data", aot_cache_dir=None):
     """The driver's Trainer for ``cfg`` and, for two-stage models, SimMLM's
     stage-1 Trainer (the same batches and optimizer, the experts' loss);
-    None when ``cfg`` has no stage 1. ``mesh``, ``batch_axis`` and the two
-    flags go to both; ``remat`` to the model they build."""
+    None when ``cfg`` has no stage 1. ``mesh``, ``batch_axis``, the two
+    flags and ``aot_cache_dir`` go to both; ``remat`` to the model they
+    build."""
     batch_to_inputs, hazard_and_aux = make_adapters(cfg)
     tcfg = TrainConfig(
         batch_size=cfg.batch_size, learning_rate=cfg.learning_rate,
@@ -175,7 +177,8 @@ def make_trainers(cfg: ModelRunConfig, rna_dim: int, backbone: str, dtype,
 
     parallel = dict(device=device, mesh=mesh, batch_axis=batch_axis,
                     tensor_parallel=tensor_parallel,
-                    sharded_risk_set=sharded_risk_set)
+                    sharded_risk_set=sharded_risk_set,
+                    aot_cache_dir=aot_cache_dir)
     trainer = Trainer(model_fn, batch_to_inputs, hazard_and_aux, tcfg,
                       **parallel)
     stage1_trainer = (Trainer(model_fn, batch_to_inputs,
@@ -229,8 +232,8 @@ def run_cross_validation(
     after each fold's ``init_state``; a returned TrainState replaces the
     fold's initial state (the tests start each fold from the JAX driver's
     initial weights through it)."""
-    if aot_cache_dir:
-        raise NotImplementedError(_AOT_TODO)
+    if aot_cache_dir:  # before the ingest, which may build the W-pass
+        aot_cache.use(aot_cache_dir)
     if sharded_risk_set and mesh is None:
         raise ValueError("sharded_risk_set requires a mesh")
     write_outputs = write_outputs and is_coordinator()
@@ -254,7 +257,8 @@ def run_cross_validation(
         trainer, stage1_trainer = make_trainers(
             cfg, rna_dim, backbone, dtype, dev, mesh=mesh,
             tensor_parallel=tensor_parallel,
-            sharded_risk_set=sharded_risk_set, remat=remat)
+            sharded_risk_set=sharded_risk_set, remat=remat,
+            aot_cache_dir=aot_cache_dir)
         if streaming:  # the cohort stays on the host
             data = {k: np.asarray(v) for k, v in arrays.arrays.items()}
             train_epoch = Trainer.train_epoch_streaming

@@ -60,9 +60,9 @@ gradients are summed over the data group after the vmapped step.
 Evaluation is replicated: every rank gathers every fold's val loss and
 C-index over the fold axis, so every rank takes the same schedule, patience
 and snapshot branches; the best states move to the coordinator, which
-alone writes. ``aot_cache_dir`` raises ``NotImplementedError`` (ROADMAP.md
-Queue 1 item 12). No resume checkpoints (JAX's parallel driver has none
-either).
+alone writes. ``aot_cache_dir`` routes the run's kernel builds through
+the kernel-build cache (``io/aot_cache.py``), as in the sequential driver.
+No resume checkpoints (JAX's parallel driver has none either).
 """
 
 from __future__ import annotations
@@ -80,6 +80,7 @@ from torch.func import functional_call, grad_and_value, vmap
 
 from ..config import ModelRunConfig
 from ..data.pipeline import BatchPrefetcher
+from ..io import aot_cache
 from ..models.layers import dropout_uniforms
 from ..ops.cindex import concordance_index
 from ..ops.cox import cox_partial_likelihood
@@ -100,8 +101,6 @@ from .engine import TrainConfig, Trainer, TrainState
 from .schedules import ReduceLROnPlateau, cosine_annealing
 
 log = logging.getLogger(__name__)
-
-_AOT_TODO = "aot_cache_dir is not ported yet: ROADMAP.md Queue 1 item 12"
 
 
 def make_fold_mesh(n_devices: int | None = None, data_parallel: int = 1,
@@ -679,8 +678,8 @@ def run_cross_validation_parallel(
     host and prefetches each step's stacked batch. ``prepared`` and
     ``init_hook`` (``(fold, state) -> state | None`` after each fold's
     ``init_state``) are the sequential driver's."""
-    if aot_cache_dir:
-        raise NotImplementedError(_AOT_TODO)
+    if aot_cache_dir:  # before the ingest, which may build the W-pass
+        aot_cache.use(aot_cache_dir)
     name = cfg.name
     num_epochs = num_epochs or cfg.num_epochs
     dev = resolve_device(device)
@@ -704,7 +703,8 @@ def run_cross_validation_parallel(
     padded = splits + [splits[-1]] * (placement.k_pad - n_folds)
     trainer, stage1_trainer = make_trainers(
         cfg, rna_dim, backbone, dtype, dev, remat=remat,
-        mesh=mesh if n_data > 1 else None, batch_axis=data_axis)
+        mesh=mesh if n_data > 1 else None, batch_axis=data_axis,
+        aot_cache_dir=aot_cache_dir)
     data = ({k: np.asarray(v) for k, v in arrays.arrays.items()}
             if streaming else arrays.to_device(dev))
 

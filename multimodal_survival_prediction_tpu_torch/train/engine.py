@@ -39,8 +39,10 @@ larger than 1, and the global-norm clip then counts each shard once
 single-shard arrays (JAX ``ops/fused_dense.py``), so ``fused_bn1`` under a
 data or model axis larger than 1 raises. DDP is not used: it averages.
 
-Not ported yet: the compiled-executable cache (``aot_cache_dir`` raises
-``NotImplementedError`` naming its ROADMAP item).
+``aot_cache_dir`` routes the kernels' builds through the kernel-build
+cache (``io/aot_cache.py``): the libraries this process builds on first
+launch go into that directory, and a later process loads them instead of
+compiling; ``Trainer.aot_info`` reports each one's provenance.
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ import torch
 from torch import nn
 
 from ..data.pipeline import BatchPrefetcher
+from ..io import aot_cache
 from ..models.layers import set_dropout_generator
 from ..ops.cindex import concordance_index
 from ..ops.cox import cox_partial_likelihood
@@ -66,7 +69,6 @@ from ..utils.device import resolve_device
 # the batch keys the loss and the adapters read; under a mesh they are
 # gathered to the global batch (the model inputs stay local)
 LABEL_KEYS = ("time", "event", "svalid", "valid", "mask")
-_AOT_TODO = ("aot_cache_dir is not ported yet: ROADMAP.md Queue 1 item 12")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,6 +264,9 @@ class Trainer:
           (on only when that axis is larger than 1).
       sharded_risk_set: the train Cox loss through the sharded risk-set
           scan (``ops/cox_distributed.py``); needs a mesh.
+      aot_cache_dir: the kernel-build cache's directory
+          (``io/aot_cache.py``), or None: the kernels build into
+          ``build/kernels/``.
     """
 
     def __init__(self, model_fn: Callable[[torch.Generator], nn.Module],
@@ -270,8 +275,9 @@ class Trainer:
                  cfg: TrainConfig = TrainConfig(), device="cuda", mesh=None,
                  batch_axis: str = "data", tensor_parallel: bool = False,
                  sharded_risk_set: bool = False, aot_cache_dir=None):
+        self.aot_cache_dir = aot_cache_dir
         if aot_cache_dir:
-            raise NotImplementedError(_AOT_TODO)
+            aot_cache.use(aot_cache_dir)
         if sharded_risk_set and mesh is None:
             raise ValueError("sharded_risk_set requires a mesh")
         self.model_fn = model_fn
@@ -293,6 +299,13 @@ class Trainer:
                              else None)
         self.tx = make_optimizer(cfg)
         self.step_losses = None  # the last epoch's per-step losses (device)
+
+    @property
+    def aot_info(self) -> dict:
+        """``{library: {"source": "cache" | "compile", "key", "path"}}`` of
+        the kernel libraries loaded through the cache so far (JAX's
+        per-program report); empty without ``aot_cache_dir``."""
+        return aot_cache.report() if self.aot_cache_dir else {}
 
     # ---------------- init ----------------
 

@@ -24,7 +24,10 @@ each fold row training its block, every rank keeping every candidate's
 record; the coordinator writes ``sweep_results.json``. ``--sweep-mesh N``
 starts N ranks (``train/cli.py:spawn_ranks``), one a GPU under NCCL or
 gloo CPU ranks with ``--device cpu``. ``remat`` recomputes the DenseNet
-dense layers in the backward.
+dense layers in the backward. ``aot_cache_dir`` (``--aot-cache``) routes
+the sweep's kernel builds through the kernel-build cache
+(``io/aot_cache.py``); JAX's sweep CLI refuses its flag, which there
+caches the sequential drivers' programs.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import ModelRunConfig
+from ..io import aot_cache
 from ..parallel.mesh import mesh_shape
 from ..parallel.multihost import is_coordinator
 from ..utils.device import resolve_device
@@ -74,6 +78,7 @@ def run_hyperparameter_sweep(
     hu_window=None,
     prepared=None,
     init_hook=None,
+    aot_cache_dir=None,
     device="cuda",
 ):
     """Train every (seed, lr) candidate in parallel on fold ``fold``'s
@@ -96,6 +101,8 @@ def run_hyperparameter_sweep(
     n_points = len(points)
     dev = resolve_device(device)
     dtype = _compute_dtype(dtype)
+    if aot_cache_dir:  # before the ingest, which may build the W-pass
+        aot_cache.use(aot_cache_dir)
 
     arrays, splits = prepared if prepared is not None else prepare_cv_data(
         cfg, table, rnaseq_csv=rnaseq_csv,
@@ -109,7 +116,8 @@ def run_hyperparameter_sweep(
     padded = points + [points[-1]] * (placement.k_pad - n_points)
     data_mesh = mesh if mesh_shape(mesh).get("data", 1) > 1 else None
     trainer, stage1_trainer = make_trainers(cfg, rna_dim, backbone, dtype,
-                                            dev, remat=remat, mesh=data_mesh)
+                                            dev, remat=remat, mesh=data_mesh,
+                                            aot_cache_dir=aot_cache_dir)
     data = arrays.to_device(dev)
 
     t_start = time.monotonic()
@@ -154,7 +162,6 @@ _REFUSED = (("--mesh", "mesh", 0), ("--tp", "tp", 1),
             ("--profile-dir", "profile_dir", None),
             ("--streaming", "streaming", False),
             ("--sharded-risk-set", "sharded_risk_set", False),
-            ("--aot-cache", "aot_cache", None),
             ("--multihost", "multihost", False))
 
 
@@ -240,7 +247,8 @@ def _sweep_on_rank(device, args, cfg, table, rnaseq_csv, seeds, lrs):
         dtype=torch.bfloat16 if args.bf16 else None, remat=args.remat,
         num_epochs=args.epochs, results_dir=args.results_dir,
         use_pallas_resample=args.pallas_resample,
-        hu_window=parse_hu_window(args.hu_window), device=device)
+        hu_window=parse_hu_window(args.hu_window),
+        aot_cache_dir=args.aot_cache, device=device)
 
 
 if __name__ == "__main__":

@@ -229,7 +229,10 @@ def test_km_curves_then_evaluate_model_end_to_end(scored_cohort, which,
             "--model", "partial_modality", "--models-dir", str(env["models"]),
             "--data-root", str(env["root"]), "--results-root",
             str(tmp_path), *which, "--device", "cpu"])
-    assert "item 11" in caplog.text
+    label = "ensemble" if which == ["--ensemble"] else "fold2"
+    assert (tmp_path / "km_curves"
+            / f"partial_modality_{label}_km.png").exists()
+    assert "skipped" not in caplog.text
     ckpts = fold_checkpoints(env["models"], "partial_modality")
     want = predict_risk(env["cfg"], ckpts if which == ["--ensemble"]
                         else ckpts[1], env["table"],
@@ -408,8 +411,30 @@ def test_server_cli_flags_reach_the_scorer(monkeypatch, tmp_path, capsys):
     assert "loaded and warmed" in capsys.readouterr().out
 
 
-def test_server_aot_cache_still_raises(scored_cohort):
+def test_server_aot_cache_still_raises(scored_cohort, tmp_path, monkeypatch,
+                                       capsys):
+    """``--aot-cache DIR`` (a refusal until io/aot_cache.py was ported)
+    serves: the scorer loads the host engine that decodes the requests'
+    CTs through the cache in DIR, and the start-up line reports it."""
+    from multimodal_survival_prediction_tpu_torch.io import aot_cache
+
+    class _Server:
+        server_address = ("127.0.0.1", 0)
+
+        def serve_forever(self):
+            raise KeyboardInterrupt
+
+        def server_close(self):
+            pass
+
+    monkeypatch.setattr(aot_cache, "CACHE_DIR", None)  # put back after
+    monkeypatch.setattr(serving, "make_server", lambda *a, **k: _Server())
     ckpts = fold_checkpoints(scored_cohort["models"], "partial_modality")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        serving.main(["--checkpoint", str(ckpts[0]), "--aot-cache", "x",
-                      "--device", "cpu"])
+    serving.main(["--checkpoint", str(ckpts[0]), "--aot-cache",
+                  str(tmp_path / "aot"), "--device", "cpu"])
+    line = [ln for ln in capsys.readouterr().out.splitlines()
+            if "loaded and warmed" in ln][0]
+    assert "(aot-cache msp_native_port: " in line
+    [entry] = (tmp_path / "aot").iterdir()
+    assert {p.name for p in entry.iterdir()} == {"libmsp_native_port.so",
+                                                 "meta.json"}

@@ -12,13 +12,15 @@ utilities, on the CPU.
   to pandas' ``to_string`` of JAX's frame.
 * ``run_all`` in process on a 28-patient synthetic cohort (the JAX
   test_run_all arguments at 1 epoch): artifacts, exit 1 naming a failed
-  family, ``--full-analysis`` raising with its ROADMAP item.
+  family, ``--full-analysis`` raising ``ImportError`` without matplotlib
+  (the battery itself: tests/test_torch_analysis_scripts.py).
 * ``utils/profiling.py`` (a trace on the CPU) and ``utils/debugging.py``
   against JAX's on the same trees.
 """
 
 import json
 import math
+import sys
 
 import numpy as np
 import pandas as pd
@@ -192,7 +194,9 @@ def test_final_comparison_entry_point(results_root, matching_csv, tmp_path,
         "--results-root", str(results_root), "--data-root", str(data_root),
         "--out-dir", str(out)])
     printed = capsys.readouterr().out
-    assert "Queue 1 item 11" in printed and "ablation_study.png" in printed
+    # the figures drawn (pixel-equal to JAX's: tests/test_torch_figures.py)
+    assert (out / "model_comparison_main.png").exists()
+    assert (out / "ablation_study.png").exists() and "skipped" not in printed
     ref = jcmp.paired_t_vs_best(jcmp.collect_results(results_root))
     assert ref[["model", "c_index_mean", "p_value"]].to_string(
         index=False) in printed
@@ -265,11 +269,21 @@ def test_run_all_exits_1_naming_a_failed_family(tmp_path, monkeypatch,
     assert (tmp_path / "results" / "final_comparison" / "SUMMARY.md").exists()
 
 
-def test_run_all_full_analysis_raises_with_its_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+def test_run_all_full_analysis_raises_with_its_item(tmp_path, monkeypatch):
+    """Without matplotlib (the card's machine) ``--full-analysis``, whose
+    battery draws, raises ``ImportError`` naming it before any training."""
+    from multimodal_survival_prediction_tpu_torch import analysis
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    monkeypatch.delitem(sys.modules, f"{analysis.__name__}.figures",
+                        raising=False)
+    monkeypatch.delattr(analysis, "figures", raising=False)
+    with pytest.raises(ImportError, match="matplotlib") as exc:
         run_all.main(["--models", "rnaseq_only", "--full-analysis",
                       *_dirs(tmp_path), *RUN_ALL_ARGS])
+    assert exc.value.name == "matplotlib"
     assert not (tmp_path / "results").exists()
+    assert not (tmp_path / "cohort").exists()
 
 
 # ---------------------------------------------------------------------------

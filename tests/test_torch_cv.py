@@ -465,13 +465,30 @@ def test_resume_is_bit_equal(cohort, tmp_path, monkeypatch):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("option,item", [
-    (dict(aot_cache_dir="aot"), "Queue 1 item 12"),
+    (dict(aot_cache_dir="aot"), "aot_cache_dir"),
 ])
-def test_driver_refuses_what_is_not_ported(tmp_path, option, item):
-    with pytest.raises(NotImplementedError, match=item):
-        cv.run_cross_validation(CFG, [], results_dir=tmp_path,
-                                models_dir=tmp_path, device="cpu", **option)
-    assert not any(tmp_path.iterdir())
+def test_driver_refuses_what_is_not_ported(cohort, tmp_path, monkeypatch,
+                                           option, item):
+    """``aot_cache_dir`` (a refusal until io/aot_cache.py was ported) runs:
+    the kernel builds of the process go through the cache from the
+    driver's start, and one epoch of both folds writes the same fold
+    checkpoints as without it."""
+    from multimodal_survival_prediction_tpu_torch.io import aot_cache
+
+    monkeypatch.setattr(aot_cache, "CACHE_DIR", None)  # put back after
+    tarr, splits = cohort["tprepared"]
+    for sub, kw in (("plain", {}),
+                    ("cached", {item: str(tmp_path / option[item])})):
+        cv.run_cross_validation(
+            CFG, None, results_dir=tmp_path / sub,
+            models_dir=tmp_path / sub, backbone="simple_cnn",
+            prepared=(tarr, splits), num_epochs=1, device="cpu", **kw)
+    assert aot_cache.CACHE_DIR == tmp_path / option[item]
+    for fold in (1, 2):
+        name = f"partial_modality/fold_{fold}_best.pt"
+        got = load_checkpoint(tmp_path / "cached" / name)
+        want = load_checkpoint(tmp_path / "plain" / name)
+        assert all(torch.equal(got[k], want[k]) for k in want)
 
 
 def test_driver_runs_streaming(cohort, tmp_path):
@@ -532,17 +549,31 @@ def test_cli_profile_dir_writes_a_trace(tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (["--fold-dp", "2"], "--fold-dp needs --fold-parallel N with N > 1"),
-    (["--aot-cache", "aot"], "Queue 1 item 12"),
+    (["--aot-cache", "aot"], "aot-cache"),
 ], ids=lambda v: v[0] if isinstance(v, list) else None)
-def test_cli_refuses_what_is_not_ported(tmp_path, flag, item):
-    """Each flag without a port raises NotImplementedError naming its
-    ROADMAP item; ``--fold-dp`` without ``--fold-parallel`` N > 1 exits
-    with the JAX scripts' usage message."""
-    raises = SystemExit if flag[0] == "--fold-dp" else NotImplementedError
-    with pytest.raises(raises, match=item):
-        pmt.main(["--data-root", str(tmp_path), "--synthetic", "--device",
-                  "cpu", *flag])
-    assert not any(tmp_path.iterdir())
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys, flag,
+                                        item):
+    """``--fold-dp`` without ``--fold-parallel`` N > 1 exits with the JAX
+    scripts' usage message; ``--aot-cache DIR`` (a refusal until
+    io/aot_cache.py was ported) trains and prints each kernel library's
+    provenance (none is built by this CPU run)."""
+    from multimodal_survival_prediction_tpu_torch.io import aot_cache
+
+    monkeypatch.setattr(aot_cache, "CACHE_DIR", None)  # put back after
+    argv = ["--data-root", str(tmp_path), "--synthetic", "--device", "cpu"]
+    if flag[0] == "--fold-dp":
+        with pytest.raises(SystemExit, match=item):
+            pmt.main([*argv, *flag])
+        assert not any(tmp_path.iterdir())
+        return
+    payload = pmt.main([
+        *argv, "--results-dir", str(tmp_path / "results"), "--models-dir",
+        str(tmp_path / "models"), "--synthetic-patients", "16",
+        "--backbone", "simple_cnn", "--image-shape", "16,16,8", "--epochs",
+        "1", "--n-folds", "2", "--aot-cache", str(tmp_path / flag[1])])
+    assert len(payload["fold_results"]) == 2
+    assert aot_cache.CACHE_DIR == tmp_path / flag[1]
+    assert f"{item} " in capsys.readouterr().out
 
 
 def test_cli_streaming_end_to_end_on_cpu(tmp_path):

@@ -514,16 +514,36 @@ CFG = dataclasses.replace(PARTIAL_MODALITY, image_shape=IMAGE_SHAPE,
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(aot_cache_dir="aot"), "Queue 1 item 12"),
+    (dict(aot_cache_dir="aot"), "aot_cache_dir"),
 ])
-def test_driver_refuses_what_is_not_ported(tmp_path, option, item):
-    """Only the AOT cache is refused; the fold mesh and remat run
-    (tests/test_torch_fold_mesh.py, tests/test_torch_remat.py)."""
-    with pytest.raises(NotImplementedError, match=item):
+def test_driver_refuses_what_is_not_ported(cohort, tmp_path, monkeypatch,
+                                           option, item):
+    """Nothing is refused any more: the fold mesh and remat run
+    (tests/test_torch_fold_mesh.py, tests/test_torch_remat.py), and
+    ``aot_cache_dir`` routes the process's kernel builds through the cache
+    while one vmapped epoch writes the same fold checkpoints as without
+    it."""
+    from multimodal_survival_prediction_tpu_torch.io.checkpoint import (
+        load_checkpoint,
+    )
+    from multimodal_survival_prediction_tpu_torch.io import aot_cache
+
+    monkeypatch.setattr(aot_cache, "CACHE_DIR", None)  # put back after
+    cfg = dataclasses.replace(CFG, num_epochs=1)
+    prepared = cv.prepare_cv_data(
+        cfg, cohort["rows"], rnaseq_csv=cohort["paths"]["rnaseq_csv"],
+        device="cpu")
+    for sub, kw in (("plain", {}),
+                    ("cached", {item: str(tmp_path / option[item])})):
         cv_parallel.run_cross_validation_parallel(
-            CFG, [], results_dir=tmp_path, models_dir=tmp_path,
-            device="cpu", **option)
-    assert not any(tmp_path.iterdir())
+            cfg, None, results_dir=tmp_path / sub, models_dir=tmp_path / sub,
+            backbone="simple_cnn", prepared=prepared, device="cpu", **kw)
+    assert aot_cache.CACHE_DIR == tmp_path / option[item]
+    for fold in (1, 2):
+        name = f"partial_modality/fold_{fold}_best.pt"
+        got = load_checkpoint(tmp_path / "cached" / name)
+        want = load_checkpoint(tmp_path / "plain" / name)
+        assert all(torch.equal(got[k], want[k]) for k in want)
 
 
 @pytest.mark.parametrize("n,dp", [(2, 1), (4, 2), (None, 2)])

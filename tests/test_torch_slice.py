@@ -203,7 +203,7 @@ def test_scorer_matches_jax(slice_env, folds, calibrated):
         assert f["risk_score"] == pytest.approx(g["risk_score"], abs=1e-6)
 
 
-def test_scorer_rejects_what_jax_rejects(slice_env):
+def test_scorer_rejects_what_jax_rejects(slice_env, tmp_path):
     port = RiskScorer("partial_modality", slice_env["port"][0], device="cpu")
     with pytest.raises(ValueError, match=f"{RNA_DIM} genes"):
         port.score(rnaseq=np.zeros(7))
@@ -212,9 +212,22 @@ def test_scorer_rejects_what_jax_rejects(slice_env):
     with pytest.raises(ValueError, match="fold_calibration"):
         RiskScorer("partial_modality", slice_env["port"], device="cpu",
                    fold_calibration=[(0.0, 1.0)])
-    with pytest.raises(NotImplementedError, match="aot_cache_dir"):
-        RiskScorer("partial_modality", slice_env["port"][0], device="cpu",
-                   aot_cache_dir="x")
+    # aot_cache_dir (refused until io/aot_cache.py was ported) loads the
+    # host engine through the cache and changes no risk
+    from multimodal_survival_prediction_tpu_torch.io import aot_cache
+
+    saved = aot_cache.CACHE_DIR
+    try:
+        cached = RiskScorer("partial_modality", slice_env["port"][0],
+                            device="cpu", aot_cache_dir=tmp_path / "aot")
+    finally:
+        aot_cache.CACHE_DIR = saved
+    assert cached.aot_info == aot_cache.report()
+    assert cached.aot_info["msp_native_port"]["path"].startswith(
+        str(tmp_path / "aot"))
+    assert port.aot_info == {}
+    want = port.score_many(_patients(slice_env))
+    assert cached.score_many(_patients(slice_env)) == want
 
 
 def _serve(scorer, maker):

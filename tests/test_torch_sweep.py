@@ -269,13 +269,28 @@ def test_sweep_cli_end_to_end_on_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("flag", [
     ["--mesh", "2"], ["--tp", "2"], ["--fold-parallel", "1"],
     ["--fold-dp", "2"], ["--resume"], ["--profile-dir", "p"],
-    ["--streaming"], ["--sharded-risk-set"], ["--aot-cache", "a"],
-    ["--multihost"]], ids=lambda v: v[0])
+    ["--streaming"], ["--sharded-risk-set"], ["--multihost"]],
+    ids=lambda v: v[0])
 def test_sweep_cli_refuses_what_jax_refuses(tmp_path, flag):
     with pytest.raises(SystemExit,
                        match="is not supported by the sweep driver"):
         sweep.main(_argv(tmp_path, *flag))
     assert not (tmp_path / "data").exists()
+
+
+def test_sweep_cli_takes_the_aot_cache(tmp_path, monkeypatch):
+    """``--aot-cache DIR``, which JAX's sweep CLI refuses (it caches the
+    sequential drivers' XLA programs there), routes the sweep's kernel
+    builds through the kernel-build cache; the leaderboard is unchanged."""
+    from multimodal_survival_prediction_tpu_torch.io import aot_cache
+
+    monkeypatch.setattr(aot_cache, "CACHE_DIR", None)  # put back after
+    plain = sweep.main(_argv(tmp_path / "a"))
+    cached = sweep.main(_argv(tmp_path / "b", "--aot-cache",
+                              str(tmp_path / "aot")))
+    assert aot_cache.CACHE_DIR == tmp_path / "aot"
+    assert [{k: v for k, v in r.items() if k != "history"} for r in cached] \
+        == [{k: v for k, v in r.items() if k != "history"} for r in plain]
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs no CUDA")

@@ -217,8 +217,19 @@ def test_trainer_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="sharded_risk_set requires a mesh"):
         engine.Trainer(lambda g: None, None, sharded_risk_set=True,
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        engine.Trainer(lambda g: None, None, aot_cache_dir="x", device="cpu")
+    # aot_cache_dir (refused until io/aot_cache.py was ported) routes the
+    # process's kernel builds through the cache; aot_info reports them
+    from multimodal_survival_prediction_tpu_torch.io import aot_cache
+
+    saved = aot_cache.CACHE_DIR
+    try:
+        tr = engine.Trainer(lambda g: None, None, aot_cache_dir="x",
+                            device="cpu")
+        assert str(aot_cache.CACHE_DIR) == "x"
+    finally:
+        aot_cache.CACHE_DIR = saved
+    assert tr.aot_info == aot_cache.report()
+    assert engine.Trainer(lambda g: None, None, device="cpu").aot_info == {}
     # the streaming epochs are ported: they run (tests/test_torch_streaming.py
     # holds them bit-equal to the device-resident ones)
     from multimodal_survival_prediction_tpu_torch.models import (
