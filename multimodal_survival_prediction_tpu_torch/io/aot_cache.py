@@ -52,6 +52,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from ..utils.profiling import span
+
 log = logging.getLogger(__name__)
 
 _FORMAT_VERSION = 1
@@ -134,37 +136,38 @@ def load_or_build(name: str, source: bytes, fingerprint: dict, compile_fn,
     keep, or raises) and stored. Returns ``(lib, info)``: info holds
     ``meta.json``'s fields, ``library``, ``built``, ``build_sec`` and
     ``source`` / ``key`` / ``path``; a cache's entries are also listed in
-    :func:`report`."""
-    key = library_key(source, fingerprint)
-    entry_dir = (Path(cache_dir) / key if cache_dir is not None
-                 else default_root / f"{name}-{key[:16]}")
-    lib_path = entry_dir / f"lib{name}.so"
-    meta_path = entry_dir / "meta.json"
-    hit = _load(name, lib_path, meta_path, key, fingerprint)
-    if hit is not None:
-        lib, meta = hit
-        built, sec = False, 0.0
-    else:
-        entry_dir.mkdir(parents=True, exist_ok=True)
-        tmp = entry_dir / f".lib{name}.{os.getpid()}.so"
-        t0 = time.perf_counter()
-        try:
-            extra = compile_fn(tmp, entry_dir)
-        except BaseException:
-            tmp.unlink(missing_ok=True)
-            raise
-        sec = time.perf_counter() - t0
-        meta = {"key": key, **fingerprint, **extra,
-                "library_sha256": sha256_file(tmp), "build_sec": sec,
-                "created": time.time()}
-        os.replace(tmp, lib_path)  # atomic: a reader never sees half
-        _write_atomic(meta_path, json.dumps(meta, indent=2).encode())
-        lib, built = ctypes.CDLL(str(lib_path)), True
-    info = dict(meta, library=str(lib_path), built=built, build_sec=sec,
-                source="compile" if built else "cache", key=key,
-                path=str(lib_path))
-    if cache_dir is not None:
-        _REPORT[name] = {k: info[k] for k in ("source", "key", "path")}
-        log.info("kernel cache %s %s (%s)", "store" if built else "hit",
-                 name, lib_path)
-    return lib, info
+    :func:`report`. Recorded as one ``setup.kernel_library`` span."""
+    with span("setup.kernel_library"):
+        key = library_key(source, fingerprint)
+        entry_dir = (Path(cache_dir) / key if cache_dir is not None
+                     else default_root / f"{name}-{key[:16]}")
+        lib_path = entry_dir / f"lib{name}.so"
+        meta_path = entry_dir / "meta.json"
+        hit = _load(name, lib_path, meta_path, key, fingerprint)
+        if hit is not None:
+            lib, meta = hit
+            built, sec = False, 0.0
+        else:
+            entry_dir.mkdir(parents=True, exist_ok=True)
+            tmp = entry_dir / f".lib{name}.{os.getpid()}.so"
+            t0 = time.perf_counter()
+            try:
+                extra = compile_fn(tmp, entry_dir)
+            except BaseException:
+                tmp.unlink(missing_ok=True)
+                raise
+            sec = time.perf_counter() - t0
+            meta = {"key": key, **fingerprint, **extra,
+                    "library_sha256": sha256_file(tmp), "build_sec": sec,
+                    "created": time.time()}
+            os.replace(tmp, lib_path)  # atomic: a reader never sees half
+            _write_atomic(meta_path, json.dumps(meta, indent=2).encode())
+            lib, built = ctypes.CDLL(str(lib_path)), True
+        info = dict(meta, library=str(lib_path), built=built, build_sec=sec,
+                    source="compile" if built else "cache", key=key,
+                    path=str(lib_path))
+        if cache_dir is not None:
+            _REPORT[name] = {k: info[k] for k in ("source", "key", "path")}
+            log.info("kernel cache %s %s (%s)", "store" if built else "hit",
+                     name, lib_path)
+        return lib, info

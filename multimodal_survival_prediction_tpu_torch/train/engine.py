@@ -39,6 +39,10 @@ larger than 1, and the global-norm clip then counts each shard once
 single-shard arrays (JAX ``ops/fused_dense.py``), so ``fused_bn1`` under a
 data or model axis larger than 1 raises. DDP is not used: it averages.
 
+Each epoch, step and phase of a step (forward, backward, optimizer, the
+epoch's read-back) and ``init_state`` record a span on the host clock
+(``utils/profiling.py``).
+
 ``aot_cache_dir`` routes the kernels' builds through the kernel-build
 cache (``io/aot_cache.py``): the libraries this process builds on first
 launch go into that directory, and a later process loads them instead of
@@ -65,6 +69,7 @@ from ..parallel.mesh import mesh_shape
 from ..parallel.multihost import fetch_tree
 from ..parallel.sharding import batch_rows, local_part, shard_module, tp_group
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 # the batch keys the loss and the adapters read; under a mesh they are
 # gathered to the global batch (the model inputs stay local)
@@ -315,20 +320,21 @@ class Trainer:
         from a generator on the device seeded ``seed*1000 + fold`` (the JAX
         CV driver's per-fold dropout key)."""
         seed = self.cfg.seed if seed is None else seed
-        gen = torch.Generator().manual_seed(_init_seed(seed, fold))
-        model = self.model_fn(gen).to(self.device)
-        if self.mesh is not None:
-            self._refuse_fused(model)
-            shard_module(model, self.mesh, self.tensor_parallel,
-                         self.batch_axis)
-        drop = torch.Generator(device=self.device).manual_seed(
-            seed * 1000 + fold)
-        set_dropout_generator(model, drop)
-        params = list(model.parameters())
-        opt_state = self.tx.init(params)
-        for p, mu, nu in zip(params, opt_state.mu, opt_state.nu):
-            if tp_group(p) is not None:  # the moments follow the shard
-                mu.tp_group = nu.tp_group = tp_group(p)
+        with span("setup.init_state"):
+            gen = torch.Generator().manual_seed(_init_seed(seed, fold))
+            model = self.model_fn(gen).to(self.device)
+            if self.mesh is not None:
+                self._refuse_fused(model)
+                shard_module(model, self.mesh, self.tensor_parallel,
+                             self.batch_axis)
+            drop = torch.Generator(device=self.device).manual_seed(
+                seed * 1000 + fold)
+            set_dropout_generator(model, drop)
+            params = list(model.parameters())
+            opt_state = self.tx.init(params)
+            for p, mu, nu in zip(params, opt_state.mu, opt_state.nu):
+                if tp_group(p) is not None:  # the moments follow the shard
+                    mu.tp_group = nu.tp_group = tp_group(p)
         return TrainState(model=model, opt_state=opt_state, step=0,
                           dropout_generator=drop)
 
@@ -393,13 +399,17 @@ class Trainer:
         the whole batch's). Updates the BatchNorm running stats, as the
         forward does."""
         model = state.model.train()
-        loss = self._loss_fn(model, batch)
-        grads = torch.autograd.grad(loss, list(model.parameters()),
-                                    allow_unused=True, materialize_grads=True)
-        if self.mesh is not None:
-            flat = all_reduce_tensor(
-                torch._utils._flatten_dense_tensors(grads), self._data_group)
-            grads = torch._utils._unflatten_dense_tensors(flat, grads)
+        with span("train.forward"):
+            loss = self._loss_fn(model, batch)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, list(model.parameters()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+            if self.mesh is not None:
+                flat = all_reduce_tensor(
+                    torch._utils._flatten_dense_tensors(grads),
+                    self._data_group)
+                grads = torch._utils._unflatten_dense_tensors(flat, grads)
         return loss.detach(), grads
 
     @torch.no_grad()
@@ -418,15 +428,17 @@ class Trainer:
     def train_step(self, state: TrainState, batch: dict, lr: float):
         """One optimizer step on ``batch``; returns the loss (a device
         scalar) and updates ``state`` in place."""
-        loss, grads = self.loss_and_grads(state, batch)
-        params = list(state.model.parameters())
-        norm = (self.grad_norm(grads, params)
-                if self.tensor_parallel and self.cfg.grad_clip is not None
-                else None)
-        updates, state.opt_state = self.tx.update(grads, state.opt_state,
-                                                  params, lr, norm=norm)
-        with torch.no_grad():
-            torch._foreach_add_(params, updates)
+        with span("train.step"):
+            loss, grads = self.loss_and_grads(state, batch)
+            with span("train.optimizer"):
+                params = list(state.model.parameters())
+                norm = (self.grad_norm(grads, params)
+                        if self.tensor_parallel
+                        and self.cfg.grad_clip is not None else None)
+                updates, state.opt_state = self.tx.update(
+                    grads, state.opt_state, params, lr, norm=norm)
+                with torch.no_grad():
+                    torch._foreach_add_(params, updates)
         state.step += 1
         return loss
 
@@ -497,9 +509,12 @@ class Trainer:
     # ---------------- host-side API ----------------
 
     def _train_batches(self, state: TrainState, batches, lr: float):
-        self.step_losses = torch.stack([self.train_step(state, batch, lr)
-                                        for batch in batches])
-        return state, float(self.step_losses.mean())
+        with span("train.epoch"):
+            self.step_losses = torch.stack(
+                [self.train_step(state, batch, lr) for batch in batches])
+            with span("train.readback"):
+                loss = float(self.step_losses.mean())
+        return state, loss
 
     def train_epoch(self, state: TrainState, data: dict, indices,
                     shuffle_rng: np.random.Generator, lr: float):

@@ -1,26 +1,154 @@
-"""Profiling and throughput instrumentation (port of
+"""Profiling and the port's spans (port of
 ``multimodal_survival_prediction_tpu/utils/profiling.py``).
 
 ``profile_trace`` is a ``torch.profiler`` window (CPU, and CUDA where there
 is a card) that writes a Chrome trace into its directory, the counterpart of
-JAX's ``jax.profiler`` trace; ``block_and_time`` waits for the device with
-``torch.cuda.synchronize``; ``ThroughputMeter`` is the JAX class unchanged.
+JAX's ``jax.profiler`` trace.
+
+``span(name)`` times one phase of the program on the host clock. Recording
+is always on: each span appends one record to a bounded in-memory ring
+(:data:`RING_SIZE` records; the oldest go first; read as
+:class:`SpanRecord`), with its
+start and end in ``time.perf_counter_ns()``, the index of the span it
+opened inside on the same thread, and whether a ``torch.profiler`` was
+recording when it opened. Outside ``profile_trace`` that is all a span
+does (two clock reads, a flag read and an append); inside it, each span
+also opens ``torch.profiler.record_function(name)``, so the trace shows
+the program's phases on the kernels' clock. A profiler that the program
+did not open gets no event from a span.
+
+The spans and where they are opened:
+
+==========================  ==============================================
+``train.epoch``             ``Trainer._train_batches``: a whole epoch
+``train.step``              ``Trainer.train_step``: one optimizer step
+``train.forward``           ``Trainer.loss_and_grads``: model and loss
+``train.backward``          ``Trainer.loss_and_grads``: autograd's
+                            backward and the mesh's all-reduce
+``train.optimizer``         ``Trainer.train_step``: clip, Adam and the
+                            parameter update
+``train.readback``          ``Trainer._train_batches``: the epoch's mean
+                            loss read back to the host
+``setup.init_state``        ``Trainer.init_state``: model build, copy to
+                            the device, dropout generator, moments
+``setup.kernel_library``    ``io/aot_cache.py:load_or_build``: key, load
+                            or build and ``dlopen`` of one library
+==========================  ==============================================
+
+``spans()`` returns the records, ``self_ns`` a span's self time and
+``reset_spans()`` empties the ring.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
-import time
-from dataclasses import dataclass, field
+import itertools
+import threading
+from time import perf_counter_ns
+from typing import NamedTuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+RING_SIZE = 16384
+
+_RING: collections.deque = collections.deque(maxlen=RING_SIZE)
+_INDEX = itertools.count()
+_STACKS = threading.local()  # each thread's open spans, innermost last
+_ANNOTATE = [0]  # the depth of open profile_trace windows
+
+
+class SpanRecord(NamedTuple):
+    """One span: ``index`` (in opening order, from 0 in the process or
+    since :func:`reset_spans`), ``name``, ``start_ns`` and ``end_ns``
+    (``time.perf_counter_ns()``; ``end_ns`` is None while it is open),
+    ``parent`` (the index of the span it opened inside on its thread, or
+    None) and ``profiled`` (a ``torch.profiler`` was recording when it
+    opened)."""
+
+    index: int
+    name: str
+    start_ns: int
+    end_ns: int | None
+    parent: int | None
+    profiled: bool
+
+    @property
+    def duration_ns(self) -> int:
+        return self.end_ns - self.start_ns
+
+
+class span:
+    """``with span("train.step"): ...`` records the block (module
+    docstring). A class, not a generator context manager, and its record a
+    plain list until :func:`spans` reads it: it sits on the training
+    step's path."""
+
+    __slots__ = ("name", "_rec", "_stack", "_annotation")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        try:
+            stack = _STACKS.stack
+        except AttributeError:
+            stack = _STACKS.stack = []
+        profiled = _autograd_profiler._is_profiler_enabled
+        # [index, name, start_ns, end_ns, parent, profiled]: SpanRecord's
+        rec = [next(_INDEX), self.name, None, None,
+               stack[-1][0] if stack else None, profiled]
+        stack.append(rec)
+        self._rec, self._stack = rec, stack
+        if profiled and _ANNOTATE[0]:
+            self._annotation = torch.profiler.record_function(self.name)
+            self._annotation.__enter__()
+        else:
+            self._annotation = None
+        _RING.append(rec)
+        rec[2] = perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = perf_counter_ns()
+        if self._annotation is not None:
+            self._annotation.__exit__(*exc)
+        self._rec[3] = end
+        self._stack.pop()
+        return False
+
+
+def spans() -> list:
+    """The records in the ring, in opening order, as :class:`SpanRecord`
+    (a snapshot: a span still open keeps ``end_ns`` None)."""
+    return [SpanRecord(*rec) for rec in list(_RING)]
+
+
+def reset_spans():
+    """Empty the ring and number the next span 0 (for tests)."""
+    global _INDEX
+    _RING.clear()
+    _INDEX = itertools.count()
+
+
+def self_ns(rec: SpanRecord, records) -> int:
+    """``rec``'s duration less the part of it that its closed child spans
+    (those of ``records`` whose ``parent`` is ``rec.index``) cover. A
+    thread's children of one span never overlap: it opened them one after
+    another."""
+    covered = sum(min(c.end_ns, rec.end_ns) - max(c.start_ns, rec.start_ns)
+                  for c in records
+                  if c.parent == rec.index and c.end_ns is not None)
+    return rec.duration_ns - covered
 
 
 @contextlib.contextmanager
 def profile_trace(log_dir):
     """Trace a code block with ``torch.profiler`` and write the trace as
     ``<log_dir>/<host>_<pid>.<ns>.pt.trace.json`` (Chrome trace format;
-    TensorBoard's profiler plugin and Perfetto open it). Usage:
+    TensorBoard's profiler plugin and Perfetto open it). Inside it, each
+    :class:`span` is also a ``record_function`` range of the trace. Usage:
 
         with profile_trace("/tmp/trace"):
             run_epoch(...)
@@ -36,63 +164,8 @@ def profile_trace(log_dir):
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(str(log_dir))):
-        yield
-
-
-def _sync(result):
-    """Wait until the card has run everything queued before it (a CPU
-    result is ready as it is returned)."""
-    if torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-    return result
-
-
-def block_and_time(fn, *args, iters: int = 1, **kwargs):
-    """(mean_seconds, last_result) with device completion included."""
-    result = _sync(fn(*args, **kwargs))  # warmup (cuDNN's first calls)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        result = fn(*args, **kwargs)
-    _sync(result)
-    return (time.perf_counter() - t0) / iters, result
-
-
-@dataclass
-class ThroughputMeter:
-    """Steps/sec + items/sec counter for training loops."""
-
-    name: str = "train"
-    _t0: float = field(default_factory=time.perf_counter)
-    steps: int = 0
-    items: int = 0
-
-    def update(self, n_items: int = 0):
-        self.steps += 1
-        self.items += n_items
-
-    @property
-    def elapsed(self) -> float:
-        return time.perf_counter() - self._t0
-
-    @property
-    def steps_per_sec(self) -> float:
-        return self.steps / max(self.elapsed, 1e-9)
-
-    @property
-    def items_per_sec(self) -> float:
-        return self.items / max(self.elapsed, 1e-9)
-
-    def summary(self) -> dict:
-        return {
-            "name": self.name,
-            "steps": self.steps,
-            "items": self.items,
-            "elapsed_sec": round(self.elapsed, 3),
-            "steps_per_sec": round(self.steps_per_sec, 3),
-            "items_per_sec": round(self.items_per_sec, 3),
-        }
-
-    def reset(self):
-        self._t0 = time.perf_counter()
-        self.steps = 0
-        self.items = 0
+        _ANNOTATE[0] += 1
+        try:
+            yield
+        finally:
+            _ANNOTATE[0] -= 1

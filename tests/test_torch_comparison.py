@@ -14,8 +14,9 @@ utilities, on the CPU.
   test_run_all arguments at 1 epoch): artifacts, exit 1 naming a failed
   family, ``--full-analysis`` raising ``ImportError`` without matplotlib
   (the battery itself: tests/test_torch_analysis_scripts.py).
-* ``utils/profiling.py`` (a trace on the CPU) and ``utils/debugging.py``
-  against JAX's on the same trees.
+* ``utils/profiling.py``'s trace on the CPU (its spans:
+  tests/test_torch_tracing.py) and ``utils/debugging.py`` against JAX's on
+  the same trees.
 """
 
 import json
@@ -299,26 +300,6 @@ def test_profile_trace_writes_a_trace_on_cpu(tmp_path):
     names = {e.get("name") for e in
              json.loads(traces[0].read_text())["traceEvents"]}
     assert {"aten::matmul", "aten::relu"} <= names
-
-
-def test_block_and_time_and_throughput_meter():
-    calls = []
-
-    def fn(x, scale=1.0):
-        calls.append(scale)
-        return {"y": [x * scale]}
-
-    sec, out = profiling.block_and_time(fn, torch.ones(3), iters=3,
-                                        scale=2.0)
-    assert sec >= 0 and calls == [2.0] * 4
-    torch.testing.assert_close(out["y"][0], torch.full((3,), 2.0))
-    meter = profiling.ThroughputMeter("t")
-    for _ in range(3):
-        meter.update(8)
-    s = meter.summary()
-    assert (s["name"], s["steps"], s["items"]) == ("t", 3, 24)
-    meter.reset()
-    assert meter.steps == meter.items == 0
 
 
 def _tree(bad=None):
