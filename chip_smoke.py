@@ -47,9 +47,13 @@ result then):
      launch in turns with its unsplit launch (one F chunk).
   8. training (the main path of the training slice): a Trainer on
      PartialModalityNet(fused_bn1=True) at full width takes two epochs over
-     the phase-4 cohort (batch 8) and a pooled evaluation; each fused
-     kernel's launch count, reset just before, must be 61 x the steps just
-     after (none in evaluation). Then the same seeds with fused_bn1=False
+     the phase-4 cohort (batch 8) and a pooled evaluation. train_epoch
+     runs its first step eagerly, captures the second as a CUDA graph and
+     replays every later one: each fused wrapper's launch count, reset
+     just before, must be 61 after the warm-up and 61 more for the capture
+     (none in the replays, none in evaluation), and one more epoch of
+     replays under torch.profiler must hold each fused kernel 61 x its
+     steps in the device trace (the "launches" of the kernels line). Then the same seeds with fused_bn1=False
      (BatchNorm + cuDNN 1x1 conv), and the fused path once more; before the
      first two, step 1's gradients on the first batch (printed, fused vs
      unfused; phase 8b's yardstick): the first
@@ -77,8 +81,8 @@ result then):
      elements at 3.35 TB/s, products at 989 TFLOP/s), the plain version and
      torch.matmul in bf16 (torch.var_mean for moments).
   8b. bf16 training: phase 8 with dtype=torch.bfloat16 (fused, unfused,
-     fused again): each bf16 kernel 61 x the steps, no float32 fused
-     kernel; fused vs unfused loss within 1e-2 relative at step 1 and 5e-2
+     fused again): each bf16 wrapper's count and device kernels as in
+     phase 8, no float32 fused kernel; fused vs unfused loss within 1e-2 relative at step 1 and 5e-2
      at step 2, after the first update (BF16_TRAIN_LIMITS); step 1's
      gradients of the 61 fused stages' dW, dgamma and dbeta, from the same
      weights, batch and masks as phase 8: each no further from phase 8's
@@ -1756,6 +1760,49 @@ def _profile_step(tr, state, data, rows, label, top=8, attempts=3,
                 whole=whole)
 
 
+def _replayed_epoch(tr, state, data, rows, lr, want, bf16=False,
+                    attempts=3):
+    """One more ``train_epoch`` over ``rows`` under torch.profiler, every
+    step a replay of the Trainer's CUDA graph (no fused wrapper called,
+    one ``train.replay`` span a step): each fused wrapper's device kernels
+    in the trace. A trace that holds fewer than ``want`` has lost events
+    (see ``device_ms``; a replay that dropped a kernel reads short in every
+    window), and another epoch is traced, up to ``attempts`` times.
+    Returns ``{wrapper: kernels}`` and whether the trace was whole."""
+    import numpy as np
+
+    from multimodal_survival_prediction_tpu_torch.ops import fused_dense as fd
+    from multimodal_survival_prediction_tpu_torch.utils import profiling
+
+    device_kernels = (FUSED_BF16_DEVICE_KERNELS if bf16
+                      else FUSED_DEVICE_KERNELS)
+    steps = -(-len(rows) // tr.cfg.batch_size)
+    for attempt in range(attempts):
+        calls = [(k.launches, k.launches_bf16) for k in fd.KERNELS]
+        profiling.reset_spans()
+        with _profiled() as window:
+            tr.train_epoch(state, data, rows, np.random.default_rng(attempt),
+                           lr)
+        replays = sum(r.name == "train.replay" for r in profiling.spans())
+        check(replays == steps,
+              f"an epoch of {steps} steps replayed {replays} of them")
+        now = [(k.launches, k.launches_bf16) for k in fd.KERNELS]
+        check(now == calls, f"a replayed epoch called the fused wrappers: "
+              f"(float32, bf16) calls {calls} before, {now} after")
+        traced = {name: sum(e.count for e in window.events
+                            if any(part in e.key for part in parts))
+                  for name, parts in device_kernels.items()}
+        whole = all(traced[k] >= want for k in traced)
+        if whole:
+            break
+        log(f"replayed epoch: the trace holds fused launches {traced}, "
+            f"expected {want} each (attempt {attempt + 1} of {attempts})")
+    check(all(v <= want for v in traced.values()),
+          f"a replayed epoch launched fused kernels {traced}, more than "
+          f"{want} each")
+    return traced, whole
+
+
 def _fused_stage_param(name):
     """Whether parameter ``name`` is one the fused op's gradients reach
     directly: a dense layer's norm1 / conv1 or a transition's norm / conv
@@ -1894,8 +1941,8 @@ def phase_train(table, paths, rna_dim, device="cuda", image_shape=(64, 64, 32),
                 end.synchronize()
                 epoch_ms.append(start.elapsed_time(end))
             losses += tr.step_losses.tolist()
-        launches = {k: getattr(fd.KERNELS[i], count)
-                    for i, k in enumerate(FUSED_NAMES)}  # ... and read here
+        calls = {k: getattr(fd.KERNELS[i], count)
+                 for i, k in enumerate(FUSED_NAMES)}  # ... and read here
         others = [getattr(k, other) for k in fd.KERNELS]
         walls["train"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -1907,32 +1954,53 @@ def phase_train(table, paths, rna_dim, device="cuda", image_shape=(64, 64, 32),
         steps = state.step
         runs[label] = dict(weights0=weights0, losses=losses, cindex=cindex,
                            eval_loss=eval_loss, hazards=hazards,
-                           launches=launches, steps=steps, stages=stages,
+                           calls=calls, steps=steps, stages=stages,
                            epoch_ms=epoch_ms, probe=probe)
         per_step = [round(ms / (steps // epochs), 3) for ms in epoch_ms]
         log(f"train{tag} {label} (fused_bn1={fused}): {steps} steps over "
             f"{epochs} epochs of {arrays.n} rows (batch {cfg.batch_size}); "
             f"ms/step by epoch {per_step or 'not measured (CPU)'}; losses "
             f"{[round(x, 7) for x in losses]}; eval C-index {cindex:.6f}, "
-            f"loss {eval_loss:.6f}; fused kernel launches {launches}")
+            f"loss {eval_loss:.6f}; fused wrapper calls {calls} (the "
+            "warm-up and the capture)")
         check(all(math.isfinite(x) for x in losses) and math.isfinite(
             eval_loss) and np.all(np.isfinite(hazards))
             and hazards.shape == (arrays.n,),
             f"training gave non-finite or misshaped results ({label})")
-        want = stages * steps if (fused and expect_launches) else 0
-        check(all(v == want for v in launches.values()),
-              f"fused kernel launches {launches} on the training path, "
-              f"expected {want} each ({stages} fused stages x {steps} steps)")
+        # on a card the warm-up step calls each wrapper once a fused
+        # stage and the capture once more; the replays call none
+        want = 2 * stages if (fused and expect_launches) else 0
+        check(all(v == want for v in calls.values()),
+              f"fused wrapper calls {calls} on the training path, expected "
+              f"{want} each ({stages} fused stages x the warm-up and the "
+              "capture)")
         check(others == [0] * len(others),
               f"the{tag} training path launched the other dtype's fused "
               f"kernels: {others}")
-        check(eval_launches == launches,
+        check(eval_launches == calls,
               f"evaluation launched fused kernels: {eval_launches}")
         if device != "cpu" and label != "fused again":
             t0 = time.perf_counter()
             runs[label]["profile"] = _profile_step(tr, state, data, rows,
                                                    f"{label}{tag}", bf16=bf16)
             walls["profile"] = time.perf_counter() - t0
+        if device != "cpu":
+            t0 = time.perf_counter()
+            per_epoch = steps // epochs
+            want = stages * per_epoch if fused else 0
+            traced, whole = _replayed_epoch(tr, state, data, rows,
+                                            CFG.learning_rate, want, bf16)
+            runs[label]["launches"] = traced
+            log(f"train{tag} {label}: one more epoch of {per_epoch} "
+                f"replayed steps holds fused launches {traced} in its "
+                f"device trace (whole: {whole})")
+            check(traced == {k: want for k in traced},
+                  f"a replayed epoch's device trace holds fused launches "
+                  f"{traced}, expected {want} each ({stages} fused stages x "
+                  f"{per_epoch} steps)")
+            walls["replayed epoch"] = time.perf_counter() - t0
+        else:
+            runs[label]["launches"] = calls
         log(f"  walls s {({k: round(v, 2) for k, v in walls.items()})}")
 
     def rel(x, y):

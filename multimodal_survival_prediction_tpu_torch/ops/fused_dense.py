@@ -15,7 +15,9 @@ Each of the four is a hand-written CUDA kernel (``csrc/fused_dense.cu``,
 built on first use into six libraries, the float32 and the bf16 kernels of
 three parts, ``BUILDS``) behind a wrapper that counts its launches, float32
 ones in ``<wrapper>.launches`` and bfloat16 ones in
-``<wrapper>.launches_bf16``.
+``<wrapper>.launches_bf16``: its calls on the card, each a launch, or under
+CUDA graph capture the recording of one (a graph's replays launch the
+recorded kernels without the wrapper: a device trace counts those).
 A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
 torch version beside it (``moments_plain``, ...); no build or launch is
 wrapped in a fallback. x, g and W share one compute dtype, float32 or

@@ -1,6 +1,11 @@
 """Per-model-family adapters: batch dict -> model inputs, outputs -> (hazard,
 auxiliary loss). Port of ``multimodal_survival_prediction_tpu/train/adapters.py``:
-every family's branch, and SimMLM's stage-1 adapter."""
+every family's branch, and SimMLM's stage-1 adapter.
+
+An adapter's non-tensor outputs (SimMLM stage 1's ``main_scale``) are
+constants of the adapter: ``Trainer.train_epoch``'s CUDA graph of the step
+(``train/engine.py:_StaticStep``) bakes them in, keyed by the adapter's
+identity."""
 
 from __future__ import annotations
 

@@ -16,6 +16,16 @@ Python loop over shuffled, padded batch indices with one host read-back
 The parameters and BatchNorm buffers live in the model module; the
 optimizer's moments are updated in place (``torch._foreach_*``).
 
+On a card, ``train_epoch`` without a mesh replays each step as one CUDA
+graph (``_StaticStep``), the counterpart of JAX's jitted epoch: the step
+(batch gather, forward, Cox loss, backward, clip, Adam, the update) reads
+its batch's rows and validity, the learning rate and Adam's bias
+corrections from static device buffers, is captured once per train state,
+cohort and batch shape, and is replayed for every later step. On the CPU
+the same static-input step runs eagerly. The streaming epochs, the mesh's
+steps, the fold-parallel step (``train/cv_parallel.py``) and evaluation
+run eagerly.
+
 Streaming epochs (``train_epoch_streaming``, ``evaluate_streaming``) keep
 the cohort on the host as numpy arrays: each batch is gathered there and
 copied to the device by ``data.pipeline.BatchPrefetcher`` while the previous
@@ -40,8 +50,8 @@ single-shard arrays (JAX ``ops/fused_dense.py``), so ``fused_bn1`` under a
 data or model axis larger than 1 raises. DDP is not used: it averages.
 
 Each epoch, step and phase of a step (forward, backward, optimizer, the
-epoch's read-back) and ``init_state`` record a span on the host clock
-(``utils/profiling.py``).
+epoch's read-back; a replayed step's copies and replay), each capture and
+``init_state`` record a span on the host clock (``utils/profiling.py``).
 
 ``aot_cache_dir`` routes the kernels' builds through the kernel-build
 cache (``io/aot_cache.py``): the libraries this process builds on first
@@ -52,6 +62,7 @@ compiling; ``Trainer.aot_info`` reports each one's provenance.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Callable
 
 import numpy as np
@@ -114,14 +125,40 @@ class Optimizer:
         return AdamState(mu=[torch.zeros_like(p) for p in params],
                          nu=[torch.zeros_like(p) for p in params])
 
-    @torch.no_grad()
     def update(self, grads: list, state: AdamState, params: list,
                lr: float, norm: torch.Tensor | None = None):
         """``(updates, state)``; ``state``'s moments are updated in place.
-        Under ``no_grad``: the decay term reads the parameters, and autograd
-        would otherwise chain every step's moments to the last. ``norm``:
-        the gradient's global norm when the caller computed it (tensor
-        parallelism); by default it is taken over ``grads``."""
+        ``norm``: the gradient's global norm when the caller computed it
+        (tensor parallelism); by default it is taken over ``grads``."""
+        count = state.count + 1
+        return self._update(grads, state, params, lr,
+                            1 - self.b1 ** count, 1 - self.b2 ** count, norm)
+
+    def update_static(self, grads: list, state: AdamState, params: list,
+                      scalars: torch.Tensor,
+                      norm: torch.Tensor | None = None):
+        """:meth:`update` with the learning rate and the two bias
+        corrections read from ``scalars``, a (3,) tensor on the device (a
+        row of :meth:`step_scalars` in the moments' dtype: for float32 and
+        float64 moments, the rounding that :meth:`update`'s host floats
+        get), so that a CUDA graph of the step bakes in no host value."""
+        return self._update(grads, state, params, *scalars.unbind(), norm)
+
+    def step_scalars(self, lr: float, count: int, steps: int) -> np.ndarray:
+        """``(steps, 3)`` float64 rows of ``lr``, ``1 - b1**c`` and
+        ``1 - b2**c`` for the Adam counts ``c`` of the next ``steps``
+        steps after ``count``, as :meth:`update` computes them."""
+        return np.array([(lr, 1 - self.b1 ** c, 1 - self.b2 ** c)
+                         for c in range(count + 1, count + steps + 1)],
+                        np.float64).reshape(steps, 3)
+
+    @torch.no_grad()
+    def _update(self, grads: list, state: AdamState, params: list, lr,
+                bc1, bc2, norm):
+        """:meth:`update` and :meth:`update_static`: ``lr``, ``bc1`` and
+        ``bc2`` host floats or 0-dim tensors. Under ``no_grad``: the decay
+        term reads the parameters, and autograd would otherwise chain every
+        step's moments to the last."""
         g = list(grads)
         if self.grad_clip is None:
             norm = None
@@ -129,9 +166,7 @@ class Optimizer:
             norm = torch.linalg.vector_norm(
                 torch.stack(torch._foreach_norm(g)))
         state.count += 1
-        updates = self._adam(g, state.mu, state.nu, params, norm,
-                             1 - self.b1 ** state.count,
-                             1 - self.b2 ** state.count)
+        updates = self._adam(g, state.mu, state.nu, params, norm, bc1, bc2)
         torch._foreach_mul_(updates, -lr)
         return updates, state
 
@@ -163,11 +198,12 @@ class Optimizer:
 
     def _adam(self, g: list, mu: list, nu: list, params: list, norm,
               bc1, bc2) -> list:
-        """The unscaled updates of both :meth:`update` (lists of the
-        parameters' tensors; ``norm`` a 0-dim tensor, ``bc1`` and ``bc2``
-        floats) and :meth:`update_stacked` (lists of one flat (K, P)
-        tensor; ``norm`` (K, 1), ``bc1`` and ``bc2`` lists of one (K, 1)
-        tensor). ``mu`` and ``nu`` are updated in place."""
+        """The unscaled updates of :meth:`update` and
+        :meth:`update_static` (lists of the parameters' tensors; ``norm`` a
+        0-dim tensor, ``bc1`` and ``bc2`` floats or 0-dim tensors) and of
+        :meth:`update_stacked` (lists of one flat (K, P) tensor; ``norm``
+        (K, 1), ``bc1`` and ``bc2`` lists of one (K, 1) tensor). ``mu`` and
+        ``nu`` are updated in place."""
         if norm is not None:
             # optax: where(‖g‖ < max, g, (g / ‖g‖) · max), without a host
             # sync (dividing and multiplying by 1 is exact)
@@ -304,6 +340,7 @@ class Trainer:
                              else None)
         self.tx = make_optimizer(cfg)
         self.step_losses = None  # the last epoch's per-step losses (device)
+        self._static = None  # train_epoch's _StaticStep
 
     @property
     def aot_info(self) -> dict:
@@ -425,9 +462,16 @@ class Trainer:
                 sq[shard].sum(), self._model_group)).sqrt()
         return sq.sum().sqrt()
 
-    def train_step(self, state: TrainState, batch: dict, lr: float):
+    def train_step(self, state: TrainState, batch: dict, lr):
         """One optimizer step on ``batch``; returns the loss (a device
-        scalar) and updates ``state`` in place."""
+        scalar) and updates ``state`` in place. ``lr``: a row of
+        :meth:`_step_scalars` (the learning rate and the step's two bias
+        corrections on the device, read by
+        :meth:`Optimizer.update_static`), as every epoch passes it and as
+        :meth:`train_epoch`'s CUDA graph reads it; or the learning rate,
+        made into that row here."""
+        if not isinstance(lr, torch.Tensor):
+            lr = self._step_scalars(state, lr, 1)[0]
         with span("train.step"):
             loss, grads = self.loss_and_grads(state, batch)
             with span("train.optimizer"):
@@ -435,12 +479,22 @@ class Trainer:
                 norm = (self.grad_norm(grads, params)
                         if self.tensor_parallel
                         and self.cfg.grad_clip is not None else None)
-                updates, state.opt_state = self.tx.update(
+                updates, state.opt_state = self.tx.update_static(
                     grads, state.opt_state, params, lr, norm=norm)
                 with torch.no_grad():
                     torch._foreach_add_(params, updates)
         state.step += 1
         return loss
+
+    def _step_scalars(self, state: TrainState, lr: float,
+                      steps: int) -> torch.Tensor:
+        """The ``(steps, 3)`` rows of :meth:`Optimizer.step_scalars` for
+        the next ``steps`` steps of ``state``, on the device in the Adam
+        moments' dtype: one copy, which does not wait for the device (CUDA
+        stages pageable memory before the call returns)."""
+        return torch.from_numpy(self.tx.step_scalars(
+            lr, state.opt_state.count, steps)).to(
+                self.device, state.opt_state.mu[0].dtype, non_blocking=True)
 
     # ---------------- batches ----------------
 
@@ -508,22 +562,54 @@ class Trainer:
 
     # ---------------- host-side API ----------------
 
-    def _train_batches(self, state: TrainState, batches, lr: float):
+    def _train_batches(self, state: TrainState, batches, steps: int,
+                       lr: float):
         with span("train.epoch"):
+            scalars = self._step_scalars(state, lr, steps)
             self.step_losses = torch.stack(
-                [self.train_step(state, batch, lr) for batch in batches])
-            with span("train.readback"):
-                loss = float(self.step_losses.mean())
-        return state, loss
+                [self.train_step(state, batch, row)
+                 for batch, row in zip(batches, scalars)])
+            return state, self._readback()
+
+    def _readback(self) -> float:
+        with span("train.readback"):
+            return float(self.step_losses.mean())
 
     def train_epoch(self, state: TrainState, data: dict, indices,
                     shuffle_rng: np.random.Generator, lr: float):
         """One epoch over ``indices`` (global row ids into ``data``, a dict
-        of tensors on the device). Returns ``(state, mean loss)``."""
+        of tensors on the device). Returns ``(state, mean loss)``.
+
+        Without a mesh each step is :meth:`_static_step`, which reads its
+        batch's rows, their validity, the learning rate and Adam's bias
+        corrections from static buffers: on a card it is captured once as
+        a CUDA graph and replayed (:class:`_StaticStep`), on the CPU it
+        runs eagerly. Under a mesh, whose collectives stay eager, each
+        step is :meth:`train_step` on its batch."""
         perm, bvalid = self._pad_indices(indices, self.cfg.batch_size,
                                          shuffle_rng)
-        return self._train_batches(
-            state, self._device_batches(data, perm, bvalid), lr)
+        if self.mesh is not None:
+            return self._train_batches(
+                state, self._device_batches(data, perm, bvalid), len(perm),
+                lr)
+        with span("train.epoch"):
+            idx, valid = self._device_indices(perm, bvalid)
+            scalars = self._step_scalars(state, lr, len(idx))
+            key = _StaticStep.make_key(self, state, data, idx.shape[1])
+            if self._static is None or self._static.key != key:
+                self._static = None  # frees the old graph first
+                self._static = _StaticStep(key, self, state, idx.shape[1])
+            self.step_losses = torch.stack([
+                self._static.step(self, state, data, row)
+                for row in zip(idx, valid, scalars)])
+            return state, self._readback()
+
+    def _static_step(self, state: TrainState, data: dict, static):
+        """The step :meth:`train_epoch` captures: the batch gathered from
+        the cohort at ``static.idx`` (validity ``static.valid``), then
+        :meth:`train_step` with ``static.scalars``."""
+        batch = self._gather_batch(data, static.idx, static.valid)
+        return self.train_step(state, batch, static.scalars)
 
     def train_epoch_streaming(self, state: TrainState, host_data: dict,
                               indices, shuffle_rng: np.random.Generator,
@@ -538,7 +624,7 @@ class Trainer:
             self._host_batches(host_data, *self._local(perm, bvalid)),
             depth=depth, device=self.device)
         try:
-            return self._train_batches(state, batches, lr)
+            return self._train_batches(state, batches, len(perm), lr)
         finally:
             batches.close()
 
@@ -587,3 +673,111 @@ class Trainer:
             return self._evaluate_batches(state, batches, len(indices))
         finally:
             batches.close()
+
+
+class _StaticStep:
+    """:meth:`Trainer.train_epoch`'s step of one train state: the static
+    inputs of :meth:`Trainer._static_step` and, on a card, its CUDA graph.
+
+    The key (:meth:`make_key`) is what the graph bakes in: the train state
+    (the objects, and the addresses of its parameters, buffers and
+    moments), its dropout generator, the cohort's tensors (addresses,
+    shapes, strides, dtypes), the batch size, the Trainer's two adapters
+    (whose non-tensor outputs, such as SimMLM stage 1's ``main_scale``,
+    are constants of the adapter) and the TF32 and cuDNN flags. A new key
+    makes a new ``_StaticStep``, and the old graph goes with the old one.
+
+    On a card the first step runs eagerly on the capture stream (the
+    warm-up: kernel libraries load, cuBLAS and cuDNN set up for that
+    stream, and the bf16 ``moments`` counters of that stream are made
+    outside the graph's pool). The second is captured (span
+    ``setup.capture``; nothing runs, so the state and its host counters
+    stay as they were) and then replayed. Every replayed step copies its
+    row of the epoch's indices, validity and scalars into the static
+    buffers, replays the graph and copies its loss out (span
+    ``train.step`` around ``train.replay``), then advances ``state.step``
+    and Adam's count as the eager step does. The fused kernels' launch
+    counts (``ops/fused_dense.py``) count the wrappers' calls, the
+    warm-up's and the capture's: a replay launches the captured kernels
+    without them, and a device trace counts those. The dropout generator
+    is registered with the graph, so each replay draws the next masks of
+    its Philox stream, as an eager step would. On the CPU every step runs
+    the same body eagerly."""
+
+    def __init__(self, key: tuple, trainer: Trainer, state: TrainState,
+                 batch_size: int):
+        dev = trainer.device
+        self.key = key
+        # the keyed objects stay alive with the graph, so their ids do not
+        # pass to others
+        self._held = (state, state.model, state.opt_state,
+                      state.dropout_generator, trainer.hazard_and_aux,
+                      trainer.batch_to_inputs)
+        self.idx = torch.zeros(batch_size, dtype=torch.int64, device=dev)
+        self.valid = torch.zeros(batch_size, dtype=torch.float32, device=dev)
+        self.scalars = torch.zeros(3, dtype=state.opt_state.mu[0].dtype,
+                                   device=dev)
+        self.stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        self.warm = False  # the warm-up has run
+        self.graph = self.loss = None
+
+    @staticmethod
+    def make_key(trainer: Trainer, state: TrainState, data: dict,
+                 batch_size: int) -> tuple:
+        model = state.model
+        tensors = itertools.chain(model.parameters(), model.buffers(),
+                                  state.opt_state.mu, state.opt_state.nu)
+        return (id(state), id(model), id(state.opt_state),
+                id(state.dropout_generator),
+                tuple(t.data_ptr() for t in tensors),
+                tuple((k, v.data_ptr(), tuple(v.shape), v.stride(), v.dtype)
+                      for k, v in data.items()),
+                batch_size, id(trainer.hazard_and_aux),
+                id(trainer.batch_to_inputs),
+                torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32,
+                torch.backends.cudnn.benchmark,
+                torch.backends.cudnn.deterministic)
+
+    def step(self, trainer: Trainer, state: TrainState, data: dict,
+             row) -> torch.Tensor:
+        """One step on ``row`` (this step's indices, validity and scalars,
+        on the device); returns its loss (a device scalar)."""
+        if self.graph is None and self.warm:
+            self._capture(trainer, state, data)
+        if self.graph is not None:
+            with span("train.step"), span("train.replay"):
+                self._fill(row)
+                self.graph.replay()
+                loss = self.loss.clone()
+            state.step += 1
+            state.opt_state.count += 1
+            return loss
+        self._fill(row)
+        if self.stream is None:
+            return trainer._static_step(state, data, self)
+        main = torch.cuda.current_stream(trainer.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            loss = trainer._static_step(state, data, self)
+        main.wait_stream(self.stream)
+        loss.record_stream(main)
+        self.warm = True
+        return loss
+
+    def _fill(self, row):
+        idx, valid, scalars = row
+        self.idx.copy_(idx)
+        self.valid.copy_(valid)
+        self.scalars.copy_(scalars)
+
+    def _capture(self, trainer, state, data):
+        counts = state.step, state.opt_state.count
+        graph = torch.cuda.CUDAGraph()
+        if state.dropout_generator.device.type == "cuda":
+            graph.register_generator_state(state.dropout_generator)
+        with span("setup.capture"):
+            with torch.cuda.graph(graph, stream=self.stream):
+                self.loss = trainer._static_step(state, data, self)
+        state.step, state.opt_state.count = counts
+        self.graph = graph

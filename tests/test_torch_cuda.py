@@ -818,3 +818,313 @@ def test_remat_fused_step_matches_plain_on_card(cuda_device, dropout):
         assert n1 == [stages + layers, stages + layers, stages, stages]
     else:
         assert n0 == n1 == [0] * 4
+
+
+# ---------------------------------------------------------------------------
+# train_epoch's step replayed as a CUDA graph
+# ---------------------------------------------------------------------------
+
+def _pm_trainer(device, remat=False, batch_size=8, dtype=None):
+    """partial_modality with ``fused_bn1`` (DenseNet blocks (2, 3) on
+    16x16x8 CTs, dropout 0.3 in the RNA and fusion MLPs) in compute
+    ``dtype``."""
+    from multimodal_survival_prediction_tpu_torch.config import (
+        PARTIAL_MODALITY,
+    )
+    from multimodal_survival_prediction_tpu_torch.models import (
+        PartialModalityNet,
+    )
+    from multimodal_survival_prediction_tpu_torch.train import engine
+    from multimodal_survival_prediction_tpu_torch.train.adapters import (
+        make_adapters,
+    )
+
+    b2i, haa = make_adapters(PARTIAL_MODALITY)
+    cfg = engine.TrainConfig(batch_size=batch_size, learning_rate=1e-3,
+                             weight_decay=1e-4, grad_clip=1.0)
+    return engine.Trainer(
+        lambda g: PartialModalityNet(rna_dim=24, block_config=(2, 3),
+                                     fused_bn1=True, dropout=0.3,
+                                     remat=remat, generator=g, dtype=dtype),
+        b2i, haa, cfg, device=device)
+
+
+# the device kernels each fused wrapper launches (ops/csrc/fused_dense.cu),
+# by a part of their names, in fd.KERNELS' order; float32 and bf16
+FUSED_DEVICE_KERNELS = {
+    False: (("::moments_partial_kernel",), ("::apply_kernel<",),
+            ("::bwd_reduce_kernel<",),
+            ("::bwd_dx_kernel<", "::bwd_dx_cluster_kernel<")),
+    True: (("::moments_bf16_kernel",), ("::apply_bf16_kernel<",),
+           ("::bwd_reduce_bf16_kernel<",),
+           ("::bwd_dx_bf16_kernel<", "::bwd_dx_cluster_bf16_kernel<")),
+}
+
+
+def _counts(bf16=False):
+    """The fused wrappers' launch counters of one dtype, in KERNELS'
+    order."""
+    return [k.launches_bf16 if bf16 else k.launches for k in fd.KERNELS]
+
+
+def _counted(fn, bf16=False):
+    """``fn()``, then ``(what it returned, the wrappers' calls of each
+    fused kernel in it, those of the other dtype's)``."""
+    before, other = _counts(bf16), _counts(not bf16)
+    out = fn()
+    return (out, [a - b for a, b in zip(_counts(bf16), before)],
+            [a - b for a, b in zip(_counts(not bf16), other)])
+
+
+def _replayed_epoch_kernels(tr, state, data, rows, want, bf16=False,
+                            attempts=3):
+    """One more ``train_epoch`` of ``tr`` over ``rows``, every step a replay
+    (no wrapper call), under torch.profiler: the fused kernels of each
+    wrapper in its trace. The window opens with a spin kernel, as a
+    window's first launch can be missing from its trace; a trace that
+    holds fewer than ``want`` has lost events (a replay that dropped a
+    kernel reads short in every window), and another epoch is traced, up
+    to ``attempts``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1 << 16)
+            torch.cuda.synchronize()
+            _, calls, other = _counted(lambda: tr.train_epoch(
+                state, data, rows, np.random.default_rng(1), 1e-3), bf16)
+            torch.cuda.synchronize()
+        assert calls == other == [0] * 4
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        traced = [sum(e.count for e in events if any(p in e.key
+                                                     for p in parts))
+                  for parts in FUSED_DEVICE_KERNELS[bf16]]
+        if all(t >= w for t, w in zip(traced, want)):
+            break
+    return traced
+
+
+def _change_gap(after, ref, before):
+    """``||(after - before) - (ref - before)|| / ||ref - before||`` over
+    every parameter: how far a step's change of the parameters lies from
+    the reference step's."""
+    num = torch.stack([(a - r).norm() for a, r in zip(after, ref)]).norm()
+    den = torch.stack([(r - b).norm() for r, b in zip(ref, before)]).norm()
+    return float(num / den)
+
+
+def _stepwise(make, data, steps, bf16=False):
+    """``steps`` steps of one train state on the card, each a one-step
+    ``train_epoch`` (the first eager, the second captured and replayed,
+    then replays; the fourth 5 rows padded to 8), and beside each, from
+    copies of the state just before it, ``train_step`` on the same batch
+    twice (eager, eager again). Per step: the three losses, the change
+    gaps of the replay and of eager again from eager, whether the dropout
+    generators and counts agree with eager's, and the wrappers' calls of
+    each fused kernel (of ``bf16``'s dtype; those of the other dtype in
+    ``other``) in the ``train_epoch`` and in eager. Returns the rows and
+    the ``train_epoch`` Trainer and state."""
+    from multimodal_survival_prediction_tpu_torch.train import engine
+
+    trainers = [make() for _ in range(3)]
+    states = [tr.init_state(fold=1) for tr in trainers]
+    n = len(next(iter(data.values())))
+    out = []
+    for k in range(steps):
+        saved = engine.train_state_dict(states[0])
+        for st in states[1:]:
+            engine.load_train_state_dict(st, saved)
+        before = [p.detach().clone() for p in states[0].model.parameters()]
+        rows = (np.arange(5 if k == 3 else 8) + 7 * k) % n
+        losses, launches, other = [], [], []
+        for j, (tr, st) in enumerate(zip(trainers, states)):
+            if j == 0:
+                def epoch(tr=tr, st=st):
+                    tr.train_epoch(st, data, rows, np.random.default_rng(k),
+                                   1e-3)
+                    return tr.step_losses[0]
+
+                loss, calls, others = _counted(epoch, bf16)
+            else:
+                perm, bvalid = tr._pad_indices(rows, 8,
+                                               np.random.default_rng(k))
+                idx, bv = tr._device_indices(perm, bvalid)
+                loss, calls, others = _counted(lambda: tr.train_step(
+                    st, tr._gather_batch(data, idx[0], bv[0]), 1e-3), bf16)
+            losses.append(float(loss))
+            launches.append(calls)
+            other.append(others)
+        params = [[p.detach() for p in st.model.parameters()]
+                  for st in states]
+        out.append(dict(
+            losses=losses,
+            gap=_change_gap(params[0], params[1], before),
+            gap_again=_change_gap(params[2], params[1], before),
+            same=all(torch.equal(states[0].dropout_generator.get_state(),
+                                 st.dropout_generator.get_state())
+                     and (st.step, st.opt_state.count)
+                     == (states[0].step, states[0].opt_state.count)
+                     for st in states[1:]),
+            launches=launches[:2], other=other))
+    assert trainers[0]._static.graph is not None
+    return out, trainers[0], states[0]
+
+
+def _assert_steps_match(rows):
+    """Each step from the same state: the loss within 1e-5 of eager's; the
+    parameters' change no further from eager's than twice the largest
+    gap of eager again from eager over the run's steps, plus 1e-5 (cuDNN's
+    backward does not repeat bit for bit on the card, and a step that
+    happened to repeat says nothing of the rounding of the next: an H100
+    read replay gaps of 1.0e-5 where eager repeated that step exactly, and
+    2.2e-3 in bf16 beside an eager repeat of 9.8e-4 there and 4.2e-3 a step
+    earlier); the dropout generator, the step and Adam's count equal; no
+    launch of the other dtype's fused kernels. The wrappers are called
+    in the warm-up and the capture (``train_epoch``'s steps 1 and 2) as
+    often as eagerly, and never in a replay."""
+    spread = max(r["gap_again"] for r in rows)
+    for k, r in enumerate(rows):
+        lg, le, la = r["losses"]
+        assert abs(lg - le) <= 1e-5 and abs(la - le) <= 1e-5, (k, r)
+        assert r["gap"] <= 2 * spread + 1e-5, (k, r, spread)
+        assert r["same"], k
+        assert r["other"] == [[0] * 4] * 3, (k, r)
+        graph, eager = r["launches"]
+        assert graph == (eager if k < 2 else [0] * 4), (k, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat, dtype", [
+    (False, None), (True, None), (False, torch.bfloat16)],
+    ids=["plain", "remat", "bf16"])
+def test_captured_steps_match_eager_on_card(cuda_device, remat, dtype):
+    """partial_modality with ``fused_bn1``, batch 8, in float32, with remat
+    and in bf16 compute (the bf16 kernels, and the bf16 ``moments``
+    counters of the capture stream): five steps of ``train_epoch`` (the
+    warm-up, the capture and its replay, three replays, one of them
+    ragged), each against eager ``train_step`` from the same state
+    (``_assert_steps_match``). Training amplifies rounding (eager against
+    eager again drifts by 3e-3 of the loss within ten steps on an H100),
+    so each step is compared from a shared state. Then one more epoch of
+    replays under torch.profiler holds each fused kernel as often in the
+    device trace as eager calls it."""
+    bf16 = dtype is not None
+    data = {k: torch.from_numpy(v).to(cuda_device)
+            for k, v in _pm_data().items()}
+    rows, tr, state = _stepwise(
+        lambda: _pm_trainer(cuda_device, remat, dtype=dtype), data, 5, bf16)
+    _assert_steps_match(rows)
+    stages, layers = 2 + 3 + 1, 2 + 3
+    per_step = [stages + layers * remat] * 2 + [stages] * 2
+    assert all(r["launches"][1] == per_step for r in rows)
+    want = [3 * n for n in per_step]  # 3 steps of 8 over 20 rows
+    assert _replayed_epoch_kernels(tr, state, data, np.arange(20), want,
+                                   bf16) == want
+
+
+@pytest.mark.cuda
+def test_captured_epochs_on_card(cuda_device):
+    """Two epochs of ``train_epoch`` (4 steps of 8 over 30 rows) against a
+    loop of ``train_step`` over the same batches from the same state: the
+    first replayed step's loss within 1e-5, the step, Adam's count and the
+    dropout generator's state equal at the end; the fused wrappers called
+    6 times a step eagerly, and in the captured epochs only in the warm-up
+    and the capture; a third epoch of replays holds 4 x 6 of each fused
+    kernel in its device trace. Each replayed step records ``train.step``
+    around ``train.replay``, the capture ``setup.capture`` once. A new
+    batch size, a new cohort dict and a new ``init_state`` each capture
+    anew."""
+    from multimodal_survival_prediction_tpu_torch.train import engine
+    from multimodal_survival_prediction_tpu_torch.utils import profiling
+
+    data = {k: torch.from_numpy(v).to(cuda_device)
+            for k, v in _pm_data().items()}
+    rows = np.arange(30)
+    runs = []
+    for eager in (True, False):
+        tr = _pm_trainer(cuda_device)
+        state = tr.init_state(fold=1)
+        profiling.reset_spans()
+        rng = np.random.default_rng(9)
+        counts, losses = _counts(), []
+        for _ in range(2):
+            if eager:
+                perm, bvalid = tr._pad_indices(rows, 8, rng)
+                idx, bv = tr._device_indices(perm, bvalid)
+                losses += [tr.train_step(state, tr._gather_batch(data, i, v),
+                                         1e-3) for i, v in zip(idx, bv)]
+            else:
+                tr.train_epoch(state, data, rows, rng, 1e-3)
+                losses += list(tr.step_losses)
+        torch.cuda.synchronize()
+        runs.append((torch.stack(losses).cpu(),
+                     [a - b for a, b in zip(_counts(), counts)], state))
+    (want, n_eager, ref), (got, n_graph, state) = runs
+    assert got.shape == want.shape == (8,)
+    assert abs(float(got[0] - want[0])) <= 1e-5  # eager in both
+    assert abs(float(got[1] - want[1])) <= 1e-5  # the first replay
+    assert (state.step, state.opt_state.count) == (ref.step,
+                                                   ref.opt_state.count) \
+        == (8, 8)
+    assert torch.equal(state.dropout_generator.get_state(),
+                       ref.dropout_generator.get_state())
+    assert n_eager == [8 * 6] * 4 and n_graph == [2 * 6] * 4
+
+    recs = profiling.spans()
+    epochs = [r for r in recs if r.name == "train.epoch"]
+    assert len(epochs) == 2
+    assert sum(r.name == "setup.capture" for r in recs) == 1
+    for epoch, replays in zip(epochs, (3, 4)):
+        steps = [r for r in recs if r.parent == epoch.index
+                 and r.name == "train.step"]
+        assert len(steps) == 4
+        assert sum(any(c.parent == s.index and c.name == "train.replay"
+                       for c in recs) for s in steps) == replays
+    assert _replayed_epoch_kernels(tr, state, data, rows,
+                                   [4 * 6] * 4) == [4 * 6] * 4
+
+    assert tr._static.graph is not None
+    for change in ("batch", "cohort", "state"):
+        if change == "batch":
+            tr.cfg = engine.TrainConfig(batch_size=4, learning_rate=1e-3,
+                                        weight_decay=1e-4, grad_clip=1.0)
+        elif change == "cohort":
+            data = {k: v.clone() for k, v in data.items()}
+        else:
+            state = tr.init_state(fold=2)
+        before = tr._static
+        tr.train_epoch(state, data, rows, np.random.default_rng(3), 1e-3)
+        assert tr._static is not before and tr._static.graph is not None
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [
+    "rnaseq_only", "image_only", "simple_fusion", "flexible_multimodal",
+    "final", "partial_modality", "simmim", "simmim_stage1", "mmsurv"])
+def test_every_family_captures_on_card(cuda_device, name):
+    """Each family's Trainer as the CV driver makes it (SimMLM's stage-1
+    Trainer too; the simple CNN at 16x16x8): four steps of
+    ``train_epoch``, each against eager ``train_step`` from the same state
+    (``_assert_steps_match``)."""
+    import dataclasses
+
+    from multimodal_survival_prediction_tpu_torch.config import ALL_CONFIGS
+    from multimodal_survival_prediction_tpu_torch.train.cv import (
+        make_trainers,
+    )
+
+    family = name.removesuffix("_stage1")
+    cfg = dataclasses.replace(ALL_CONFIGS[family], batch_size=8,
+                              image_shape=(16, 16, 8))
+    data = {k: torch.from_numpy(v).to(cuda_device)
+            for k, v in _pm_data().items()}
+
+    def make():
+        trainers = make_trainers(cfg, 24, "simple_cnn", None, cuda_device)
+        return trainers[1] if name.endswith("_stage1") else trainers[0]
+
+    rows, _, _ = _stepwise(make, data, 4)
+    _assert_steps_match(rows)

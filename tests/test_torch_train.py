@@ -393,3 +393,146 @@ def test_trainer_epoch_matches_jax(monkeypatch):
     assert abs(c - jc) <= 1e-6
     np.testing.assert_allclose(h, np.asarray(jh), atol=1e-4)
     np.testing.assert_allclose(eval_loss, jeval_loss, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# train_epoch's static-input step (the step a card captures) on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("clip", [1e-3, 1e3], ids=["clip_binds",
+                                                   "clip_free"])
+@pytest.mark.parametrize("kind", ["adam", "adamw"])
+def test_update_static_equals_update(kind, clip, dtype):
+    """``Optimizer.update_static`` (the learning rate and the bias
+    corrections read from a row of ``step_scalars`` in the moments' dtype,
+    as a CUDA graph reads them) against ``update`` (host floats) over
+    three steps: the updates, moments and counts bit-equal, in float32 and
+    in float64 (where float32 scalars would round the corrections)."""
+    rng = np.random.default_rng(3)
+    shapes = [(5, 3), (3,), (2, 2, 2)]
+    params = [torch.from_numpy(rng.normal(size=s)).to(dtype) for s in shapes]
+    tx = engine.Optimizer(engine.TrainConfig(
+        optimizer=kind, grad_clip=clip, weight_decay=1e-2))
+    states = [tx.init(params), tx.init(params)]
+    for k in range(3):
+        grads = [torch.from_numpy(rng.normal(size=s)).to(dtype)
+                 for s in shapes]
+        lr = 1e-3 / (k + 1)
+        want, _ = tx.update(grads, states[0], params, lr)
+        row = torch.from_numpy(tx.step_scalars(lr, states[1].count, 1))
+        got, _ = tx.update_static(grads, states[1], params,
+                                  row[0].to(dtype))
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), k
+        for a, b in zip(states[1].mu + states[1].nu,
+                        states[0].mu + states[0].nu):
+            assert torch.equal(a, b), k
+        assert states[1].count == states[0].count == k + 1
+        params = [p + u for p, u in zip(params, want)]
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("clip", [1e-3, 1e3], ids=["clip_binds",
+                                                   "clip_free"])
+@pytest.mark.parametrize("kind", ["adam", "adamw"])
+def test_static_input_step_equals_train_step(kind, clip, dtype):
+    """``train_epoch``'s step (the body a card captures, run eagerly on the
+    CPU: the batch gathered at static index and validity buffers, the LR
+    and Adam's bias corrections read from a static buffer) against a loop
+    of ``train_step`` over the same batches, over one epoch of 4 steps of 4
+    rows whose last holds 2 rows and 2 of padding, with dropout on, with
+    float32 and bf16 compute (float32 parameters and moments either way):
+    the step losses, parameters, BatchNorm buffers
+    (``num_batches_tracked`` included), Adam's moments and count, the step
+    and the dropout generator's state all bit-equal."""
+    data = {k: torch.from_numpy(v) for k, v in _cohort(n=14).items()}
+    rows = np.arange(14)
+    _, b2i, haa = make_model_and_adapters(PARTIAL_MODALITY, rna_dim=RNA_DIM)
+    cfg = engine.TrainConfig(batch_size=4, learning_rate=1e-3,
+                             weight_decay=1e-2, optimizer=kind,
+                             grad_clip=clip)
+    runs = []
+    for static in (False, True):
+        tr = engine.Trainer(
+            lambda g: PartialModalityNet(rna_dim=RNA_DIM,
+                                         block_config=(2, 2),
+                                         fused_bn1=True, dropout=0.3,
+                                         generator=g, dtype=dtype),
+            b2i, haa, cfg, device="cpu")
+        state = tr.init_state(fold=1)
+        drawn = state.dropout_generator.get_state()
+        rng = np.random.default_rng(5)
+        if static:
+            tr.train_epoch(state, data, rows, rng, 1e-3)
+            assert tr._static.scalars.dtype == state.opt_state.mu[0].dtype \
+                == torch.float32
+            losses = tr.step_losses
+        else:
+            perm, bvalid = tr._pad_indices(rows, 4, rng)
+            assert bvalid.sum(1).tolist() == [4, 4, 4, 2]
+            losses = torch.stack([
+                tr.train_step(state, tr._gather_batch(
+                    data, torch.from_numpy(i).long(), torch.from_numpy(v)),
+                    1e-3) for i, v in zip(perm, bvalid)])
+        runs.append((losses, state))
+    (want, ref), (got, state) = runs
+    assert got.shape == (4,) and torch.equal(got, want)
+    assert (state.step, state.opt_state.count) == (ref.step, 4) == (4, 4)
+    sd, ref_sd = state.model.state_dict(), ref.model.state_dict()
+    assert list(sd) == list(ref_sd)
+    assert any(k.endswith("num_batches_tracked") for k in sd)
+    for k, v in ref_sd.items():
+        assert torch.equal(sd[k], v), k
+    for mine, theirs in ((state.opt_state.mu, ref.opt_state.mu),
+                         (state.opt_state.nu, ref.opt_state.nu)):
+        assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    assert torch.equal(state.dropout_generator.get_state(),
+                       ref.dropout_generator.get_state())
+    assert not torch.equal(state.dropout_generator.get_state(), drawn)
+
+
+def test_static_step_is_kept_per_state_cohort_and_batch():
+    """``train_epoch`` keeps its static step (on a card: its CUDA graph)
+    while the train state, the cohort's tensors and the batch size stay,
+    across epochs and learning rates and through a resume's in-place
+    restore; a new ``init_state``, a cohort of other tensors and another
+    batch size each make a new one."""
+    from multimodal_survival_prediction_tpu_torch.models import (
+        RNASeqSurvivalModel,
+    )
+
+    tr = engine.Trainer(lambda g: RNASeqSurvivalModel(rna_dim=8,
+                                                      generator=g),
+                        lambda b: (b["rnaseq"],),
+                        cfg=engine.TrainConfig(batch_size=4), device="cpu")
+    rng = np.random.default_rng(0)
+    data = {"rnaseq": torch.from_numpy(
+                rng.normal(size=(20, 8)).astype(np.float32)),
+            "time": torch.from_numpy(
+                rng.uniform(1, 100, 20).astype(np.float32)),
+            "event": torch.from_numpy(
+                (rng.uniform(size=20) < 0.6).astype(np.float32)),
+            "svalid": torch.ones(20)}
+    rows, shuffle = np.arange(20), np.random.default_rng(1)
+    state = tr.init_state(fold=1)
+    tr.train_epoch(state, data, rows, shuffle, 1e-3)
+    first = tr._static
+    tr.train_epoch(state, dict(data), rows, shuffle, 5e-4)
+    engine.load_train_state_dict(state, engine.train_state_dict(state))
+    tr.train_epoch(state, data, rows, shuffle, 1e-3)
+    assert tr._static is first and state.step == 15
+    assert first.idx.shape == (4,) and first.scalars.dtype == torch.float32
+    seen = [first]
+    for change in ("state", "cohort", "batch"):
+        if change == "state":
+            state = tr.init_state(fold=2)
+        elif change == "cohort":
+            data = {k: v.clone() for k, v in data.items()}
+        else:
+            tr.cfg = engine.TrainConfig(batch_size=8)
+        tr.train_epoch(state, data, rows, shuffle, 1e-3)
+        assert all(tr._static is not s for s in seen), change
+        seen.append(tr._static)
+    assert tr._static.idx.shape == (8,)
