@@ -49,7 +49,7 @@ def main(argv=None) -> dict:
                         "log-hazards averaged) instead of --fold's one")
     p.add_argument("--models-dir", default="models")
     p.add_argument("--backbone", default=None,
-                   choices=["densenet121", "simple_cnn"],
+                   choices=["densenet121", "simple_cnn", "swin_vit"],
                    help="default: the checkpoint's .meta.json, else "
                         "densenet121")
     p.add_argument("--pallas-resample", action=argparse.BooleanOptionalAction,

@@ -10,6 +10,9 @@
 | PartialModalityNet      | gated.py       | partial_modality_training.py:165-277|
 | SimMLMSurvivalNet       | moe.py         | generate_km_curves.py:160-281       |
 | MMsurvNet               | mmsurv.py      | none (JAX models/mmsurv.py)         |
+
+CT encoders (``encoders.image_encoder``): DenseNet121-3D (densenet3d.py),
+the simple CNN (encoders.py) and MONAI SwinUNETR's Swin-ViT (swin3d.py).
 """
 
 from .densenet3d import DenseNet121_3D
@@ -30,6 +33,7 @@ from .image_only import ImageOnlyModel
 from .mmsurv import MMsurvNet
 from .moe import SimMLMSurvivalNet
 from .rnaseq import RNASeqSurvivalModel
+from .swin3d import SwinViT3D
 
 __all__ = [
     "ClinicalEncoder",
@@ -45,5 +49,6 @@ __all__ = [
     "SimMLMSurvivalNet",
     "SimpleCNN3D",
     "SimpleFusionModel",
+    "SwinViT3D",
     "image_encoder",
 ]

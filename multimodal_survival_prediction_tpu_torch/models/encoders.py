@@ -11,6 +11,7 @@ one, so its state_dict keys (``rna_encoder.0.weight``, ``ct_encoder.3.bias``,
   * clinical: Linear(1 -> 32) + ReLU (final_multimodal.py:104-107)
   * simple CNN: three stride-2 conv/BN/ReLU blocks + global average pool,
     the MONAI-less fallback CT encoder (partial_modality_training.py:179-191)
+  * Swin-ViT: MONAI SwinUNETR's transformer encoder (``models/swin3d.py``)
 
 Each takes the compute ``dtype`` of its layers (JAX ``dtype``;
 ``models/layers.py``), None for float32.
@@ -31,6 +32,7 @@ from .layers import (
     to_ncdhw,
     torch_linear,
 )
+from .swin3d import SwinViT3D
 
 
 class RNAEncoderDeep(nn.Sequential):
@@ -104,17 +106,31 @@ def image_encoder(out_features: int = 128, backbone: str = "densenet121",
                   dtype: torch.dtype | None = None,
                   remat: bool = False) -> nn.Module:
     """The CT encoder — DenseNet121-3D (default, the reference's USE_MONAI
-    path) or the simple CNN fallback — as the bare module (the counterpart
-    of the JAX ``ImageEncoder``, which wraps it; the reference's keys have
-    no wrapper level). ``block_config`` None = DenseNet121's (6, 12, 24, 16).
-    ``remat`` recomputes DenseNet's dense layers in the backward; the
-    simple CNN ignores it, as in JAX."""
+    path), the simple CNN fallback, or MONAI SwinUNETR's Swin-ViT
+    (``swin_vit``, ``models/swin3d.py``; published for 96^3 inputs) — as
+    the bare module (the counterpart of the JAX ``ImageEncoder``, which
+    wraps it; the reference's keys have no wrapper level). ``block_config``
+    None = DenseNet121's (6, 12, 24, 16). ``remat`` recomputes DenseNet's
+    dense layers in the backward; the simple CNN ignores it, as in JAX.
+    The Swin-ViT runs in float32 alone: a compute ``dtype``, ``remat``,
+    ``fused_bn1`` or a ``block_config`` with it raise."""
     if backbone == "densenet121":
         kwargs = ({"block_config": block_config}
                   if block_config is not None else {})
         return DenseNet121_3D(out_features=out_features, trunk=trunk,
                               fused_bn1=fused_bn1, generator=generator,
                               dtype=dtype, remat=remat, **kwargs)
+    if backbone == "swin_vit":
+        refused = [name for name, on in (
+            ("a compute dtype", dtype is not None), ("remat", remat),
+            ("fused_bn1", bool(fused_bn1)),
+            ("block_config", block_config is not None)) if on]
+        if refused:
+            raise ValueError(
+                f"backbone 'swin_vit' takes no {', '.join(refused)}: the "
+                "Swin-ViT encoder runs in float32, without remat or fused "
+                "stages")
+        return SwinViT3D(out_features=out_features, generator=generator)
     if backbone == "simple_cnn":
         return SimpleCNN3D(out_features=out_features, generator=generator,
                            dtype=dtype)

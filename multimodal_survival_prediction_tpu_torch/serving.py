@@ -352,7 +352,7 @@ def main(argv=None) -> None:
                     help="fold checkpoint(s) (.pt, .msgpack or .pth); "
                          "several = fold ensemble")
     ap.add_argument("--backbone", default=None,
-                    choices=["densenet121", "simple_cnn"],
+                    choices=["densenet121", "simple_cnn", "swin_vit"],
                     help="default: the checkpoint's .meta.json, else "
                          "densenet121")
     ap.add_argument("--rna-dim", type=int, default=None,

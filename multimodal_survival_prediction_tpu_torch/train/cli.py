@@ -89,9 +89,13 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--learning-rate", type=float, default=None)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--backbone", default="densenet121",
-                   choices=["densenet121", "simple_cnn"],
-                   help="CT encoder (simple_cnn = the reference's MONAI-less "
-                        "fallback)")
+                   choices=["densenet121", "simple_cnn", "swin_vit"],
+                   help="CT encoder: densenet121 (MONAI DenseNet121-3D, the "
+                        "reference's), simple_cnn (the reference's "
+                        "MONAI-less fallback) or swin_vit (MONAI "
+                        "SwinUNETR's Swin-ViT encoder, arXiv:2201.01266, "
+                        "float32 only; published for --image-shape "
+                        "96,96,96)")
     p.add_argument("--synthetic", action="store_true",
                    help="generate & train on a synthetic cohort under "
                         "--data-root (no TCGA data)")
@@ -228,6 +232,15 @@ def _validate(args, cfg):
             "(use the sequential driver for those). --streaming DOES "
             "compose: host-resident cohort, stacked per-step batches "
             "(train/cv_parallel.py module docstring)")
+    if args.backbone == "swin_vit":
+        refused = [flag for flag, on in (("--bf16", args.bf16),
+                                         ("--remat", args.remat),
+                                         ("--tp > 1", args.tp > 1)) if on]
+        if refused:
+            raise SystemExit(
+                f"--backbone swin_vit does not take {', '.join(refused)}: "
+                "the Swin-ViT encoder runs in float32 on one device's "
+                "weights, without remat (nor fused_bn1, which no CLI sets)")
     if args.stage1_epochs is not None and not cfg.stage1_epochs:
         raise SystemExit(
             f"--stage1-epochs only applies to two-stage models (SimMLM); "

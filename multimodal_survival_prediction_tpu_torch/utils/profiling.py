@@ -41,10 +41,27 @@ The spans and where they are opened:
                             the device, dropout generator, moments
 ``setup.kernel_library``    ``io/aot_cache.py:load_or_build``: key, load
                             or build and ``dlopen`` of one library
+``swin.patch_embed``        ``models/swin3d.py:SwinTransformer``: the
+                            Swin-ViT encoder's patch embedding, in every
+                            eager forward (a replay records none)
+``swin.stage1`` .. ``4``    the same encoder's stages: blocks and merging
 ==========================  ==============================================
 
 ``spans()`` returns the records, ``self_ns`` a span's self time and
 ``reset_spans()`` empties the ring.
+
+``count(name, n)`` adds ``n`` to a counter, beside the spans and as cheap
+(a dict update on the host, no device work, so it may run inside a CUDA
+graph's capture, where it counts the captured call once). ``counters()``
+reads them all and ``reset_counters()`` sets them to 0. The counters:
+
+==================================  ======================================
+``swin.window_tokens.real``         ``models/swin3d.py``: each window
+                                    attention call's tokens before padding
+                                    (batch x D x H x W of its stage)
+``swin.window_tokens.attended``     the same call's tokens after padding to
+                                    whole windows, the padding included
+==================================  ======================================
 """
 
 from __future__ import annotations
@@ -65,6 +82,7 @@ _RING: collections.deque = collections.deque(maxlen=RING_SIZE)
 _INDEX = itertools.count()
 _STACKS = threading.local()  # each thread's open spans, innermost last
 _ANNOTATE = [0]  # the depth of open profile_trace windows
+_COUNTS: collections.Counter = collections.Counter()
 
 
 class SpanRecord(NamedTuple):
@@ -138,6 +156,21 @@ def reset_spans():
     global _INDEX
     _RING.clear()
     _INDEX = itertools.count()
+
+
+def count(name: str, n: int):
+    """Add ``n`` to the counter ``name`` (module docstring)."""
+    _COUNTS[name] += n
+
+
+def counters() -> dict:
+    """``{name: total}`` of every counter so far (a snapshot)."""
+    return dict(_COUNTS)
+
+
+def reset_counters():
+    """Set every counter to 0 (drop them all)."""
+    _COUNTS.clear()
 
 
 def self_ns(rec: SpanRecord, records) -> int:
