@@ -34,9 +34,14 @@ Early-stopped folds keep computing (their records are frozen on the host):
 the run lasts as long as its slowest fold.
 
 The epoch is a Python loop over steps, each one vmapped dispatch of all
-folds (torch has no ``lax.scan``). The epochs, schedules and records
-(:func:`train_stacked`) are shared with the sweep (``train/sweep.py``). ``streaming`` changes only where each
-step's stacked (K, B, ...) batch is gathered: on the host, through
+folds (torch has no ``lax.scan``). On a card without a mesh, each step
+where every fold is valid is a replay of one CUDA graph of that dispatch
+and the optimizer (:class:`_StackedGraph`, the counterpart of
+``engine._StaticStep``), captured once per stacked state and batch shape;
+masked steps, the CPU and a mesh run the same body eagerly. The epochs,
+schedules and records (:func:`train_stacked`) are shared with the sweep
+(``train/sweep.py``). ``streaming`` changes only where each step's stacked
+(K, B, ...) batch is gathered: on the host, through
 ``data.pipeline.BatchPrefetcher``, instead of on the device.
 
 The driver builds the unfused model, as JAX's does, so the fused
@@ -89,6 +94,7 @@ from ..parallel.mesh import mesh_shape
 from ..parallel.multihost import is_coordinator
 from ..parallel.sharding import batch_rows
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .cv import (
     FoldOutcome,
     _compute_dtype,
@@ -355,13 +361,20 @@ def _draw_uniforms(state: StackedState, shapes: list, step_valid):
 
 
 def _build_parallel_train_step(trainer: Trainer):
-    """The vmapped single step: ``step(state, batch, lr, step_valid)``
-    advances every fold of ``state`` on its slice of the stacked (K, B,
-    ...) ``batch`` with learning rates ``lr`` ((K, 1), the parameters'
-    dtype) and returns the (K,) losses (0 where masked). ``step_valid`` (K
-    host bools) masks whole steps. Under a trainer's data group (a fold
-    mesh's data axis) ``batch`` holds this rank's rows, and the stacked
-    gradients are summed over the group in one collective."""
+    """The vmapped single step, ``(step, static_step)``.
+
+    ``step(state, batch, lr, step_valid)`` advances every fold of ``state``
+    on its slice of the stacked (K, B, ...) ``batch`` with learning rates
+    ``lr`` ((K, 1), the parameters' dtype) and returns the (K,) losses (0
+    where masked). ``step_valid`` (K host bools) masks whole steps. Under a
+    trainer's data group (a fold mesh's data axis) ``batch`` holds this
+    rank's rows, and the stacked gradients are summed over the group in one
+    collective.
+
+    ``static_step(state, batch, lr, bc)`` is the same step where every fold
+    is valid and no mesh is in play, with Adam's bias corrections read from
+    ``bc`` ((K, 2), on the device) instead of the host counts, which it
+    leaves to its caller: what :class:`_StackedGraph` captures."""
 
     def fold_loss(params, buffers, batch, uniforms, template):
         feed = iter(uniforms)
@@ -372,21 +385,28 @@ def _build_parallel_train_step(trainer: Trainer):
     grad_fn = grad_and_value(fold_loss)
     shapes: dict = {}
 
-    def step(state: StackedState, batch: dict, lr: torch.Tensor, step_valid):
-        step_valid = np.asarray(step_valid, bool)
+    def uniforms(state: StackedState, batch: dict, step_valid):
         key = tuple((k, tuple(v.shape)) for k, v in batch.items())
         if key not in shapes:
             shapes[key] = _dropout_shapes(trainer, state, batch)
-        uniforms = _draw_uniforms(state, shapes[key], step_valid)
-        masked = not step_valid.all()
-        saved = state.save() if masked else None
+        return _draw_uniforms(state, shapes[key], step_valid)
+
+    def grads_and_loss(state: StackedState, batch: dict, drawn):
+        """The flat (K, P) gradients and the (K,) losses."""
         state.template.train()
         with no_vmap_fallback():
             grads, loss = vmap(grad_fn, in_dims=(0, 0, 0, 0, None))(
-                state.param_views, state.buffer_views, batch, uniforms,
+                state.param_views, state.buffer_views, batch, drawn,
                 state.template)
-        flat = torch.cat([grads[n].reshape(state.k, -1)
-                          for n in state.param_names], dim=1)
+        return torch.cat([grads[n].reshape(state.k, -1)
+                          for n in state.param_names], dim=1), loss
+
+    def step(state: StackedState, batch: dict, lr: torch.Tensor, step_valid):
+        step_valid = np.asarray(step_valid, bool)
+        drawn = uniforms(state, batch, step_valid)
+        masked = not step_valid.all()
+        saved = state.save() if masked else None
+        flat, loss = grads_and_loss(state, batch, drawn)
         if trainer.mesh is not None:
             flat = all_reduce_tensor(flat, trainer._data_group)
         count = state.count + step_valid
@@ -400,7 +420,116 @@ def _build_parallel_train_step(trainer: Trainer):
         state.step = state.step + step_valid
         return loss.detach()
 
-    return step
+    def static_step(state: StackedState, batch: dict, lr: torch.Tensor,
+                    bc: torch.Tensor):
+        drawn = uniforms(state, batch, np.ones(state.k, bool))
+        flat, loss = grads_and_loss(state, batch, drawn)
+        trainer.tx.update_stacked_static(flat, state.mu, state.nu,
+                                         state.params, bc, lr, state.sizes)
+        return loss.detach()
+
+    return step, static_step
+
+
+def _replays(trainer: Trainer, state: StackedState) -> bool:
+    """Whether the stacked epoch replays its all-valid steps as a CUDA
+    graph: on a card, without a mesh (whose collectives stay eager)."""
+    return trainer.mesh is None and state.device.type == "cuda"
+
+
+class _StackedGraph:
+    """The all-valid step of :func:`_build_parallel_train_epoch` for one
+    stacked state on a card: the static inputs of its ``static_step`` and
+    its CUDA graph.
+
+    The key (:meth:`make_key`) is what the graph bakes in: the
+    ``StackedState`` object and the addresses of its flat parameters,
+    moments and buffers, its K dropout generators, the template, the
+    Trainer's loss and adapters, each batch key's shape, stride and dtype,
+    and the TF32 and cuDNN flags. A new key makes a new ``_StackedGraph``,
+    and the old graph goes with the old one.
+
+    The first step runs eagerly on the capture stream (the warm-up: the
+    dropout shapes found, kernel libraries loaded, cuBLAS and cuDNN set up
+    for that stream). The second is captured (span ``setup.capture``;
+    nothing runs) and then replayed, as is every later one: each copies
+    its stacked batch, one ``copy_`` a key, and its row of the epoch's
+    bias corrections into the static buffers, replays the graph and clones
+    its (K,) loss (span ``train.replay``). The learning rates are copied in
+    once an epoch. Every fold's generator is registered with the graph, so
+    each replay draws the next uniforms of every fold's Philox stream, as
+    an eager step would. The caller advances the host counts."""
+
+    def __init__(self, key: tuple, trainer: Trainer, state: StackedState,
+                 batch: dict):
+        dev = state.device
+        self.key = key
+        # the keyed objects stay alive with the graph, so their ids do not
+        # pass to others
+        self._held = (state, state.template, *state.generators,
+                      trainer._loss_fn, trainer.batch_to_inputs,
+                      trainer.hazard_and_aux)
+        self.batch = {k: torch.empty_like(v) for k, v in batch.items()}
+        self.lr = torch.zeros(state.k, 1, dtype=state.params.dtype,
+                              device=dev)
+        self.bc = torch.zeros(state.k, 2, dtype=state.mu.dtype, device=dev)
+        self.stream = torch.cuda.Stream(dev)
+        self.warm = False  # the warm-up has run
+        self.graph = self.loss = None
+
+    @staticmethod
+    def make_key(trainer: Trainer, state: StackedState, batch: dict) -> tuple:
+        loss_fn = trainer._loss_fn
+        return (id(state), id(state.template),
+                tuple(t.data_ptr() for t in state._tensors()),
+                tuple(id(g) for g in state.generators),
+                id(getattr(loss_fn, "__self__", None)),
+                id(getattr(loss_fn, "__func__", loss_fn)),
+                id(trainer.batch_to_inputs), id(trainer.hazard_and_aux),
+                tuple((k, tuple(v.shape), v.stride(), v.dtype)
+                      for k, v in batch.items()),
+                torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32,
+                torch.backends.cudnn.benchmark,
+                torch.backends.cudnn.deterministic)
+
+    def step(self, static_step, state: StackedState, batch: dict,
+             bc: torch.Tensor) -> torch.Tensor:
+        """One all-valid step on ``batch`` with bias corrections ``bc``
+        ((K, 2), on the device); returns its (K,) losses."""
+        if self.graph is None and self.warm:
+            self._capture(static_step, state)
+        if self.graph is not None:
+            with span("train.replay"):
+                self._fill(batch, bc)
+                self.graph.replay()
+                return self.loss.clone()
+        self._fill(batch, bc)
+        main = torch.cuda.current_stream(state.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            loss = static_step(state, self.batch, self.lr, self.bc)
+        main.wait_stream(self.stream)
+        loss.record_stream(main)
+        self.warm = True
+        return loss
+
+    def _fill(self, batch: dict, bc: torch.Tensor):
+        for k, v in batch.items():
+            self.batch[k].copy_(v)
+        self.bc.copy_(bc)
+
+    def _capture(self, static_step, state: StackedState):
+        graph = torch.cuda.CUDAGraph()
+        for g in state.generators:
+            graph.register_generator_state(g)
+        with span("setup.capture"):
+            # thread_local: a streaming epoch's prefetcher thread goes on
+            # pinning and copying batches on its own stream meanwhile
+            with torch.cuda.graph(graph, stream=self.stream,
+                                  capture_error_mode="thread_local"):
+                self.loss = static_step(state, self.batch, self.lr, self.bc)
+        self.graph = graph
 
 
 def _build_parallel_train_epoch(trainer: Trainer):
@@ -408,17 +537,51 @@ def _build_parallel_train_epoch(trainer: Trainer):
     ``batches`` (each step's stacked batch) with whole-step masking by
     ``step_valid`` (K, steps) and the K learning rates ``lrs``. Returns the
     (steps, K) losses and each fold's mean over its valid steps, on the
-    device."""
-    step = _build_parallel_train_step(trainer)
+    device.
+
+    On a card without a mesh (:func:`_replays`) every step where all folds
+    are valid is a replay of one CUDA graph (:class:`_StackedGraph`, kept
+    from epoch to epoch while its key holds); the others, and every step on
+    the CPU or under a mesh, run the eager body. Spans: ``train.epoch``
+    around the epoch, ``train.step`` around each step."""
+    step, static_step = _build_parallel_train_step(trainer)
+    held: _StackedGraph | None = None
 
     def epoch(state: StackedState, batches, step_valid, lrs):
-        lr = torch.tensor(np.asarray(lrs)[:, None],
-                          dtype=state.params.dtype).to(state.device)
-        losses = torch.stack([step(state, batch, lr, step_valid[:, s])
-                              for s, batch in enumerate(batches)])
-        n_valid = torch.from_numpy(
-            np.maximum(step_valid.sum(axis=1), 1).astype(np.float32))
-        return losses, losses.sum(dim=0) / n_valid.to(state.device)
+        nonlocal held
+        with span("train.epoch"):
+            lr = torch.tensor(np.asarray(lrs)[:, None],
+                              dtype=state.params.dtype).to(state.device)
+            replays = _replays(trainer, state)
+            if replays:
+                # each step's (K, 2) bias corrections, from the counts an
+                # eager step would reach, in one copy
+                counts = state.count[:, None] + np.cumsum(step_valid, axis=1)
+                bcs = torch.from_numpy(trainer.tx.stacked_corrections(
+                    np.maximum(counts, 1).T)).to(state.device, state.mu.dtype,
+                                                 non_blocking=True)
+            losses, filled = [], None
+            for s, batch in enumerate(batches):
+                valid = step_valid[:, s]
+                with span("train.step"):
+                    if not (replays and valid.all()):
+                        losses.append(step(state, batch, lr, valid))
+                        continue
+                    key = _StackedGraph.make_key(trainer, state, batch)
+                    if held is None or held.key != key:
+                        held = None  # frees the old graph first
+                        held = _StackedGraph(key, trainer, state, batch)
+                    if held is not filled:
+                        held.lr.copy_(lr)
+                        filled = held
+                    losses.append(held.step(static_step, state, batch,
+                                            bcs[s]))
+                    state.count = state.count + 1
+                    state.step = state.step + 1
+            losses = torch.stack(losses)
+            n_valid = torch.from_numpy(
+                np.maximum(step_valid.sum(axis=1), 1).astype(np.float32))
+            return losses, losses.sum(dim=0) / n_valid.to(state.device)
 
     return epoch
 

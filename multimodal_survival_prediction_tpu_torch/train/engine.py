@@ -23,8 +23,8 @@ its batch's rows and validity, the learning rate and Adam's bias
 corrections from static device buffers, is captured once per train state,
 cohort and batch shape, and is replayed for every later step. On the CPU
 the same static-input step runs eagerly. The streaming epochs, the mesh's
-steps, the fold-parallel step (``train/cv_parallel.py``) and evaluation
-run eagerly.
+steps and evaluation run eagerly; the fold-parallel step
+(``train/cv_parallel.py``) replays a graph of its own.
 
 Streaming epochs (``train_epoch_streaming``, ``evaluate_streaming``) keep
 the cohort on the host as numpy arrays: each batch is gathered there and
@@ -196,12 +196,43 @@ class Optimizer:
                                 [bc[:, :1]], [bc[:, 1:]])
         params.add_(updates.mul_(-lr))
 
+    @torch.no_grad()
+    def update_stacked_static(self, grads: torch.Tensor, mu: torch.Tensor,
+                              nu: torch.Tensor, params: torch.Tensor,
+                              bc: torch.Tensor, lr: torch.Tensor,
+                              sizes: list):
+        """:meth:`update_stacked` with each state's two bias corrections
+        read from ``bc``, a (K, 2) tensor on the device (a row of
+        :meth:`stacked_corrections` in the moments' dtype, the rounding
+        that :meth:`update_stacked` gives them), in place of host counts,
+        so that a CUDA graph of the stacked step bakes in no host value:
+        the stacked twin of :meth:`update_static`."""
+        norm = None
+        if self.grad_clip is not None:
+            rows = [t for row in grads for t in row.split(sizes)]
+            norm = torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(rows)).view(len(grads), -1),
+                dim=1, keepdim=True)
+        (updates,) = self._adam([grads], [mu], [nu], [params], norm,
+                                [bc[:, :1]], [bc[:, 1:]])
+        params.add_(updates.mul_(-lr))
+
+    def stacked_corrections(self, counts: np.ndarray) -> np.ndarray:
+        """``(*counts.shape, 2)`` float64 ``1 - b1**c`` and ``1 - b2**c``
+        for each Adam count ``c`` of ``counts`` (host ints), as
+        :meth:`update_stacked` computes them."""
+        counts = np.asarray(counts, np.int64)
+        return np.array([[1 - self.b1 ** c, 1 - self.b2 ** c]
+                         for c in counts.reshape(-1)],
+                        np.float64).reshape(*counts.shape, 2)
+
     def _adam(self, g: list, mu: list, nu: list, params: list, norm,
               bc1, bc2) -> list:
         """The unscaled updates of :meth:`update` and
         :meth:`update_static` (lists of the parameters' tensors; ``norm`` a
         0-dim tensor, ``bc1`` and ``bc2`` floats or 0-dim tensors) and of
-        :meth:`update_stacked` (lists of one flat (K, P) tensor; ``norm``
+        :meth:`update_stacked` and :meth:`update_stacked_static` (lists of
+        one flat (K, P) tensor; ``norm``
         (K, 1), ``bc1`` and ``bc2`` lists of one (K, 1) tensor). ``mu`` and
         ``nu`` are updated in place."""
         if norm is not None:

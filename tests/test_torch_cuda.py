@@ -1128,3 +1128,215 @@ def test_every_family_captures_on_card(cuda_device, name):
 
     rows, _, _ = _stepwise(make, data, 4)
     _assert_steps_match(rows)
+
+
+# ---------------------------------------------------------------------------
+# The fold-parallel step replayed as a CUDA graph
+# ---------------------------------------------------------------------------
+
+def _stacked(make, folds):
+    """A Trainer from ``make`` and the stacked state of ``folds``."""
+    from multimodal_survival_prediction_tpu_torch.train import cv_parallel
+
+    tr = make()
+    return tr, cv_parallel.StackedState([tr.init_state(fold=f)
+                                         for f in folds])
+
+
+def _copy_stacked(dst, src):
+    """``src``'s tensors, counts and generators into ``dst``, in place."""
+    for a, b in zip(dst._tensors(), src._tensors()):
+        a.copy_(b)
+    dst.count, dst.step = src.count.copy(), src.step.copy()
+    for a, b in zip(dst.generators, src.generators):
+        a.set_state(b.get_state())
+
+
+def _fold_snapshot(state, k):
+    return ([t[k].clone() for t in state._tensors()],
+            state.generators[k].get_state())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["simple_cnn", "fused", "unequal"])
+def test_replayed_stacked_steps_match_eager_on_card(cuda_device, case):
+    """The stacked epoch of ``train/cv_parallel.py`` on the card, one step
+    an epoch call (the warm-up, the capture and its replay, then replays),
+    each step against the eager body (``_build_parallel_train_step``'s
+    ``step``) from the same stacked state, twice: partial_modality with
+    dropout on, two folds of ``simple_cnn`` at 16x16x8, three of the
+    DenseNet with ``fused_bn1`` (what the fold cell runs), and two folds
+    of unequal length, whose tail step masks one fold. Held as
+    ``_assert_steps_match`` holds the single step: each fold's loss within
+    1e-5 of eager's, each fold's change of the parameters no further from
+    eager's than twice the largest gap of eager again + 1e-5, and every
+    fold's generator state, step and Adam count equal. A masked step runs
+    eagerly and leaves the masked fold's parameters, moments, buffers and
+    generator as they were. Replays record ``train.replay`` in their
+    ``train.step`` and call no fused wrapper."""
+    import dataclasses
+
+    from multimodal_survival_prediction_tpu_torch.config import (
+        PARTIAL_MODALITY,
+    )
+    from multimodal_survival_prediction_tpu_torch.train import cv_parallel
+    from multimodal_survival_prediction_tpu_torch.train.cv import (
+        make_trainers,
+    )
+    from multimodal_survival_prediction_tpu_torch.utils import profiling
+
+    cfg = dataclasses.replace(PARTIAL_MODALITY, batch_size=8,
+                              image_shape=(16, 16, 8))
+    if case == "fused":
+        folds = (1, 2, 3)
+
+        def make():
+            return _pm_trainer(cuda_device)
+    else:
+        folds = (1, 2)
+
+        def make():
+            return make_trainers(cfg, 24, "simple_cnn", None, cuda_device)[0]
+    data = {k: torch.from_numpy(v).to(cuda_device)
+            for k, v in _pm_data().items()}
+    rows = ([np.arange(30), np.arange(6, 30)] if case == "unequal"
+            else [((np.arange(30) + 7 * f) % 30)[:29] for f in folds])
+    idx, bv = cv_parallel._stack_fold_indices(
+        rows, 8, [np.random.default_rng(50 + f) for f in folds])
+    step_valid = bv.max(axis=2) > 0
+    if case == "unequal":
+        assert step_valid.tolist() == [[True] * 4, [True] * 3 + [False]]
+    lrs = np.full(len(folds), 1e-3) * np.arange(1, len(folds) + 1)
+    runs = [_stacked(make, folds) for _ in range(3)]
+    (tr, graph), (_, eager), (_, again) = runs
+    epoch = cv_parallel._build_parallel_train_epoch(tr)
+    steps = {id(t): cv_parallel._build_parallel_train_step(t)[0]
+             for t, _ in runs[1:]}
+    batches = list(cv_parallel.stacked_batches(tr, data, idx, bv))
+    lr = torch.tensor(lrs[:, None], dtype=torch.float32,
+                      device=cuda_device)
+    profiling.reset_spans()
+    out = []
+    for s, batch in enumerate(batches):
+        valid = step_valid[:, s]
+        for _, st in runs[1:]:
+            _copy_stacked(st, graph)
+        before = graph.params.clone()
+        masked = [_fold_snapshot(graph, k) for k in range(len(folds))
+                  if not valid[k]]
+        got, calls, _ = _counted(lambda: epoch(graph, [batch], valid[:, None],
+                                               lrs)[0][0])
+        losses = [got]
+        for t, st in runs[1:]:
+            loss, eager_calls, _ = _counted(
+                lambda: steps[id(t)](st, batch, lr, valid))
+            losses.append(loss)
+        torch.cuda.synchronize()
+        fold_rows = []
+        for k in range(len(folds)):
+            if not valid[k]:
+                continue
+            fold_rows.append(dict(
+                losses=[float(x[k]) for x in losses],
+                gap=_change_gap([graph.params[k]], [eager.params[k]],
+                                [before[k]]),
+                gap_again=_change_gap([again.params[k]], [eager.params[k]],
+                                      [before[k]])))
+        same = all(
+            torch.equal(a.get_state(), b.get_state())
+            for _, st in runs[1:] for a, b in zip(graph.generators,
+                                                  st.generators)) and all(
+            graph.count.tolist() == st.count.tolist()
+            and graph.step.tolist() == st.step.tolist()
+            for _, st in runs[1:])
+        out.append(dict(step=s, folds=fold_rows, same=same, calls=calls,
+                        eager_calls=eager_calls, masked=not valid.all()))
+        for k, (tensors, gen) in zip(
+                [k for k in range(len(folds)) if not valid[k]], masked):
+            assert all(torch.equal(a[k], b) for a, b in
+                       zip(graph._tensors(), tensors)), (s, k)
+            assert torch.equal(graph.generators[k].get_state(), gen), (s, k)
+            assert float(got[k]) == 0.0
+    spread = max(r["gap_again"] for row in out for r in row["folds"])
+    for row in out:
+        assert row["same"], row
+        for r in row["folds"]:
+            lg, le, la = r["losses"]
+            assert abs(lg - le) <= 1e-5 and abs(la - le) <= 1e-5, (row, r)
+            assert r["gap"] <= 2 * spread + 1e-5, (row, r, spread)
+    all_valid = [row["step"] for row in out if not row["masked"]]
+    assert len(all_valid) >= 3
+    recs = profiling.spans()
+    assert sum(r.name == "setup.capture" for r in recs) == 1
+    epochs = [r for r in recs if r.name == "train.epoch"]
+    assert len(epochs) == len(batches)
+    replayed = []
+    for e in epochs:
+        (st,) = [r for r in recs if r.parent == e.index
+                 and r.name == "train.step"]
+        replayed.append(any(r.parent == st.index and r.name == "train.replay"
+                            for r in recs))
+    # the first all-valid step warms up, every later one replays
+    assert replayed == [s in all_valid[1:] for s in range(len(batches))]
+    for row in out:
+        if row["step"] in all_valid[2:]:
+            assert row["calls"] == [0] * 4, row
+        elif row["step"] == all_valid[0]:
+            assert row["calls"] == row["eager_calls"], row
+    if case == "fused":  # 6 stages a fold (the first step's eager calls
+        # also hold the forward that finds the dropout shapes)
+        assert out[1]["eager_calls"] == [6 * len(folds)] * 4
+
+
+@pytest.mark.cuda
+def test_replayed_stacked_epoch_streams_on_card(cuda_device):
+    """A whole stacked epoch (two folds of 30 rows, 4 steps of 8, the last
+    ragged) with its batches streamed by ``BatchPrefetcher``, whose thread
+    pins and copies on its own stream while the second step is captured:
+    the first two steps' losses within 1e-5 of the eager body's on the
+    device-gathered batches from the same start, every loss finite, three
+    replays, and the state advanced by four steps."""
+    import dataclasses
+
+    from multimodal_survival_prediction_tpu_torch.config import (
+        PARTIAL_MODALITY,
+    )
+    from multimodal_survival_prediction_tpu_torch.train import cv_parallel
+    from multimodal_survival_prediction_tpu_torch.train.cv import (
+        make_trainers,
+    )
+    from multimodal_survival_prediction_tpu_torch.utils import profiling
+
+    cfg = dataclasses.replace(PARTIAL_MODALITY, batch_size=8,
+                              image_shape=(16, 16, 8))
+
+    def make():
+        return make_trainers(cfg, 24, "simple_cnn", None, cuda_device)[0]
+
+    host = _pm_data()
+    data = {k: torch.from_numpy(v).to(cuda_device) for k, v in host.items()}
+    rows = [np.arange(30), np.arange(30)[::-1]]
+    idx, bv = cv_parallel._stack_fold_indices(
+        rows, 8, [np.random.default_rng(7), np.random.default_rng(8)])
+    step_valid = bv.max(axis=2) > 0
+    lrs = np.array([1e-3, 2e-3])
+    (tr, graph), (tr_e, eager) = _stacked(make, (1, 2)), _stacked(make,
+                                                                  (1, 2))
+    profiling.reset_spans()
+    got = cv_parallel._build_parallel_train_epoch(tr)(
+        graph, cv_parallel.stacked_batches(tr, host, idx, bv,
+                                           streaming=True),
+        step_valid, lrs)[0]
+    step = cv_parallel._build_parallel_train_step(tr_e)[0]
+    lr = torch.tensor(lrs[:, None], dtype=torch.float32, device=cuda_device)
+    want = torch.stack([step(eager, b, lr, step_valid[:, s]) for s, b in
+                        enumerate(cv_parallel.stacked_batches(
+                            tr_e, data, idx, bv))])
+    got, want = got.cpu(), want.cpu()
+    assert step_valid.all() and got.shape == (4, 2)
+    assert torch.isfinite(got).all()
+    assert float((got[:2] - want[:2]).abs().max()) <= 1e-5
+    assert sum(r.name == "train.replay" for r in profiling.spans()) == 3
+    assert graph.count.tolist() == graph.step.tolist() == [4, 4]
+    assert all(torch.equal(a.get_state(), b.get_state())
+               for a, b in zip(graph.generators, eager.generators))

@@ -8,7 +8,10 @@ functorch's vmap fallback warning on and the fallback itself off, so an op
 without a batching rule raises instead of looping over the folds.
 Tolerances:
   * ``_stack_fold_indices``: exact;
-  * ``Optimizer.update_stacked`` against ``update`` per state: exact;
+  * ``Optimizer.update_stacked`` against ``update`` per state, and
+    ``update_stacked_static`` against ``update_stacked``: exact;
+  * the stacked epoch on the CPU against a loop of its eager step: exact
+    (it builds no CUDA graph there);
   * the vmapped epoch against the port's sequential epochs, per fold, with
     dropout on and unequal step counts, in float64: epoch losses 1e-5,
     parameters, BatchNorm running stats and Adam's moments rtol 2e-5 /
@@ -213,6 +216,90 @@ def test_stacked_update_equals_update_per_state(kind, clip, k):
             assert torch.equal(nu[i], flat(opt[i].nu))
 
 
+@pytest.mark.parametrize("clip", [None, 1e9, 0.1])
+@pytest.mark.parametrize("kind", ["adam", "adamw"])
+def test_stacked_static_update_equals_update_stacked(kind, clip):
+    """``Optimizer.update_stacked_static``, its bias corrections a row of
+    one (steps, K, 2) ``stacked_corrections`` table in the moments' dtype
+    (as the replayed stacked epoch reads them), against
+    ``update_stacked`` with the host counts: parameters and moments
+    bit-equal over five steps, the three states at different Adam counts
+    and learning rates."""
+    tx = engine.Optimizer(engine.TrainConfig(optimizer=kind, grad_clip=clip,
+                                             weight_decay=1e-4))
+    sizes = [16 * 7, 16, 45, 33, 1]
+    rng = np.random.default_rng(7)
+    params = torch.from_numpy(rng.normal(size=(3, sum(sizes))).astype(
+        np.float32))
+    mine = [params.clone(), torch.zeros_like(params),
+            torch.zeros_like(params)]
+    ref = [params.clone(), torch.zeros_like(params),
+           torch.zeros_like(params)]
+    start = np.array([0, 4, 11])
+    counts = start[:, None] + np.arange(1, 6)  # (K, steps)
+    table = torch.from_numpy(tx.stacked_corrections(counts.T)).to(
+        torch.float32)
+    assert table.shape == (5, 3, 2)
+    lr = torch.tensor([[1e-3], [3e-3], [2e-2]])
+    for step in range(5):
+        grads = torch.from_numpy(
+            3 * rng.normal(size=params.shape).astype(np.float32))
+        tx.update_stacked(grads, ref[1], ref[2], ref[0], counts[:, step],
+                          lr, sizes)
+        tx.update_stacked_static(grads, mine[1], mine[2], mine[0],
+                                 table[step], lr, sizes)
+        for a, b in zip(mine, ref):
+            assert torch.equal(a, b), step
+
+
+def _key_state():
+    tr = _epoch_trainer("rnaseq_only")
+    state = cv_parallel.StackedState([tr.init_state(fold=1),
+                                      tr.init_state(fold=2)])
+    data = {k: torch.from_numpy(v) for k, v in _epoch_data().items()}
+    idx, bv = cv_parallel._stack_fold_indices(
+        [np.arange(15), np.arange(10, 30)], 8, [None, None])
+    batch = next(cv_parallel.stacked_batches(tr, data, idx, bv))
+    return tr, state, batch
+
+
+@pytest.mark.parametrize("change", [
+    "none", "fresh_batch", "params_address", "mu_address", "buffer_address",
+    "generator", "batch_shape", "matmul_tf32", "cudnn_tf32"])
+def test_stacked_graph_key_follows_what_the_graph_reads(change):
+    """``_StackedGraph.make_key``: the same for the same state and another
+    batch of the same shapes (the batch is copied into static buffers),
+    and another where a stacked tensor's address, a fold's generator, a
+    batch key's shape or a TF32 flag changes."""
+    tr, state, batch = _key_state()
+    key = cv_parallel._StackedGraph.make_key(tr, state, batch)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        if change == "fresh_batch":
+            batch = {k: v.clone() for k, v in batch.items()}
+        elif change == "params_address":
+            state.params = state.params.clone()
+        elif change == "mu_address":
+            state.mu = state.mu.clone()
+        elif change == "buffer_address":
+            dt = next(iter(state.buffers))
+            state.buffers[dt] = state.buffers[dt].clone()
+        elif change == "generator":
+            state.generators[1] = torch.Generator().manual_seed(5)
+        elif change == "batch_shape":
+            batch = dict(batch, rnaseq=batch["rnaseq"][:, :4])
+        elif change == "matmul_tf32":
+            torch.backends.cuda.matmul.allow_tf32 = not flags[0]
+        elif change == "cudnn_tf32":
+            torch.backends.cudnn.allow_tf32 = not flags[1]
+        again = cv_parallel._StackedGraph.make_key(tr, state, batch)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    assert (again == key) == (change in ("none", "fresh_batch"))
+
+
 # ---------------------------------------------------------------------------
 # The vmapped epoch against the sequential epochs
 # ---------------------------------------------------------------------------
@@ -309,6 +396,87 @@ def test_parallel_epoch_matches_sequential_per_fold(name):
                                    rtol=1e-5)
         _assert_states_close(stacked.fold_train_state(k), want)
     assert stacked.count.tolist() == [4, 6]
+
+
+def _epoch_trainer(name, dtype=torch.float32):
+    cfg = dataclasses.replace(ALL_CONFIGS[name], batch_size=8,
+                              image_shape=IMAGE_SHAPE)
+    batch_to_inputs, hazard_and_aux = make_adapters(cfg)
+    tcfg = engine.TrainConfig(
+        batch_size=8, weight_decay=cfg.weight_decay, optimizer=cfg.optimizer,
+        grad_clip=cfg.grad_clip, ties=cfg.ties)
+    return engine.Trainer(
+        lambda g: make_model_and_adapters(
+            cfg, rna_dim=24, backbone="simple_cnn", generator=g)[0].to(dtype),
+        batch_to_inputs, hazard_and_aux, tcfg, device="cpu")
+
+
+def test_stacked_epoch_stays_eager_off_the_card(monkeypatch):
+    """On the CPU the stacked epoch never builds a CUDA graph and runs the
+    eager body: two folds of partial_modality with unequal step counts
+    (the third step masked for the first fold), dropout on, against a loop
+    of the builder's eager ``step`` over the same batches from the same
+    start, in float32: losses, parameters, moments, buffers, counts and
+    generators bit-equal. It records ``train.epoch`` around one
+    ``train.step`` a step, masked steps included, and no replay. The
+    replay engages only on a card without a mesh."""
+    from types import SimpleNamespace
+
+    from multimodal_survival_prediction_tpu_torch.utils import profiling
+
+    class _NoGraph:
+        def __init__(self, *a, **k):
+            raise AssertionError("a CUDA graph on the CPU")
+
+        make_key = staticmethod(__init__)
+
+    monkeypatch.setattr(cv_parallel, "_StackedGraph", _NoGraph)
+    data = {k: torch.from_numpy(v) for k, v in _epoch_data().items()}
+    rows = [np.arange(15), np.arange(10, 30)]
+    lrs = np.array([1e-3, 2e-3])
+    runs = []
+    for epoch_fn in (True, False):
+        tr = _epoch_trainer("partial_modality")
+        state = cv_parallel.StackedState([tr.init_state(fold=1),
+                                          tr.init_state(fold=2)])
+        idx, bv = cv_parallel._stack_fold_indices(
+            rows, 8, [np.random.default_rng(101), np.random.default_rng(102)])
+        step_valid = bv.max(axis=2) > 0
+        batches = cv_parallel.stacked_batches(tr, data, idx, bv)
+        profiling.reset_spans()
+        if epoch_fn:
+            losses = cv_parallel._build_parallel_train_epoch(tr)(
+                state, batches, step_valid, lrs)[0]
+            recs = profiling.spans()
+        else:
+            step = cv_parallel._build_parallel_train_step(tr)[0]
+            lr = torch.tensor(lrs[:, None], dtype=torch.float32)
+            losses = torch.stack([step(state, b, lr, step_valid[:, s])
+                                  for s, b in enumerate(batches)])
+        runs.append((losses, state))
+    assert step_valid.tolist() == [[True, True, False], [True, True, True]]
+    (got, par), (want, ref) = runs
+    assert torch.equal(got, want)
+    for a, b in zip(par._tensors(), ref._tensors()):
+        assert torch.equal(a, b)
+    assert par.count.tolist() == ref.count.tolist() == [2, 3]
+    assert par.step.tolist() == ref.step.tolist()
+    for a, b in zip(par.generators, ref.generators):
+        assert torch.equal(a.get_state(), b.get_state())
+    (epoch,) = [r for r in recs if r.name == "train.epoch"]
+    assert [r.name for r in recs if r.parent == epoch.index] == \
+        ["train.step"] * 3
+    assert not any(r.name in ("train.replay", "setup.capture")
+                   for r in recs)
+
+    def engages(mesh, device):
+        return cv_parallel._replays(
+            SimpleNamespace(mesh=mesh),
+            SimpleNamespace(device=torch.device(device)))
+
+    assert engages(None, "cuda")
+    assert not engages(object(), "cuda")  # a fold mesh's data group
+    assert not engages(None, "cpu")
 
 
 # ---------------------------------------------------------------------------
