@@ -2518,10 +2518,11 @@ def _profile_steps(arrays, splits, device):
                                                   bv[:, :1])))
     stacked = cv_parallel.StackedState(
         [tr.init_state(fold=f) for f in range(1, len(rows) + 1)])
-    step = cv_parallel._build_parallel_train_step(tr)[0]  # the eager body
+    step = cv_parallel._build_parallel_train_step(tr)  # run eagerly
     zero = torch.zeros(len(rows), 1, device=device)
     valid = np.ones(len(rows), bool)
-    par = _profile_once(lambda: step(stacked, batch, zero, valid),
+    bc = cv_parallel._corrections(tr, stacked, valid[:, None])[0]
+    par = _profile_once(lambda: step(stacked, batch, zero, bc, valid),
                         f"vmapped step, {len(rows)} folds")
     del stacked
     state = tr.init_state(fold=1)

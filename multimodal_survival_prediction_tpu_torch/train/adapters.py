@@ -4,7 +4,7 @@ every family's branch, and SimMLM's stage-1 adapter.
 
 An adapter's non-tensor outputs (SimMLM stage 1's ``main_scale``) are
 constants of the adapter: ``Trainer.train_epoch``'s CUDA graph of the step
-(``train/engine.py:_StaticStep``) bakes them in, keyed by the adapter's
+(``train/graphs.py:CapturedStep``) bakes them in, keyed by the adapter's
 identity."""
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ loss through ``functional_call`` of one template model, so each launch of
 the step does all K folds' work (a convolution with per-fold weights
 becomes a grouped convolution). The optimizer then runs on the flat (K, P)
 tensors (``Optimizer.update_stacked``): a clip norm, a learning rate and an
-Adam count per fold. Every vmapped call runs with functorch's per-sample
+Adam count per fold, the bias corrections read from a (steps, K, 2) table
+an epoch on the device. Every vmapped call runs with functorch's per-sample
 fallback off, so an op without a batching rule raises instead of looping
 over the folds.
 
@@ -34,15 +35,16 @@ Early-stopped folds keep computing (their records are frozen on the host):
 the run lasts as long as its slowest fold.
 
 The epoch is a Python loop over steps, each one vmapped dispatch of all
-folds (torch has no ``lax.scan``). On a card without a mesh, each step
-where every fold is valid is a replay of one CUDA graph of that dispatch
-and the optimizer (:class:`_StackedGraph`, the counterpart of
-``engine._StaticStep``), captured once per stacked state and batch shape;
-masked steps, the CPU and a mesh run the same body eagerly. The epochs,
-schedules and records (:func:`train_stacked`) are shared with the sweep
-(``train/sweep.py``). ``streaming`` changes only where each step's stacked
-(K, B, ...) batch is gathered: on the host, through
-``data.pipeline.BatchPrefetcher``, instead of on the device.
+folds (torch has no ``lax.scan``). Without a mesh, each step where every
+fold is valid goes through a ``train/graphs.py:CapturedStep``, as the
+Trainer's steps do: on a card it is a replay of one CUDA graph of that
+dispatch and the optimizer, captured once per stacked state and batch
+shape; on the CPU it runs eagerly. Masked steps and a mesh run the same
+body eagerly on their batch. The epochs, schedules and records
+(:func:`train_stacked`) are shared with the sweep (``train/sweep.py``).
+``streaming`` changes only where each step's stacked (K, B, ...) batch is
+gathered: on the host, through ``data.pipeline.BatchPrefetcher``, instead
+of on the device.
 
 The driver builds the unfused model, as JAX's does, so the fused
 BN->ReLU->1x1-conv kernels are off this path. ``remat`` recomputes the
@@ -104,6 +106,7 @@ from .cv import (
     save_fold,
 )
 from .engine import TrainConfig, Trainer, TrainState
+from .graphs import CapturedStep, backend_flags
 from .schedules import ReduceLROnPlateau, cosine_annealing
 
 log = logging.getLogger(__name__)
@@ -361,20 +364,17 @@ def _draw_uniforms(state: StackedState, shapes: list, step_valid):
 
 
 def _build_parallel_train_step(trainer: Trainer):
-    """The vmapped single step, ``(step, static_step)``.
-
-    ``step(state, batch, lr, step_valid)`` advances every fold of ``state``
-    on its slice of the stacked (K, B, ...) ``batch`` with learning rates
-    ``lr`` ((K, 1), the parameters' dtype) and returns the (K,) losses (0
-    where masked). ``step_valid`` (K host bools) masks whole steps. Under a
-    trainer's data group (a fold mesh's data axis) ``batch`` holds this
-    rank's rows, and the stacked gradients are summed over the group in one
-    collective.
-
-    ``static_step(state, batch, lr, bc)`` is the same step where every fold
-    is valid and no mesh is in play, with Adam's bias corrections read from
-    ``bc`` ((K, 2), on the device) instead of the host counts, which it
-    leaves to its caller: what :class:`_StackedGraph` captures."""
+    """The vmapped single step, ``step(state, batch, lr, bc, step_valid)``:
+    every fold of ``state`` advanced on its slice of the stacked (K, B,
+    ...) ``batch`` with learning rates ``lr`` ((K, 1), the parameters'
+    dtype) and Adam's bias corrections ``bc`` ((K, 2), a row of
+    :func:`_corrections`); returns the (K,) losses (0 where masked).
+    ``step_valid`` (K host bools) masks whole steps. Under a trainer's data
+    group (a fold mesh's data axis) ``batch`` holds this rank's rows, and
+    the stacked gradients are summed over the group in one collective. The
+    host counts (``state.count``, ``state.step``) are left to the caller.
+    With every fold valid and no mesh it reads nothing from the host: the
+    body :func:`_build_parallel_train_epoch` captures."""
 
     def fold_loss(params, buffers, batch, uniforms, template):
         feed = iter(uniforms)
@@ -385,151 +385,73 @@ def _build_parallel_train_step(trainer: Trainer):
     grad_fn = grad_and_value(fold_loss)
     shapes: dict = {}
 
-    def uniforms(state: StackedState, batch: dict, step_valid):
-        key = tuple((k, tuple(v.shape)) for k, v in batch.items())
-        if key not in shapes:
-            shapes[key] = _dropout_shapes(trainer, state, batch)
-        return _draw_uniforms(state, shapes[key], step_valid)
+    def step(state: StackedState, batch: dict, lr: torch.Tensor,
+             bc: torch.Tensor, step_valid):
+        with span("train.step"):
+            step_valid = np.asarray(step_valid, bool)
+            key = tuple((k, tuple(v.shape)) for k, v in batch.items())
+            if key not in shapes:
+                shapes[key] = _dropout_shapes(trainer, state, batch)
+            drawn = _draw_uniforms(state, shapes[key], step_valid)
+            masked = not step_valid.all()
+            saved = state.save() if masked else None
+            state.template.train()
+            with no_vmap_fallback():
+                grads, loss = vmap(grad_fn, in_dims=(0, 0, 0, 0, None))(
+                    state.param_views, state.buffer_views, batch, drawn,
+                    state.template)
+            flat = torch.cat([grads[n].reshape(state.k, -1)
+                              for n in state.param_names], dim=1)
+            if trainer.mesh is not None:
+                flat = all_reduce_tensor(flat, trainer._data_group)
+            trainer.tx.update_stacked(flat, state.mu, state.nu, state.params,
+                                      bc, lr, state.sizes)
+            if masked:
+                keep = torch.from_numpy(step_valid).to(state.device)[:, None]
+                state.restore(saved, keep)
+                loss = torch.where(keep[:, 0], loss, 0.0)
+            return loss.detach()
 
-    def grads_and_loss(state: StackedState, batch: dict, drawn):
-        """The flat (K, P) gradients and the (K,) losses."""
-        state.template.train()
-        with no_vmap_fallback():
-            grads, loss = vmap(grad_fn, in_dims=(0, 0, 0, 0, None))(
-                state.param_views, state.buffer_views, batch, drawn,
-                state.template)
-        return torch.cat([grads[n].reshape(state.k, -1)
-                          for n in state.param_names], dim=1), loss
-
-    def step(state: StackedState, batch: dict, lr: torch.Tensor, step_valid):
-        step_valid = np.asarray(step_valid, bool)
-        drawn = uniforms(state, batch, step_valid)
-        masked = not step_valid.all()
-        saved = state.save() if masked else None
-        flat, loss = grads_and_loss(state, batch, drawn)
-        if trainer.mesh is not None:
-            flat = all_reduce_tensor(flat, trainer._data_group)
-        count = state.count + step_valid
-        trainer.tx.update_stacked(flat, state.mu, state.nu, state.params,
-                                  np.maximum(count, 1), lr, state.sizes)
-        if masked:
-            keep = torch.from_numpy(step_valid).to(state.device)[:, None]
-            state.restore(saved, keep)
-            loss = torch.where(keep[:, 0], loss, 0.0)
-        state.count = count
-        state.step = state.step + step_valid
-        return loss.detach()
-
-    def static_step(state: StackedState, batch: dict, lr: torch.Tensor,
-                    bc: torch.Tensor):
-        drawn = uniforms(state, batch, np.ones(state.k, bool))
-        flat, loss = grads_and_loss(state, batch, drawn)
-        trainer.tx.update_stacked_static(flat, state.mu, state.nu,
-                                         state.params, bc, lr, state.sizes)
-        return loss.detach()
-
-    return step, static_step
+    return step
 
 
-def _replays(trainer: Trainer, state: StackedState) -> bool:
-    """Whether the stacked epoch replays its all-valid steps as a CUDA
-    graph: on a card, without a mesh (whose collectives stay eager)."""
-    return trainer.mesh is None and state.device.type == "cuda"
+def _corrections(trainer: Trainer, state: StackedState,
+                 step_valid) -> torch.Tensor:
+    """The (steps, K, 2) bias corrections of an epoch whose whole-step
+    masks are ``step_valid`` (K, steps), on the device in the moments'
+    dtype, in one copy: each fold's Adam count after each step (its count
+    before the epoch plus its valid steps so far, at least 1; a masked
+    step's update is thrown away)."""
+    counts = state.count[:, None] + np.cumsum(step_valid, axis=1)
+    return torch.from_numpy(trainer.tx.bias_corrections(
+        np.maximum(counts, 1).T)).to(state.device, state.mu.dtype,
+                                     non_blocking=True)
 
 
-class _StackedGraph:
-    """The all-valid step of :func:`_build_parallel_train_epoch` for one
-    stacked state on a card: the static inputs of its ``static_step`` and
-    its CUDA graph.
+def _graphed(trainer: Trainer, valid) -> bool:
+    """Whether the stacked epoch's step goes through its
+    :class:`~.graphs.CapturedStep` (which captures it on a card and runs
+    it on the CPU): with no mesh, whose collectives stay eager, and every
+    fold of the step valid."""
+    return trainer.mesh is None and bool(np.all(valid))
 
-    The key (:meth:`make_key`) is what the graph bakes in: the
-    ``StackedState`` object and the addresses of its flat parameters,
-    moments and buffers, its K dropout generators, the template, the
-    Trainer's loss and adapters, each batch key's shape, stride and dtype,
-    and the TF32 and cuDNN flags. A new key makes a new ``_StackedGraph``,
-    and the old graph goes with the old one.
 
-    The first step runs eagerly on the capture stream (the warm-up: the
-    dropout shapes found, kernel libraries loaded, cuBLAS and cuDNN set up
-    for that stream). The second is captured (span ``setup.capture``;
-    nothing runs) and then replayed, as is every later one: each copies
-    its stacked batch, one ``copy_`` a key, and its row of the epoch's
-    bias corrections into the static buffers, replays the graph and clones
-    its (K,) loss (span ``train.replay``). The learning rates are copied in
-    once an epoch. Every fold's generator is registered with the graph, so
-    each replay draws the next uniforms of every fold's Philox stream, as
-    an eager step would. The caller advances the host counts."""
-
-    def __init__(self, key: tuple, trainer: Trainer, state: StackedState,
-                 batch: dict):
-        dev = state.device
-        self.key = key
-        # the keyed objects stay alive with the graph, so their ids do not
-        # pass to others
-        self._held = (state, state.template, *state.generators,
-                      trainer._loss_fn, trainer.batch_to_inputs,
-                      trainer.hazard_and_aux)
-        self.batch = {k: torch.empty_like(v) for k, v in batch.items()}
-        self.lr = torch.zeros(state.k, 1, dtype=state.params.dtype,
-                              device=dev)
-        self.bc = torch.zeros(state.k, 2, dtype=state.mu.dtype, device=dev)
-        self.stream = torch.cuda.Stream(dev)
-        self.warm = False  # the warm-up has run
-        self.graph = self.loss = None
-
-    @staticmethod
-    def make_key(trainer: Trainer, state: StackedState, batch: dict) -> tuple:
-        loss_fn = trainer._loss_fn
-        return (id(state), id(state.template),
-                tuple(t.data_ptr() for t in state._tensors()),
-                tuple(id(g) for g in state.generators),
-                id(getattr(loss_fn, "__self__", None)),
-                id(getattr(loss_fn, "__func__", loss_fn)),
-                id(trainer.batch_to_inputs), id(trainer.hazard_and_aux),
-                tuple((k, tuple(v.shape), v.stride(), v.dtype)
-                      for k, v in batch.items()),
-                torch.backends.cuda.matmul.allow_tf32,
-                torch.backends.cudnn.allow_tf32,
-                torch.backends.cudnn.benchmark,
-                torch.backends.cudnn.deterministic)
-
-    def step(self, static_step, state: StackedState, batch: dict,
-             bc: torch.Tensor) -> torch.Tensor:
-        """One all-valid step on ``batch`` with bias corrections ``bc``
-        ((K, 2), on the device); returns its (K,) losses."""
-        if self.graph is None and self.warm:
-            self._capture(static_step, state)
-        if self.graph is not None:
-            with span("train.replay"):
-                self._fill(batch, bc)
-                self.graph.replay()
-                return self.loss.clone()
-        self._fill(batch, bc)
-        main = torch.cuda.current_stream(state.device)
-        self.stream.wait_stream(main)
-        with torch.cuda.stream(self.stream):
-            loss = static_step(state, self.batch, self.lr, self.bc)
-        main.wait_stream(self.stream)
-        loss.record_stream(main)
-        self.warm = True
-        return loss
-
-    def _fill(self, batch: dict, bc: torch.Tensor):
-        for k, v in batch.items():
-            self.batch[k].copy_(v)
-        self.bc.copy_(bc)
-
-    def _capture(self, static_step, state: StackedState):
-        graph = torch.cuda.CUDAGraph()
-        for g in state.generators:
-            graph.register_generator_state(g)
-        with span("setup.capture"):
-            # thread_local: a streaming epoch's prefetcher thread goes on
-            # pinning and copying batches on its own stream meanwhile
-            with torch.cuda.graph(graph, stream=self.stream,
-                                  capture_error_mode="thread_local"):
-                self.loss = static_step(state, self.batch, self.lr, self.bc)
-        self.graph = graph
+def _graph_key(trainer: Trainer, state: StackedState, batch: dict) -> tuple:
+    """What the stacked step's CUDA graph bakes in: the ``StackedState``
+    object and the addresses of its flat parameters, moments and buffers,
+    its K dropout generators, the template, the Trainer's loss and
+    adapters, each batch key's shape, stride and dtype, and the TF32 and
+    cuDNN flags."""
+    loss_fn = trainer._loss_fn
+    return (id(state), id(state.template),
+            tuple(t.data_ptr() for t in state._tensors()),
+            tuple(id(g) for g in state.generators),
+            id(getattr(loss_fn, "__self__", None)),
+            id(getattr(loss_fn, "__func__", loss_fn)),
+            id(trainer.batch_to_inputs), id(trainer.hazard_and_aux),
+            tuple((k, tuple(v.shape), v.stride(), v.dtype)
+                  for k, v in batch.items()),
+            *backend_flags())
 
 
 def _build_parallel_train_epoch(trainer: Trainer):
@@ -539,45 +461,49 @@ def _build_parallel_train_epoch(trainer: Trainer):
     (steps, K) losses and each fold's mean over its valid steps, on the
     device.
 
-    On a card without a mesh (:func:`_replays`) every step where all folds
-    are valid is a replay of one CUDA graph (:class:`_StackedGraph`, kept
-    from epoch to epoch while its key holds); the others, and every step on
-    the CPU or under a mesh, run the eager body. Spans: ``train.epoch``
+    Every step reads its bias corrections from one :func:`_corrections`
+    table an epoch. Where :func:`_graphed` holds, a step goes through one
+    :class:`~.graphs.CapturedStep` (kept from epoch to epoch while
+    :func:`_graph_key` holds): its batch and its row of the table are
+    copied into static inputs, and the learning rates once an epoch; the
+    other steps run the body on their batch. The epoch advances the host
+    counts of the valid folds after each step. Spans: ``train.epoch``
     around the epoch, ``train.step`` around each step."""
-    step, static_step = _build_parallel_train_step(trainer)
-    held: _StackedGraph | None = None
+    step = _build_parallel_train_step(trainer)
+    captured: CapturedStep | None = None
 
     def epoch(state: StackedState, batches, step_valid, lrs):
-        nonlocal held
+        nonlocal captured
+
+        def body(inputs):
+            return step(state, inputs["batch"], inputs["lr"], inputs["bc"],
+                        np.ones(state.k, bool))
+
         with span("train.epoch"):
             lr = torch.tensor(np.asarray(lrs)[:, None],
                               dtype=state.params.dtype).to(state.device)
-            replays = _replays(trainer, state)
-            if replays:
-                # each step's (K, 2) bias corrections, from the counts an
-                # eager step would reach, in one copy
-                counts = state.count[:, None] + np.cumsum(step_valid, axis=1)
-                bcs = torch.from_numpy(trainer.tx.stacked_corrections(
-                    np.maximum(counts, 1).T)).to(state.device, state.mu.dtype,
-                                                 non_blocking=True)
+            bcs = _corrections(trainer, state, step_valid)
             losses, filled = [], None
             for s, batch in enumerate(batches):
                 valid = step_valid[:, s]
-                with span("train.step"):
-                    if not (replays and valid.all()):
-                        losses.append(step(state, batch, lr, valid))
-                        continue
-                    key = _StackedGraph.make_key(trainer, state, batch)
-                    if held is None or held.key != key:
-                        held = None  # frees the old graph first
-                        held = _StackedGraph(key, trainer, state, batch)
-                    if held is not filled:
-                        held.lr.copy_(lr)
-                        filled = held
-                    losses.append(held.step(static_step, state, batch,
-                                            bcs[s]))
-                    state.count = state.count + 1
-                    state.step = state.step + 1
+                if not _graphed(trainer, valid):
+                    losses.append(step(state, batch, lr, bcs[s], valid))
+                else:
+                    key = _graph_key(trainer, state, batch)
+                    if captured is None or captured.key != key:
+                        captured = None  # frees the old graph first
+                        captured = CapturedStep(
+                            key, (state, state.template, *state.generators,
+                                  trainer._loss_fn, trainer.batch_to_inputs,
+                                  trainer.hazard_and_aux),
+                            dict(batch=batch, lr=lr, bc=bcs[s]),
+                            state.generators)
+                    if captured is not filled:
+                        captured.fill(lr=lr)
+                        filled = captured
+                    losses.append(captured(body, batch=batch, bc=bcs[s])[0])
+                state.count = state.count + valid
+                state.step = state.step + valid
             losses = torch.stack(losses)
             n_valid = torch.from_numpy(
                 np.maximum(step_valid.sum(axis=1), 1).astype(np.float32))

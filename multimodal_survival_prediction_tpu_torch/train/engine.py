@@ -17,14 +17,14 @@ The parameters and BatchNorm buffers live in the model module; the
 optimizer's moments are updated in place (``torch._foreach_*``).
 
 On a card, ``train_epoch`` without a mesh replays each step as one CUDA
-graph (``_StaticStep``), the counterpart of JAX's jitted epoch: the step
-(batch gather, forward, Cox loss, backward, clip, Adam, the update) reads
-its batch's rows and validity, the learning rate and Adam's bias
-corrections from static device buffers, is captured once per train state,
-cohort and batch shape, and is replayed for every later step. On the CPU
-the same static-input step runs eagerly. The streaming epochs, the mesh's
-steps and evaluation run eagerly; the fold-parallel step
-(``train/cv_parallel.py``) replays a graph of its own.
+graph (``train/graphs.py:CapturedStep``), the counterpart of JAX's jitted
+epoch: the step (batch gather, forward, Cox loss, backward, clip, Adam, the
+update) reads its batch's rows and validity, the learning rate and Adam's
+bias corrections from static device buffers, is captured once per train
+state, cohort and batch shape, and is replayed for every later step. On the
+CPU the same static-input step runs eagerly. The streaming epochs, the
+mesh's steps and evaluation run eagerly; the fold-parallel step
+(``train/cv_parallel.py``) is captured by the same ``CapturedStep``.
 
 Streaming epochs (``train_epoch_streaming``, ``evaluate_streaming``) keep
 the cohort on the host as numpy arrays: each batch is gathered there and
@@ -81,6 +81,7 @@ from ..parallel.multihost import fetch_tree
 from ..parallel.sharding import batch_rows, local_part, shard_module, tp_group
 from ..utils.device import resolve_device
 from ..utils.profiling import span
+from .graphs import CapturedStep, backend_flags
 
 # the batch keys the loss and the adapters read; under a mesh they are
 # gathered to the global batch (the model inputs stay local)
@@ -130,9 +131,9 @@ class Optimizer:
         """``(updates, state)``; ``state``'s moments are updated in place.
         ``norm``: the gradient's global norm when the caller computed it
         (tensor parallelism); by default it is taken over ``grads``."""
-        count = state.count + 1
-        return self._update(grads, state, params, lr,
-                            1 - self.b1 ** count, 1 - self.b2 ** count, norm)
+        bc1, bc2 = self.bias_corrections(state.count + 1)
+        return self._update(grads, state, params, lr, float(bc1), float(bc2),
+                            norm)
 
     def update_static(self, grads: list, state: AdamState, params: list,
                       scalars: torch.Tensor,
@@ -144,13 +145,24 @@ class Optimizer:
         get), so that a CUDA graph of the step bakes in no host value."""
         return self._update(grads, state, params, *scalars.unbind(), norm)
 
+    def bias_corrections(self, counts) -> np.ndarray:
+        """``(*counts.shape, 2)`` float64 ``1 - b1**c`` and ``1 - b2**c``
+        for each Adam count ``c`` of ``counts`` (host ints): the one place
+        :meth:`update`, :meth:`step_scalars` and the stacked epoch's table
+        of :meth:`update_stacked` rows compute them."""
+        counts = np.asarray(counts, np.int64)
+        return np.array([(1 - self.b1 ** int(c), 1 - self.b2 ** int(c))
+                         for c in counts.reshape(-1)],
+                        np.float64).reshape(*counts.shape, 2)
+
     def step_scalars(self, lr: float, count: int, steps: int) -> np.ndarray:
         """``(steps, 3)`` float64 rows of ``lr``, ``1 - b1**c`` and
         ``1 - b2**c`` for the Adam counts ``c`` of the next ``steps``
         steps after ``count``, as :meth:`update` computes them."""
-        return np.array([(lr, 1 - self.b1 ** c, 1 - self.b2 ** c)
-                         for c in range(count + 1, count + steps + 1)],
-                        np.float64).reshape(steps, 3)
+        return np.concatenate([
+            np.full((steps, 1), lr, np.float64),
+            self.bias_corrections(np.arange(count + 1, count + steps + 1))],
+            axis=1)
 
     @torch.no_grad()
     def _update(self, grads: list, state: AdamState, params: list, lr,
@@ -172,41 +184,19 @@ class Optimizer:
 
     @torch.no_grad()
     def update_stacked(self, grads: torch.Tensor, mu: torch.Tensor,
-                       nu: torch.Tensor, params: torch.Tensor, count,
-                       lr: torch.Tensor, sizes: list):
+                       nu: torch.Tensor, params: torch.Tensor,
+                       bc: torch.Tensor, lr: torch.Tensor, sizes: list):
         """:meth:`update` of K states stacked on dim 0 of flat (K, P)
         tensors, each with its own global-norm clip, Adam count and
-        learning rate: ``count`` holds the K counts after this step (host
-        ints), ``lr`` is a (K, 1) tensor, ``sizes`` the parameters' numels
-        in order (each row's clip norm is reduced as :meth:`update`'s, over
-        the norms of its parameters). ``mu``, ``nu`` and ``params`` are
-        updated in place."""
-        norm = None
-        if self.grad_clip is not None:
-            rows = [t for row in grads for t in row.split(sizes)]
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(rows)).view(len(grads), -1),
-                dim=1, keepdim=True)
-        # the bias corrections in float64 on the host, as update computes
-        # them, then one per state in the moments' dtype
-        bc = torch.tensor([[1 - self.b1 ** c, 1 - self.b2 ** c]
-                           for c in count],
-                          dtype=mu.dtype).to(mu.device, non_blocking=True)
-        (updates,) = self._adam([grads], [mu], [nu], [params], norm,
-                                [bc[:, :1]], [bc[:, 1:]])
-        params.add_(updates.mul_(-lr))
-
-    @torch.no_grad()
-    def update_stacked_static(self, grads: torch.Tensor, mu: torch.Tensor,
-                              nu: torch.Tensor, params: torch.Tensor,
-                              bc: torch.Tensor, lr: torch.Tensor,
-                              sizes: list):
-        """:meth:`update_stacked` with each state's two bias corrections
-        read from ``bc``, a (K, 2) tensor on the device (a row of
-        :meth:`stacked_corrections` in the moments' dtype, the rounding
-        that :meth:`update_stacked` gives them), in place of host counts,
-        so that a CUDA graph of the stacked step bakes in no host value:
-        the stacked twin of :meth:`update_static`."""
+        learning rate: ``bc`` holds each state's two bias corrections for
+        its count after this step ((K, 2) on the device, a row of
+        :meth:`bias_corrections` in the moments' dtype: the rounding that
+        :meth:`update`'s host floats get), ``lr`` is a (K, 1) tensor,
+        ``sizes`` the parameters' numels in order (each row's clip norm is
+        reduced as :meth:`update`'s, over the norms of its parameters).
+        ``mu``, ``nu`` and ``params`` are updated in place; nothing is read
+        from the host, so a CUDA graph of the stacked step bakes in no host
+        value."""
         norm = None
         if self.grad_clip is not None:
             rows = [t for row in grads for t in row.split(sizes)]
@@ -216,23 +206,13 @@ class Optimizer:
         (updates,) = self._adam([grads], [mu], [nu], [params], norm,
                                 [bc[:, :1]], [bc[:, 1:]])
         params.add_(updates.mul_(-lr))
-
-    def stacked_corrections(self, counts: np.ndarray) -> np.ndarray:
-        """``(*counts.shape, 2)`` float64 ``1 - b1**c`` and ``1 - b2**c``
-        for each Adam count ``c`` of ``counts`` (host ints), as
-        :meth:`update_stacked` computes them."""
-        counts = np.asarray(counts, np.int64)
-        return np.array([[1 - self.b1 ** c, 1 - self.b2 ** c]
-                         for c in counts.reshape(-1)],
-                        np.float64).reshape(*counts.shape, 2)
 
     def _adam(self, g: list, mu: list, nu: list, params: list, norm,
               bc1, bc2) -> list:
         """The unscaled updates of :meth:`update` and
         :meth:`update_static` (lists of the parameters' tensors; ``norm`` a
         0-dim tensor, ``bc1`` and ``bc2`` floats or 0-dim tensors) and of
-        :meth:`update_stacked` and :meth:`update_stacked_static` (lists of
-        one flat (K, P) tensor; ``norm``
+        :meth:`update_stacked` (lists of one flat (K, P) tensor; ``norm``
         (K, 1), ``bc1`` and ``bc2`` lists of one (K, 1) tensor). ``mu`` and
         ``nu`` are updated in place."""
         if norm is not None:
@@ -371,7 +351,7 @@ class Trainer:
                              else None)
         self.tx = make_optimizer(cfg)
         self.step_losses = None  # the last epoch's per-step losses (device)
-        self._static = None  # train_epoch's _StaticStep
+        self._captured = None  # train_epoch's CapturedStep
 
     @property
     def aot_info(self) -> dict:
@@ -611,12 +591,14 @@ class Trainer:
         """One epoch over ``indices`` (global row ids into ``data``, a dict
         of tensors on the device). Returns ``(state, mean loss)``.
 
-        Without a mesh each step is :meth:`_static_step`, which reads its
+        Without a mesh each step is the batch gathered from ``data``
+        (:meth:`_gather_batch`), then :meth:`train_step`, reading its
         batch's rows, their validity, the learning rate and Adam's bias
-        corrections from static buffers: on a card it is captured once as
-        a CUDA graph and replayed (:class:`_StaticStep`), on the CPU it
-        runs eagerly. Under a mesh, whose collectives stay eager, each
-        step is :meth:`train_step` on its batch."""
+        corrections from the static inputs of a
+        :class:`~.graphs.CapturedStep` (on a card: captured once as a CUDA
+        graph and replayed; on the CPU: run eagerly), kept while
+        :meth:`_graph_key` holds. Under a mesh, whose collectives stay
+        eager, each step is :meth:`train_step` on its batch."""
         perm, bvalid = self._pad_indices(indices, self.cfg.batch_size,
                                          shuffle_rng)
         if self.mesh is not None:
@@ -626,21 +608,50 @@ class Trainer:
         with span("train.epoch"):
             idx, valid = self._device_indices(perm, bvalid)
             scalars = self._step_scalars(state, lr, len(idx))
-            key = _StaticStep.make_key(self, state, data, idx.shape[1])
-            if self._static is None or self._static.key != key:
-                self._static = None  # frees the old graph first
-                self._static = _StaticStep(key, self, state, idx.shape[1])
-            self.step_losses = torch.stack([
-                self._static.step(self, state, data, row)
-                for row in zip(idx, valid, scalars)])
+            key = self._graph_key(state, data, idx.shape[1])
+            if self._captured is None or self._captured.key != key:
+                self._captured = None  # frees the old graph first
+                self._captured = CapturedStep(
+                    key, (state, state.model, state.opt_state,
+                          state.dropout_generator, self.hazard_and_aux,
+                          self.batch_to_inputs),
+                    dict(idx=idx[0], valid=valid[0], scalars=scalars[0]),
+                    [state.dropout_generator])
+
+            def body(inputs):
+                batch = self._gather_batch(data, inputs["idx"],
+                                           inputs["valid"])
+                return self.train_step(state, batch, inputs["scalars"])
+
+            losses = []
+            for i, v, row in zip(idx, valid, scalars):
+                step, count = state.step, state.opt_state.count
+                loss, replayed = self._captured(body, idx=i, valid=v,
+                                                scalars=row)
+                if replayed:  # also puts back what a capture advanced
+                    state.step, state.opt_state.count = step + 1, count + 1
+                losses.append(loss)
+            self.step_losses = torch.stack(losses)
             return state, self._readback()
 
-    def _static_step(self, state: TrainState, data: dict, static):
-        """The step :meth:`train_epoch` captures: the batch gathered from
-        the cohort at ``static.idx`` (validity ``static.valid``), then
-        :meth:`train_step` with ``static.scalars``."""
-        batch = self._gather_batch(data, static.idx, static.valid)
-        return self.train_step(state, batch, static.scalars)
+    def _graph_key(self, state: TrainState, data: dict,
+                   batch_size: int) -> tuple:
+        """What :meth:`train_epoch`'s CUDA graph bakes in: the train state
+        (the objects, and the addresses of its parameters, buffers and
+        moments), its dropout generator, the cohort's tensors (addresses,
+        shapes, strides, dtypes), the batch size, the two adapters (whose
+        non-tensor outputs, such as SimMLM stage 1's ``main_scale``, are
+        constants of the adapter) and the TF32 and cuDNN flags."""
+        model = state.model
+        tensors = itertools.chain(model.parameters(), model.buffers(),
+                                  state.opt_state.mu, state.opt_state.nu)
+        return (id(state), id(model), id(state.opt_state),
+                id(state.dropout_generator),
+                tuple(t.data_ptr() for t in tensors),
+                tuple((k, v.data_ptr(), tuple(v.shape), v.stride(), v.dtype)
+                      for k, v in data.items()),
+                batch_size, id(self.hazard_and_aux),
+                id(self.batch_to_inputs), *backend_flags())
 
     def train_epoch_streaming(self, state: TrainState, host_data: dict,
                               indices, shuffle_rng: np.random.Generator,
@@ -705,110 +716,3 @@ class Trainer:
         finally:
             batches.close()
 
-
-class _StaticStep:
-    """:meth:`Trainer.train_epoch`'s step of one train state: the static
-    inputs of :meth:`Trainer._static_step` and, on a card, its CUDA graph.
-
-    The key (:meth:`make_key`) is what the graph bakes in: the train state
-    (the objects, and the addresses of its parameters, buffers and
-    moments), its dropout generator, the cohort's tensors (addresses,
-    shapes, strides, dtypes), the batch size, the Trainer's two adapters
-    (whose non-tensor outputs, such as SimMLM stage 1's ``main_scale``,
-    are constants of the adapter) and the TF32 and cuDNN flags. A new key
-    makes a new ``_StaticStep``, and the old graph goes with the old one.
-
-    On a card the first step runs eagerly on the capture stream (the
-    warm-up: kernel libraries load, cuBLAS and cuDNN set up for that
-    stream, and the bf16 ``moments`` counters of that stream are made
-    outside the graph's pool). The second is captured (span
-    ``setup.capture``; nothing runs, so the state and its host counters
-    stay as they were) and then replayed. Every replayed step copies its
-    row of the epoch's indices, validity and scalars into the static
-    buffers, replays the graph and copies its loss out (span
-    ``train.step`` around ``train.replay``), then advances ``state.step``
-    and Adam's count as the eager step does. The fused kernels' launch
-    counts (``ops/fused_dense.py``) count the wrappers' calls, the
-    warm-up's and the capture's: a replay launches the captured kernels
-    without them, and a device trace counts those. The dropout generator
-    is registered with the graph, so each replay draws the next masks of
-    its Philox stream, as an eager step would. On the CPU every step runs
-    the same body eagerly."""
-
-    def __init__(self, key: tuple, trainer: Trainer, state: TrainState,
-                 batch_size: int):
-        dev = trainer.device
-        self.key = key
-        # the keyed objects stay alive with the graph, so their ids do not
-        # pass to others
-        self._held = (state, state.model, state.opt_state,
-                      state.dropout_generator, trainer.hazard_and_aux,
-                      trainer.batch_to_inputs)
-        self.idx = torch.zeros(batch_size, dtype=torch.int64, device=dev)
-        self.valid = torch.zeros(batch_size, dtype=torch.float32, device=dev)
-        self.scalars = torch.zeros(3, dtype=state.opt_state.mu[0].dtype,
-                                   device=dev)
-        self.stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-        self.warm = False  # the warm-up has run
-        self.graph = self.loss = None
-
-    @staticmethod
-    def make_key(trainer: Trainer, state: TrainState, data: dict,
-                 batch_size: int) -> tuple:
-        model = state.model
-        tensors = itertools.chain(model.parameters(), model.buffers(),
-                                  state.opt_state.mu, state.opt_state.nu)
-        return (id(state), id(model), id(state.opt_state),
-                id(state.dropout_generator),
-                tuple(t.data_ptr() for t in tensors),
-                tuple((k, v.data_ptr(), tuple(v.shape), v.stride(), v.dtype)
-                      for k, v in data.items()),
-                batch_size, id(trainer.hazard_and_aux),
-                id(trainer.batch_to_inputs),
-                torch.backends.cuda.matmul.allow_tf32,
-                torch.backends.cudnn.allow_tf32,
-                torch.backends.cudnn.benchmark,
-                torch.backends.cudnn.deterministic)
-
-    def step(self, trainer: Trainer, state: TrainState, data: dict,
-             row) -> torch.Tensor:
-        """One step on ``row`` (this step's indices, validity and scalars,
-        on the device); returns its loss (a device scalar)."""
-        if self.graph is None and self.warm:
-            self._capture(trainer, state, data)
-        if self.graph is not None:
-            with span("train.step"), span("train.replay"):
-                self._fill(row)
-                self.graph.replay()
-                loss = self.loss.clone()
-            state.step += 1
-            state.opt_state.count += 1
-            return loss
-        self._fill(row)
-        if self.stream is None:
-            return trainer._static_step(state, data, self)
-        main = torch.cuda.current_stream(trainer.device)
-        self.stream.wait_stream(main)
-        with torch.cuda.stream(self.stream):
-            loss = trainer._static_step(state, data, self)
-        main.wait_stream(self.stream)
-        loss.record_stream(main)
-        self.warm = True
-        return loss
-
-    def _fill(self, row):
-        idx, valid, scalars = row
-        self.idx.copy_(idx)
-        self.valid.copy_(valid)
-        self.scalars.copy_(scalars)
-
-    def _capture(self, trainer, state, data):
-        counts = state.step, state.opt_state.count
-        graph = torch.cuda.CUDAGraph()
-        if state.dropout_generator.device.type == "cuda":
-            graph.register_generator_state(state.dropout_generator)
-        with span("setup.capture"):
-            with torch.cuda.graph(graph, stream=self.stream):
-                self.loss = trainer._static_step(state, data, self)
-        state.step, state.opt_state.count = counts
-        self.graph = graph

@@ -24,21 +24,23 @@ The spans and where they are opened:
                             ``Trainer._train_batches``: a whole epoch;
                             ``train/cv_parallel.py``'s stacked epoch
 ``train.step``              ``Trainer.train_step``, or a replay: one
-                            optimizer step; one stacked step of all folds
+                            optimizer step; ``train/cv_parallel.py``'s
+                            stacked step of all folds, or its replay
 ``train.forward``           ``Trainer.loss_and_grads``: model and loss
 ``train.backward``          ``Trainer.loss_and_grads``: autograd's
                             backward and the mesh's all-reduce
 ``train.optimizer``         ``Trainer.train_step``: clip, Adam and the
                             parameter update
-``train.replay``            ``train/engine.py:_StaticStep`` and
-                            ``train/cv_parallel.py:_StackedGraph``: a step
+``train.replay``            ``train/graphs.py:CapturedStep``: a step of
+                            ``train_epoch`` or of the stacked epoch
                             replayed as a CUDA graph (its input copies,
                             the replay, the loss copy), inside its
                             ``train.step``
 ``train.readback``          ``Trainer._readback``: the epoch's mean loss
                             read back to the host
-``setup.capture``           ``_StaticStep``, ``_StackedGraph``: the
-                            capture of a step's CUDA graph
+``setup.capture``           ``CapturedStep``: the capture of a step's
+                            CUDA graph (around the captured body's
+                            ``train.step``)
 ``setup.init_state``        ``Trainer.init_state``: model build, copy to
                             the device, dropout generator, moments
 ``setup.kernel_library``    ``io/aot_cache.py:load_or_build``: key, load

@@ -968,7 +968,7 @@ def _stepwise(make, data, steps, bf16=False):
                      == (states[0].step, states[0].opt_state.count)
                      for st in states[1:]),
             launches=launches[:2], other=other))
-    assert trainers[0]._static.graph is not None
+    assert trainers[0]._captured.graph is not None
     return out, trainers[0], states[0]
 
 
@@ -1085,7 +1085,7 @@ def test_captured_epochs_on_card(cuda_device):
     assert _replayed_epoch_kernels(tr, state, data, rows,
                                    [4 * 6] * 4) == [4 * 6] * 4
 
-    assert tr._static.graph is not None
+    assert tr._captured.graph is not None
     for change in ("batch", "cohort", "state"):
         if change == "batch":
             tr.cfg = engine.TrainConfig(batch_size=4, learning_rate=1e-3,
@@ -1094,9 +1094,9 @@ def test_captured_epochs_on_card(cuda_device):
             data = {k: v.clone() for k, v in data.items()}
         else:
             state = tr.init_state(fold=2)
-        before = tr._static
+        before = tr._captured
         tr.train_epoch(state, data, rows, np.random.default_rng(3), 1e-3)
-        assert tr._static is not before and tr._static.graph is not None
+        assert tr._captured is not before and tr._captured.graph is not None
     torch.cuda.synchronize()
 
 
@@ -1152,6 +1152,18 @@ def _copy_stacked(dst, src):
         a.set_state(b.get_state())
 
 
+def _eager_stacked(step, tr, state, batch, lr, valid):
+    """One call of the stacked body ``step`` from the host counts, as the
+    epoch runs a step it does not capture: the bias corrections of the
+    counts each fold reaches, then the valid folds' counts advanced."""
+    bc = torch.from_numpy(tr.tx.bias_corrections(
+        np.maximum(state.count + valid, 1))).to(state.device, state.mu.dtype)
+    loss = step(state, batch, lr, bc, valid)
+    state.count = state.count + valid
+    state.step = state.step + valid
+    return loss
+
+
 def _fold_snapshot(state, k):
     return ([t[k].clone() for t in state._tensors()],
             state.generators[k].get_state())
@@ -1162,8 +1174,8 @@ def _fold_snapshot(state, k):
 def test_replayed_stacked_steps_match_eager_on_card(cuda_device, case):
     """The stacked epoch of ``train/cv_parallel.py`` on the card, one step
     an epoch call (the warm-up, the capture and its replay, then replays),
-    each step against the eager body (``_build_parallel_train_step``'s
-    ``step``) from the same stacked state, twice: partial_modality with
+    each step against the body (``_build_parallel_train_step``) run
+    eagerly from the same stacked state, twice: partial_modality with
     dropout on, two folds of ``simple_cnn`` at 16x16x8, three of the
     DenseNet with ``fused_bn1`` (what the fold cell runs), and two folds
     of unequal length, whose tail step masks one fold. Held as
@@ -1210,7 +1222,7 @@ def test_replayed_stacked_steps_match_eager_on_card(cuda_device, case):
     runs = [_stacked(make, folds) for _ in range(3)]
     (tr, graph), (_, eager), (_, again) = runs
     epoch = cv_parallel._build_parallel_train_epoch(tr)
-    steps = {id(t): cv_parallel._build_parallel_train_step(t)[0]
+    steps = {id(t): cv_parallel._build_parallel_train_step(t)
              for t, _ in runs[1:]}
     batches = list(cv_parallel.stacked_batches(tr, data, idx, bv))
     lr = torch.tensor(lrs[:, None], dtype=torch.float32,
@@ -1228,8 +1240,8 @@ def test_replayed_stacked_steps_match_eager_on_card(cuda_device, case):
                                                lrs)[0][0])
         losses = [got]
         for t, st in runs[1:]:
-            loss, eager_calls, _ = _counted(
-                lambda: steps[id(t)](st, batch, lr, valid))
+            loss, eager_calls, _ = _counted(lambda: _eager_stacked(
+                steps[id(t)], t, st, batch, lr, valid))
             losses.append(loss)
         torch.cuda.synchronize()
         fold_rows = []
@@ -1327,9 +1339,10 @@ def test_replayed_stacked_epoch_streams_on_card(cuda_device):
         graph, cv_parallel.stacked_batches(tr, host, idx, bv,
                                            streaming=True),
         step_valid, lrs)[0]
-    step = cv_parallel._build_parallel_train_step(tr_e)[0]
+    step = cv_parallel._build_parallel_train_step(tr_e)
     lr = torch.tensor(lrs[:, None], dtype=torch.float32, device=cuda_device)
-    want = torch.stack([step(eager, b, lr, step_valid[:, s]) for s, b in
+    want = torch.stack([_eager_stacked(step, tr_e, eager, b, lr,
+                                       step_valid[:, s]) for s, b in
                         enumerate(cv_parallel.stacked_batches(
                             tr_e, data, idx, bv))])
     got, want = got.cpu(), want.cpu()

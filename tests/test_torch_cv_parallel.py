@@ -8,10 +8,11 @@ functorch's vmap fallback warning on and the fallback itself off, so an op
 without a batching rule raises instead of looping over the folds.
 Tolerances:
   * ``_stack_fold_indices``: exact;
-  * ``Optimizer.update_stacked`` against ``update`` per state, and
-    ``update_stacked_static`` against ``update_stacked``: exact;
-  * the stacked epoch on the CPU against a loop of its eager step: exact
-    (it builds no CUDA graph there);
+  * ``Optimizer.update_stacked``, its bias corrections a row of one
+    ``bias_corrections`` table, against ``update`` per state, the states
+    at equal or at different Adam counts: exact;
+  * the stacked epoch on the CPU against a loop of its step: exact (it
+    builds no CUDA graph there);
   * the vmapped epoch against the port's sequential epochs, per fold, with
     dropout on and unequal step counts, in float64: epoch losses 1e-5,
     parameters, BatchNorm running stats and Adam's moments rtol 2e-5 /
@@ -174,15 +175,20 @@ def test_vmapped_calls_refuse_the_fallback():
     assert torch._C._functorch._is_vmap_fallback_enabled()
 
 
+@pytest.mark.parametrize("counts", ["aligned", "staggered"])
 @pytest.mark.parametrize("k", [1, 3])
 @pytest.mark.parametrize("clip", [None, 1e9, 0.1])
 @pytest.mark.parametrize("kind", ["adam", "adamw"])
-def test_stacked_update_equals_update_per_state(kind, clip, k):
-    """``Optimizer.update_stacked`` on K flat rows against ``update`` on
+def test_stacked_update_equals_update_per_state(kind, clip, k, counts):
+    """``Optimizer.update_stacked`` on K flat rows, its bias corrections
+    each step's row of one (steps, K, 2) ``bias_corrections`` table in the
+    moments' dtype (as the stacked epoch reads them), against ``update`` on
     each state's tensors, over five steps with per-state learning rates:
     parameters and moments bit-equal (one arithmetic serves both; each
     row's clip norm is reduced over its parameters' norms, as ``update``
-    reduces it). clip 1e9 never binds, 0.1 always does."""
+    reduces it). ``aligned`` starts every state at Adam count 0,
+    ``staggered`` at 4, 0 and 11. clip 1e9 never binds, 0.1 always
+    does."""
     tx = engine.Optimizer(engine.TrainConfig(optimizer=kind, grad_clip=clip,
                                              weight_decay=1e-4))
     shapes = [(16, 7), (16,), (5, 3, 3), (33,), (1,)]
@@ -195,8 +201,15 @@ def test_stacked_update_equals_update_per_state(kind, clip, k):
     def flat(ts):
         return torch.cat([t.reshape(-1) for t in ts])
 
+    start = (np.zeros(k, np.int64) if counts == "aligned"
+             else np.array([4, 0, 11])[:k])
     params = [draw() for _ in range(k)]
     opt = [tx.init(p) for p in params]
+    for o, c in zip(opt, start):
+        o.count = int(c)
+    table = torch.from_numpy(tx.bias_corrections(
+        (start[:, None] + np.arange(1, 6)).T)).to(torch.float32)
+    assert table.shape == (5, k, 2)
     stacked = torch.stack([flat(p) for p in params])
     mu, nu = torch.zeros_like(stacked), torch.zeros_like(stacked)
     for step in range(1, 6):
@@ -206,50 +219,14 @@ def test_stacked_update_equals_update_per_state(kind, clip, k):
             updates, opt[i] = tx.update(grads[i], opt[i], params[i], lrs[i])
             torch._foreach_add_(params[i], updates)
         tx.update_stacked(torch.stack([flat(g) for g in grads]), mu, nu,
-                          stacked, np.full(k, step),
+                          stacked, table[step - 1],
                           torch.tensor(lrs)[:, None],
                           [t.numel() for t in params[0]])
         for i in range(k):
-            assert opt[i].count == step
+            assert opt[i].count == start[i] + step
             assert torch.equal(stacked[i], flat(params[i]))
             assert torch.equal(mu[i], flat(opt[i].mu))
             assert torch.equal(nu[i], flat(opt[i].nu))
-
-
-@pytest.mark.parametrize("clip", [None, 1e9, 0.1])
-@pytest.mark.parametrize("kind", ["adam", "adamw"])
-def test_stacked_static_update_equals_update_stacked(kind, clip):
-    """``Optimizer.update_stacked_static``, its bias corrections a row of
-    one (steps, K, 2) ``stacked_corrections`` table in the moments' dtype
-    (as the replayed stacked epoch reads them), against
-    ``update_stacked`` with the host counts: parameters and moments
-    bit-equal over five steps, the three states at different Adam counts
-    and learning rates."""
-    tx = engine.Optimizer(engine.TrainConfig(optimizer=kind, grad_clip=clip,
-                                             weight_decay=1e-4))
-    sizes = [16 * 7, 16, 45, 33, 1]
-    rng = np.random.default_rng(7)
-    params = torch.from_numpy(rng.normal(size=(3, sum(sizes))).astype(
-        np.float32))
-    mine = [params.clone(), torch.zeros_like(params),
-            torch.zeros_like(params)]
-    ref = [params.clone(), torch.zeros_like(params),
-           torch.zeros_like(params)]
-    start = np.array([0, 4, 11])
-    counts = start[:, None] + np.arange(1, 6)  # (K, steps)
-    table = torch.from_numpy(tx.stacked_corrections(counts.T)).to(
-        torch.float32)
-    assert table.shape == (5, 3, 2)
-    lr = torch.tensor([[1e-3], [3e-3], [2e-2]])
-    for step in range(5):
-        grads = torch.from_numpy(
-            3 * rng.normal(size=params.shape).astype(np.float32))
-        tx.update_stacked(grads, ref[1], ref[2], ref[0], counts[:, step],
-                          lr, sizes)
-        tx.update_stacked_static(grads, mine[1], mine[2], mine[0],
-                                 table[step], lr, sizes)
-        for a, b in zip(mine, ref):
-            assert torch.equal(a, b), step
 
 
 def _key_state():
@@ -265,39 +242,60 @@ def _key_state():
 
 @pytest.mark.parametrize("change", [
     "none", "fresh_batch", "params_address", "mu_address", "buffer_address",
-    "generator", "batch_shape", "matmul_tf32", "cudnn_tf32"])
+    "generator", "batch_shape"])
 def test_stacked_graph_key_follows_what_the_graph_reads(change):
-    """``_StackedGraph.make_key``: the same for the same state and another
+    """``cv_parallel._graph_key``: the same for the same state and another
     batch of the same shapes (the batch is copied into static buffers),
-    and another where a stacked tensor's address, a fold's generator, a
-    batch key's shape or a TF32 flag changes."""
+    and another where a stacked tensor's address, a fold's generator or a
+    batch key's shape changes."""
     tr, state, batch = _key_state()
-    key = cv_parallel._StackedGraph.make_key(tr, state, batch)
-    flags = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    try:
-        if change == "fresh_batch":
-            batch = {k: v.clone() for k, v in batch.items()}
-        elif change == "params_address":
-            state.params = state.params.clone()
-        elif change == "mu_address":
-            state.mu = state.mu.clone()
-        elif change == "buffer_address":
-            dt = next(iter(state.buffers))
-            state.buffers[dt] = state.buffers[dt].clone()
-        elif change == "generator":
-            state.generators[1] = torch.Generator().manual_seed(5)
-        elif change == "batch_shape":
-            batch = dict(batch, rnaseq=batch["rnaseq"][:, :4])
-        elif change == "matmul_tf32":
-            torch.backends.cuda.matmul.allow_tf32 = not flags[0]
-        elif change == "cudnn_tf32":
-            torch.backends.cudnn.allow_tf32 = not flags[1]
-        again = cv_parallel._StackedGraph.make_key(tr, state, batch)
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = flags
+    key = cv_parallel._graph_key(tr, state, batch)
+    if change == "fresh_batch":
+        batch = {k: v.clone() for k, v in batch.items()}
+    elif change == "params_address":
+        state.params = state.params.clone()
+    elif change == "mu_address":
+        state.mu = state.mu.clone()
+    elif change == "buffer_address":
+        dt = next(iter(state.buffers))
+        state.buffers[dt] = state.buffers[dt].clone()
+    elif change == "generator":
+        state.generators[1] = torch.Generator().manual_seed(5)
+    elif change == "batch_shape":
+        batch = dict(batch, rnaseq=batch["rnaseq"][:, :4])
+    again = cv_parallel._graph_key(tr, state, batch)
     assert (again == key) == (change in ("none", "fresh_batch"))
+
+
+@pytest.mark.parametrize("flag", [
+    (torch.backends.cuda.matmul, "allow_tf32"),
+    (torch.backends.cudnn, "allow_tf32"),
+    (torch.backends.cudnn, "benchmark"),
+    (torch.backends.cudnn, "deterministic")],
+    ids=["matmul_tf32", "cudnn_tf32", "cudnn_benchmark",
+         "cudnn_deterministic"])
+@pytest.mark.parametrize("caller", ["trainer", "stacked"])
+def test_graph_keys_follow_the_backend_flags(monkeypatch, caller, flag):
+    """Both keys of a captured step (``Trainer._graph_key`` and
+    ``cv_parallel._graph_key``) change with each TF32 and cuDNN flag that
+    a CUDA graph bakes in, and are the same again when it is set back."""
+    tr, state, batch = _key_state()
+    if caller == "trainer":
+        single = tr.init_state(fold=1)
+        data = {k: torch.from_numpy(v) for k, v in _epoch_data().items()}
+
+        def key():
+            return tr._graph_key(single, data, 8)
+    else:
+        def key():
+            return cv_parallel._graph_key(tr, state, batch)
+    module, name = flag
+    was = getattr(module, name)
+    before = key()
+    monkeypatch.setattr(module, name, not was)
+    assert key() != before
+    monkeypatch.setattr(module, name, was)
+    assert key() == before
 
 
 # ---------------------------------------------------------------------------
@@ -412,25 +410,24 @@ def _epoch_trainer(name, dtype=torch.float32):
 
 
 def test_stacked_epoch_stays_eager_off_the_card(monkeypatch):
-    """On the CPU the stacked epoch never builds a CUDA graph and runs the
-    eager body: two folds of partial_modality with unequal step counts
-    (the third step masked for the first fold), dropout on, against a loop
-    of the builder's eager ``step`` over the same batches from the same
-    start, in float32: losses, parameters, moments, buffers, counts and
-    generators bit-equal. It records ``train.epoch`` around one
-    ``train.step`` a step, masked steps included, and no replay. The
-    replay engages only on a card without a mesh."""
+    """On the CPU the stacked epoch never captures a CUDA graph: two folds
+    of partial_modality with unequal step counts (the third step masked for
+    the first fold), dropout on, against a loop of the builder's step over
+    the same batches from the same start, its bias corrections from the
+    host counts, in float32: losses, parameters, moments, buffers, counts
+    and generators bit-equal. It records ``train.epoch`` around one
+    ``train.step`` a step, masked steps included, and no replay. A step
+    goes through the captured step only with no mesh and every fold valid,
+    and that captures only on a card."""
     from types import SimpleNamespace
 
+    from multimodal_survival_prediction_tpu_torch.train import graphs
     from multimodal_survival_prediction_tpu_torch.utils import profiling
 
-    class _NoGraph:
-        def __init__(self, *a, **k):
-            raise AssertionError("a CUDA graph on the CPU")
+    def no_graph(*a, **k):
+        raise AssertionError("a CUDA graph on the CPU")
 
-        make_key = staticmethod(__init__)
-
-    monkeypatch.setattr(cv_parallel, "_StackedGraph", _NoGraph)
+    monkeypatch.setattr(graphs.CapturedStep, "_capture", no_graph)
     data = {k: torch.from_numpy(v) for k, v in _epoch_data().items()}
     rows = [np.arange(15), np.arange(10, 30)]
     lrs = np.array([1e-3, 2e-3])
@@ -449,10 +446,17 @@ def test_stacked_epoch_stays_eager_off_the_card(monkeypatch):
                 state, batches, step_valid, lrs)[0]
             recs = profiling.spans()
         else:
-            step = cv_parallel._build_parallel_train_step(tr)[0]
+            step = cv_parallel._build_parallel_train_step(tr)
             lr = torch.tensor(lrs[:, None], dtype=torch.float32)
-            losses = torch.stack([step(state, b, lr, step_valid[:, s])
-                                  for s, b in enumerate(batches)])
+            losses = []
+            for s, b in enumerate(batches):
+                valid = step_valid[:, s]
+                bc = torch.from_numpy(tr.tx.bias_corrections(
+                    np.maximum(state.count + valid, 1))).float()
+                losses.append(step(state, b, lr, bc, valid))
+                state.count = state.count + valid
+                state.step = state.step + valid
+            losses = torch.stack(losses)
         runs.append((losses, state))
     assert step_valid.tolist() == [[True, True, False], [True, True, True]]
     (got, par), (want, ref) = runs
@@ -469,14 +473,15 @@ def test_stacked_epoch_stays_eager_off_the_card(monkeypatch):
     assert not any(r.name in ("train.replay", "setup.capture")
                    for r in recs)
 
-    def engages(mesh, device):
-        return cv_parallel._replays(
-            SimpleNamespace(mesh=mesh),
-            SimpleNamespace(device=torch.device(device)))
+    def graphed(mesh, valid):
+        return cv_parallel._graphed(SimpleNamespace(mesh=mesh),
+                                    np.array(valid))
 
-    assert engages(None, "cuda")
-    assert not engages(object(), "cuda")  # a fold mesh's data group
-    assert not engages(None, "cpu")
+    assert graphed(None, [True, True])
+    assert not graphed(object(), [True, True])  # a fold mesh's data group
+    assert not graphed(None, [True, False])
+    cpu = graphs.CapturedStep((), (), {"x": torch.zeros(2)})
+    assert cpu.stream is None  # runs its body, never captures
 
 
 # ---------------------------------------------------------------------------

@@ -126,40 +126,51 @@ def test_multihost_two_processes(tmp_path, single, launch):
     """``--multihost --tp 2`` in two processes launched here, rendezvous
     at rank 0's address given by the JAX flags or by torchrun's
     environment: the coordinator writes the synthetic cohort and the
-    artifacts and prints the summary."""
-    port = _free_port()
+    artifacts and prints the summary.
+
+    The free port is found by binding and closing a socket, so another
+    process may take it before rank 0 listens there; rank 0 then fails
+    with EADDRINUSE, and rank 1 waits on whatever holds the port. Only
+    then are both launched again, on a fresh port and in a fresh
+    directory, at most three times in all."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
     for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
         env.pop(k, None)
 
-    def how(i):
+    def how(i, port):
         if launch == "coordinator":
             return env, ["--coordinator", f"127.0.0.1:{port}",
                          "--num-processes", "2", "--process-id", str(i)]
         return dict(env, RANK=str(i), WORLD_SIZE="2",
                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)), []
 
-    procs = []
-    for i in range(2):
-        env_i, flags = how(i)
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m",
-             "multimodal_survival_prediction_tpu_torch.train."
-             "train_rnaseq_only",
-             *_argv(tmp_path, "--multihost", "--tp", "2", *flags)],
-            cwd=ROOT, env=env_i, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
-    outs = []
-    for p in procs:
+    for attempt in range(3):
+        root, port = tmp_path / f"attempt{attempt}", _free_port()
+        procs = []
+        for i in range(2):
+            env_i, flags = how(i, port)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m",
+                 "multimodal_survival_prediction_tpu_torch.train."
+                 "train_rnaseq_only",
+                 *_argv(root, "--multihost", "--tp", "2", *flags)],
+                cwd=ROOT, env=env_i, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
         try:
-            outs.append(p.communicate(timeout=180))
+            outs = [procs[0].communicate(timeout=180)]
+            if procs[0].returncode and "EADDRINUSE" in outs[0][1]:
+                continue
+            outs.append(procs[1].communicate(timeout=180))
+            break
         finally:
-            p.kill()
+            for p in procs:
+                p.kill()
+                p.wait()
     for p, (_, err) in zip(procs, outs):
         assert p.returncode == 0, err[-3000:]
     assert "RNASeq-Only: C-index" in outs[0][0]
     assert "C-index" not in outs[1][0]
-    payload, _ = _written_once(tmp_path, "rnaseq_only")
+    payload, _ = _written_once(root, "rnaseq_only")
     _held(payload, single["rna"])
 
 

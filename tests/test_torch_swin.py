@@ -258,7 +258,7 @@ def test_replayed_step_equals_eager_step_on_card(cuda_device):
     and Adam carries that on; 1e-5 is ~100 float32 ulps of the loss."""
     profiling.reset_spans()
     (want, _, _), (got, _, tr) = _static_against_eager(cuda_device)
-    assert tr._static.graph is not None
+    assert tr._captured.graph is not None
     names = [r.name for r in profiling.spans()]
     assert names.count("train.replay") == 5  # steps 2 to 6
     rel = ((got - want).abs() / want.abs().clamp_min(1e-3)).max()

@@ -466,8 +466,8 @@ def test_static_input_step_equals_train_step(kind, clip, dtype):
         rng = np.random.default_rng(5)
         if static:
             tr.train_epoch(state, data, rows, rng, 1e-3)
-            assert tr._static.scalars.dtype == state.opt_state.mu[0].dtype \
-                == torch.float32
+            assert tr._captured.inputs["scalars"].dtype \
+                == state.opt_state.mu[0].dtype == torch.float32
             losses = tr.step_losses
         else:
             perm, bvalid = tr._pad_indices(rows, 4, rng)
@@ -494,8 +494,8 @@ def test_static_input_step_equals_train_step(kind, clip, dtype):
 
 
 def test_static_step_is_kept_per_state_cohort_and_batch():
-    """``train_epoch`` keeps its static step (on a card: its CUDA graph)
-    while the train state, the cohort's tensors and the batch size stay,
+    """``train_epoch`` keeps its ``CapturedStep`` (on a card: its CUDA
+    graph) while the train state, the cohort's tensors and the batch size stay,
     across epochs and learning rates and through a resume's in-place
     restore; a new ``init_state``, a cohort of other tensors and another
     batch size each make a new one."""
@@ -518,12 +518,13 @@ def test_static_step_is_kept_per_state_cohort_and_batch():
     rows, shuffle = np.arange(20), np.random.default_rng(1)
     state = tr.init_state(fold=1)
     tr.train_epoch(state, data, rows, shuffle, 1e-3)
-    first = tr._static
+    first = tr._captured
     tr.train_epoch(state, dict(data), rows, shuffle, 5e-4)
     engine.load_train_state_dict(state, engine.train_state_dict(state))
     tr.train_epoch(state, data, rows, shuffle, 1e-3)
-    assert tr._static is first and state.step == 15
-    assert first.idx.shape == (4,) and first.scalars.dtype == torch.float32
+    assert tr._captured is first and state.step == 15
+    assert first.inputs["idx"].shape == (4,)
+    assert first.inputs["scalars"].dtype == torch.float32
     seen = [first]
     for change in ("state", "cohort", "batch"):
         if change == "state":
@@ -533,6 +534,6 @@ def test_static_step_is_kept_per_state_cohort_and_batch():
         else:
             tr.cfg = engine.TrainConfig(batch_size=8)
         tr.train_epoch(state, data, rows, shuffle, 1e-3)
-        assert all(tr._static is not s for s in seen), change
-        seen.append(tr._static)
-    assert tr._static.idx.shape == (8,)
+        assert all(tr._captured is not s for s in seen), change
+        seen.append(tr._captured)
+    assert tr._captured.inputs["idx"].shape == (8,)
